@@ -1,0 +1,183 @@
+"""K2 and K3: fused gated convolutions (``csrc/gated_conv.cu``) and twins.
+
+Counterpart of ``read_tpu/ops/gated_conv_pack.py``: ``gated_conv3x3_chw``
+(:298-418, the 3x3 stride-1 kernels) together with the strided
+transitions ``read_tpu/models/unet_pallas.py`` ``_Ctx.conv`` routes
+through space-to-depth or im2col (:178-219) -> :func:`gated_conv_kxk`
+(K2); ``gated_conv1x1_chw`` (:441-506) -> :func:`gated_conv_1x1` (K3).
+
+One BasicConv of the UNet (``read_tpu/models/unet.py:130-184``) with its
+eval BatchNorm folded to ``scale``/``offset``::
+
+    fm  = conv(x, w) + b              # w: HWIO [k, k, Cin, 2*Cout]
+    out = act(fm[..., :Cout]) * sigmoid(fm[..., Cout:]) * scale + offset
+    out = out + res                   # optional fused residual
+
+``act`` is ELU when ``relu`` else identity. Activations are NHWC
+``[B, H, W, C]`` float32, as in JAX. ``bf16=True`` rounds both operands
+to bfloat16 and accumulates in float32 (JAX's ``bf16_mxu``).
+
+Each wrapper sends a CPU tensor to its plain twin and a CUDA tensor to
+its kernel (anything else raises). ``launches[<wrapper name>]`` counts
+each wrapper's kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from read_tpu_torch import _build
+
+__all__ = ["gated_epilogue", "gated_conv_kxk", "gated_conv_kxk_plain",
+           "gated_conv_1x1", "gated_conv_1x1_plain", "round_bf16",
+           "launches"]
+
+# kernel launches per wrapper (a CPU call runs the twin and counts nothing)
+launches = {"gated_conv_kxk": 0, "gated_conv_1x1": 0}
+
+
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """Round float32 values to bfloat16 (nearest even), kept as float32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def gated_epilogue(fm: torch.Tensor, b: torch.Tensor, scale: torch.Tensor,
+                   offset: torch.Tensor, res: Optional[torch.Tensor],
+                   relu: bool) -> torch.Tensor:
+    """Bias, ELU(f) * sigmoid(m) gate, folded BN affine, residual."""
+    fm = fm + b
+    c = fm.shape[-1] // 2
+    f, m = fm[..., :c], fm[..., c:]
+    if relu:
+        f = F.elu(f)
+    out = f * torch.sigmoid(m) * scale + offset
+    return out if res is None else out + res
+
+
+def _check(name, x, w, b, scale, offset, res, out_shape):
+    tensors = [x, w, b, scale, offset] + ([] if res is None else [res])
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: want float32 tensors, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name}: tensors on different devices")
+    cout = w.shape[-1] // 2
+    if w.shape[-1] != 2 * cout or w.shape[-2] != x.shape[-1]:
+        raise ValueError(f"{name}: weight {tuple(w.shape)} does not fit "
+                         f"input {tuple(x.shape)}")
+    if tuple(b.shape) != (2 * cout,) or tuple(scale.shape) != (cout,) \
+            or tuple(offset.shape) != (cout,):
+        raise ValueError(f"{name}: bias/scale/offset shapes do not match "
+                         f"Cout={cout}")
+    if res is not None and tuple(res.shape) != tuple(out_shape):
+        raise ValueError(f"{name}: residual {tuple(res.shape)} != output "
+                         f"{tuple(out_shape)}")
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for device {x.device}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: tensors must be contiguous")
+    return True
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def gated_conv_kxk_plain(x, w, b, scale, offset, res=None, *, stride=1,
+                         relu=True, bf16=False):
+    """Plain PyTorch twin of :func:`gated_conv_kxk` (``F.conv2d``)."""
+    k = w.shape[0]
+    if bf16:
+        x, w = round_bf16(x), round_bf16(w)
+    fm = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                  stride=stride, padding=(k - 1) // 2).permute(0, 2, 3, 1)
+    return gated_epilogue(fm, b, scale, offset, res, relu).contiguous()
+
+
+_KXK_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                 + [ctypes.c_void_p])
+
+
+def gated_conv_kxk(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                   scale: torch.Tensor, offset: torch.Tensor,
+                   res: Optional[torch.Tensor] = None, *, stride: int = 1,
+                   relu: bool = True, bf16: bool = False) -> torch.Tensor:
+    """K2: gated k x k conv (k in {3, 4}, stride in {1, 2}, zero pad
+    ``(k-1)//2``) of ``x [B, H, W, Cin]`` with ``w [k, k, Cin, 2*Cout]``;
+    returns ``[B, Ho, Wo, Cout]``."""
+    k = w.shape[0]
+    if w.dim() != 4 or w.shape[1] != k or k not in (3, 4) \
+            or stride not in (1, 2) or x.dim() != 4:
+        raise ValueError(f"gated_conv_kxk: unsupported x {tuple(x.shape)}"
+                         f", w {tuple(w.shape)}, stride {stride}")
+    bsz, h, wd, cin = x.shape
+    pad = (k - 1) // 2
+    ho = (h + 2 * pad - k) // stride + 1
+    wo = (wd + 2 * pad - k) // stride + 1
+    cout = w.shape[-1] // 2
+    if not _check("gated_conv_kxk", x, w, b, scale, offset, res,
+                  (bsz, ho, wo, cout)):
+        return gated_conv_kxk_plain(x, w, b, scale, offset, res,
+                                    stride=stride, relu=relu, bf16=bf16)
+    out = torch.empty((bsz, ho, wo, cout), dtype=torch.float32,
+                      device=x.device)
+    fn = _build.function("gated_conv", "gated_conv_kxk", _KXK_ARGTYPES)
+    err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), scale.data_ptr(),
+             offset.data_ptr(), _ptr(res), out.data_ptr(), bsz, h, wd, cin,
+             cout, k, stride, int(relu), int(bf16),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "gated_conv_kxk")
+    launches["gated_conv_kxk"] += 1
+    return out
+
+
+def gated_conv_1x1_plain(x, w, b, scale, offset, res=None, *, relu=True,
+                         bf16=False):
+    """Plain PyTorch twin of :func:`gated_conv_1x1` (``torch.matmul``)."""
+    w2 = w.reshape(w.shape[-2], w.shape[-1])
+    if bf16:
+        x, w2 = round_bf16(x), round_bf16(w2)
+    return gated_epilogue(torch.matmul(x, w2), b, scale, offset, res,
+                          relu).contiguous()
+
+
+_1X1_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                 + [ctypes.c_void_p])
+
+
+def gated_conv_1x1(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                   scale: torch.Tensor, offset: torch.Tensor,
+                   res: Optional[torch.Tensor] = None, *,
+                   relu: bool = True, bf16: bool = False) -> torch.Tensor:
+    """K3: gated 1x1 conv, ``[..., Cin] @ [Cin, 2*Cout]`` + epilogue.
+    ``w`` is ``[1, 1, Cin, 2*Cout]`` or ``[Cin, 2*Cout]``; returns
+    ``[..., Cout]``."""
+    if w.dim() == 4:
+        if tuple(w.shape[:2]) != (1, 1):
+            raise ValueError(f"gated_conv_1x1: weight {tuple(w.shape)} "
+                             "is not 1x1")
+        w = w.reshape(w.shape[2], w.shape[3])
+    cout = w.shape[-1] // 2
+    out_shape = tuple(x.shape[:-1]) + (cout,)
+    if not _check("gated_conv_1x1", x, w, b, scale, offset, res,
+                  out_shape):
+        return gated_conv_1x1_plain(x, w, b, scale, offset, res,
+                                    relu=relu, bf16=bf16)
+    cin = x.shape[-1]
+    n = x.numel() // max(cin, 1)
+    out = torch.empty(out_shape, dtype=torch.float32, device=x.device)
+    fn = _build.function("gated_conv", "gated_conv_1x1", _1X1_ARGTYPES)
+    err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), scale.data_ptr(),
+             offset.data_ptr(), _ptr(res), out.data_ptr(), n, cin, cout,
+             int(relu), int(bf16),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "gated_conv_1x1")
+    launches["gated_conv_1x1"] += 1
+    return out
+
