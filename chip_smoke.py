@@ -16,16 +16,31 @@ without a device it exits non-zero at once. It
    from a random-weight full-width checkpoint written in ``read_tpu``'s
    format, over a 1M-point scene at 1216x368, and checks every kernel
    ran on that path (launch counters);
-4. times ``read_tpu_torch.frame.make_frame`` at B=1 and B=4 with bf16
+4. holds K5, the exact z-buffer, bit-equal against its twin at 1M
+   points (1216x368 at B=1 and 2, with heavy ties, and 256x256 at B=8)
+   and times both;
+5. trains: one full training step from a fresh full-width state, with
+   K5 and with its twin (cuDNN deterministic), must give bit-equal
+   pyramids and the same loss and gradients within 1e-6 relative; then
+   10 steps at the bench operating point (256x256 crops, B=8, 1M
+   points, VGG on, the default config) are timed (2 warm-up, 5 timed)
+   and must lower the loss on their fixed batch;
+6. saves the trained state as a ``read_tpu`` checkpoint with the
+   default config (``sort``) and serves 2 requests from it at 1216x368,
+   through K5, K2 and K3;
+7. times ``read_tpu_torch.frame.make_frame`` at B=1 and B=4 with bf16
    and f32 operands, and compares one B=1 frame (f32 and bf16 operands)
    with the same frame with every kernel swapped for its twin.
 
 TF32 is off throughout, so the twins' convolutions and matmuls are full
 float32. Any failed check raises and the script exits non-zero. The
 last stdout line is ``{"ok": true, "device": {...}}``; the line before
-it lists each kernel's launches, error and times.
+it lists each kernel's launches (counted on the run of the path it
+serves: K1-K3 on the serving path, K5 on the training steps), error and
+times.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -40,6 +55,8 @@ BF16_TOL = dict(atol=0.35, rtol=0.05)    # same file, bf16 operands
 FRAME_TOL = dict(atol=5e-4, rtol=1e-3)   # whole UNet, f32
 N_POINTS = 1_000_000
 HW = (368, 1216)
+TRAIN_B, TRAIN_HW = 8, 256
+TRAIN_STEPS, WARMUP, TIMED = 10, 2, 5
 KERNELS = {
     "zbuffer": ("read_tpu_torch/csrc/zbuffer.cu",
                 "read_tpu/ops/rasterize_pallas.py:145"),
@@ -47,6 +64,8 @@ KERNELS = {
                        "read_tpu/ops/gated_conv_pack.py:190"),
     "gated_conv_1x1": ("read_tpu_torch/csrc/gated_conv.cu",
                        "read_tpu/ops/gated_conv_pack.py:421"),
+    "zbuffer_exact": ("read_tpu_torch/csrc/zbuffer.cu",
+                      "read_tpu/ops/rasterize_pallas.py:40"),
 }
 
 
@@ -110,6 +129,7 @@ class Twins:
         from read_tpu_torch.ops import gated_conv as GC
         from read_tpu_torch.ops import rasterize_kernels as RK
         self.saved = [(RK, "zbuffer", RK.zbuffer),
+                      (RK, "zbuffer_exact", RK.zbuffer_exact),
                       (GC, "gated_conv_kxk", GC.gated_conv_kxk),
                       (GC, "gated_conv_1x1", GC.gated_conv_1x1)]
         for mod, name, _ in self.saved:
@@ -171,6 +191,181 @@ def phase_zbuffer(report, dev):
         if b == 1:
             report["zbuffer"].update(ms=t_k, plain_ms=t_p)
     report["zbuffer"]["max_abs_err"] = 0.0
+
+
+def phase_zbuffer_exact(report, dev):
+    import torch
+    from read_tpu_torch.frame import frame_inputs, train_inputs
+    from read_tpu_torch.ops import rasterize_kernels as RK
+    cases = []
+    for b in (1, 2):
+        cases.append((f"B={b}", *frame_inputs(b, N_POINTS, HW), HW))
+    xyz, ms = frame_inputs(1, N_POINTS, HW)
+    # every position 4 times: exact depth ties, won by the least id
+    cases.append(("B=1 ties", np.tile(xyz[:N_POINTS // 4], (4, 1)), ms,
+                  HW))
+    xyz, ms, _ = train_inputs(TRAIN_B, N_POINTS, TRAIN_HW)
+    cases.append((f"B={TRAIN_B}", xyz, ms, (TRAIN_HW, TRAIN_HW)))
+    for label, xyz, ms, hw in cases:
+        xyz = torch.from_numpy(xyz).to(dev)
+        ms = torch.from_numpy(ms).to(dev)
+        i_k, d_k = RK.zbuffer_exact(xyz, ms, *hw)
+        i_p, d_p = RK.zbuffer_exact_plain(xyz, ms, *hw)
+        torch.cuda.synchronize()
+        if not torch.equal(i_k, i_p):
+            raise SmokeFailure(f"zbuffer_exact {label}: index differs from "
+                               f"twin at {int((i_k != i_p).sum())} pixels")
+        if not torch.equal(d_k, d_p):
+            raise SmokeFailure(f"zbuffer_exact {label}: depth differs")
+        filled = float((i_k >= 0).float().mean())
+        t_k = event_ms(lambda: RK.zbuffer_exact(xyz, ms, *hw), iters=20)
+        t_p = event_ms(lambda: RK.zbuffer_exact_plain(xyz, ms, *hw),
+                       iters=20)
+        print(f"[zbuffer_exact] {label} N={xyz.shape[0]} {hw[1]}x{hw[0]}: "
+              f"bit-equal, {filled:.3f} of pixels covered; kernel "
+              f"{t_k:.4f} ms, twin {t_p:.4f} ms")
+    # the training step's shape (the last case)
+    report["zbuffer_exact"].update(ms=t_k, plain_ms=t_p, max_abs_err=0.0)
+
+
+def train_setup(dev):
+    """The bench training operating point on ``dev``: ``(net, cfg, vgg,
+    state, xyz, batch)`` with a fresh full-width state and random VGG
+    weights, both from seeded ``torch.Generator``s."""
+    import torch
+    from read_tpu_torch.criterions import vgg as V
+    from read_tpu_torch.frame import train_inputs
+    from read_tpu_torch.pipelines import texture_pipeline as TP
+    xyz, ms, target = train_inputs(TRAIN_B, N_POINTS, TRAIN_HW)
+    cfg = TP.PipelineConfig(crop_size=(TRAIN_HW, TRAIN_HW))
+    vgg = V.random_vgg_params(torch.Generator().manual_seed(0), device=dev)
+    state, net = TP.create_state(torch.Generator().manual_seed(0), cfg,
+                                 N_POINTS, device=dev)
+    batch = {"total_m": torch.from_numpy(ms).to(dev),
+             "target": torch.from_numpy(target).to(dev)}
+    return net, cfg, vgg, state, torch.from_numpy(xyz).to(dev), batch
+
+
+def phase_train_vs_twin(ctx):
+    """One step's pyramid, loss and gradients with K5 and with its twin,
+    from the same state, with cuDNN deterministic."""
+    import torch
+    from read_tpu_torch.ops import rasterize as R
+    from read_tpu_torch.pipelines import texture_pipeline as TP
+    net, cfg, vgg, state, xyz, batch = ctx["train"]
+    runs = []
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for twin in (False, True):
+            with Twins() if twin else contextlib.nullcontext():
+                levels = R.rasterize_pyramid_pooled(
+                    xyz, batch["total_m"], cfg.crop_size, cfg.num_scales,
+                    method=cfg.raster_method)
+                pyr = TP.build_pyramid(cfg, state.texture, xyz,
+                                       batch["total_m"])
+                metrics, _, _, g_net, g_tex = TP._loss_and_grads(
+                    net, cfg, vgg, state, xyz, batch, False)
+            runs.append(([t for lv in levels for t in lv] + pyr,
+                         metrics["loss"],
+                         {**state.layout.views(g_net), "texture": g_tex}))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    (maps_k, loss_k, g_k), (maps_p, loss_p, g_p) = runs
+    if not all(torch.equal(a, b) for a, b in zip(maps_k, maps_p)):
+        raise SmokeFailure("train_vs_twin: pyramids differ")
+    rel = float((loss_k - loss_p).abs() / loss_p.abs())
+    worst = max(float((g_k[k] - g).abs().max() / g.abs().max().clamp(
+        min=1e-30)) for k, g in g_p.items())
+    if not rel <= 1e-6 or not worst <= 1e-6:
+        raise SmokeFailure(f"train_vs_twin: loss rel {rel:.3g}, worst "
+                           f"gradient rel {worst:.3g} (bound 1e-6)")
+    print(f"[train_vs_twin] pyramids bit-equal ({len(maps_k)} maps); loss "
+          f"{float(loss_k):.6g} rel diff {rel:.3g}; {len(g_k)} gradients, "
+          f"worst rel diff {worst:.3g} (bound 1e-6)")
+
+
+def phase_train(report, ctx):
+    """The main path of this slice: 10 train steps at the bench point,
+    2 warm-up and 5 timed among them, through the pipeline API."""
+    import torch
+    from read_tpu_torch.pipelines import texture_pipeline as TP
+    net, cfg, vgg, state, xyz, batch = ctx["train"]
+    step = TP.make_train_step(net, cfg, vgg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses = []
+    for i in range(TRAIN_STEPS):
+        if i == WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, metrics = step(state, xyz, batch)
+        losses.append(metrics["loss"])
+        if i == WARMUP + TIMED - 1:
+            torch.cuda.synchronize()
+            seconds = (time.perf_counter() - t0) / TIMED
+    torch.cuda.synchronize()
+    counts = launches()
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SmokeFailure(f"train: losses {losses} not finite or not "
+                           "lower at the end")
+    if counts["zbuffer_exact"] == 0:
+        raise SmokeFailure("train: K5 never ran on the training path")
+    report["zbuffer_exact"]["launches"] = counts["zbuffer_exact"]
+    print(f"[train] {TRAIN_B}x{TRAIN_HW}^2 crops, {N_POINTS} points, "
+          f"full-width UNet, VGG on: {seconds * 1e3:.2f} ms/step, "
+          f"{1.0 / seconds:.3f} steps/s (mean of {TIMED} "
+          f"after {WARMUP} warm-up); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; loss "
+          f"{losses[0]:.6g} -> {losses[-1]:.6g} over {TRAIN_STEPS} steps; "
+          f"launches {counts}")
+    ctx["trained"] = state
+
+
+def phase_serve_sort(ctx, dev, workdir):
+    """The trained state saved with the default config (``sort``) and
+    served through ``NeuralRenderer``: K5, K2 and K3 must all run."""
+    import torch
+    from read_tpu_torch.pipelines import texture_pipeline as TP
+    from read_tpu_torch.render import NeuralRenderer
+    from read_tpu_torch.utils import ckpt as CK
+    xyz = ctx["train"][4].cpu().numpy()
+    ckpt = os.path.join(workdir, "ckpt_trained_sort")
+    CK.save_checkpoint(ckpt, TP.flat_from_state(ctx["trained"]), config={})
+    h, w = HW
+    K = np.array([[720.0, 0, w / 2], [0, 720.0, h / 2], [0, 0, 1]])
+    poses = []
+    for i in range(2):
+        pose = np.eye(4)
+        pose[0, 3] = 0.05 * i
+        poses.append(pose)
+    scene = {"pointcloud": {"xyz": xyz}, "intrinsic_matrix": K,
+             "view_matrix": poses, "point_sizes": None,
+             "config": {"viewport_size": (w, h)}}
+    r = NeuralRenderer(scene, ckpt, device=dev)
+    if r.cfg.raster_method != "sort":
+        raise SmokeFailure(f"serve_sort: config says {r.cfg.raster_method}")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    imgs = [r.infer(p) for p in poses]
+    seconds = time.perf_counter() - t0
+    counts = launches()
+    for i, img in enumerate(imgs):
+        if img.shape != (h, w, 3) or not np.isfinite(img).all():
+            raise SmokeFailure(f"serve_sort request {i}: bad frame")
+    if not float(np.abs(imgs[0] - imgs[1]).max()) > 0:
+        raise SmokeFailure("serve_sort: the 2 requests rendered the same")
+    for name in ("zbuffer_exact", "gated_conv_kxk", "gated_conv_1x1"):
+        if counts[name] == 0:
+            raise SmokeFailure(f"serve_sort: {name} never ran")
+    print(f"[serve_sort] trained checkpoint, default config (sort): "
+          f"{len(imgs)} requests at {w}x{h}, "
+          f"{seconds * 1e3 / len(imgs):.2f} ms/request (first included); "
+          f"launches {counts}")
 
 
 def record_conv_shapes(dev):
@@ -258,8 +453,8 @@ def phase_convs(report, dev):
 
 
 def phase_serve(report, dev, workdir):
-    """The main path: the checkpoint-driven renderer answers 4 requests.
-    Returns the launch counts of that run."""
+    """The serving path: the checkpoint-driven renderer answers 4
+    requests with the packed-key z-buffer (K1), K2 and K3."""
     import torch
     from read_tpu_torch.frame import frame_inputs
     from read_tpu_torch.models import texture as T
@@ -304,10 +499,10 @@ def phase_serve(report, dev, workdir):
     print(f"[serve] NeuralRenderer: {len(imgs)} requests at {w}x{h}, "
           f"{N_POINTS} points, {seconds * 1e3 / len(imgs):.2f} ms/request"
           f" (first included); launches {counts}")
-    for name, n in counts.items():
-        if n == 0:
+    for name in ("zbuffer", "gated_conv_kxk", "gated_conv_1x1"):
+        if counts[name] == 0:
             raise SmokeFailure(f"kernel {name} never ran on the main path")
-        report[name]["launches"] = n
+        report[name]["launches"] = counts[name]
 
 
 def phase_frames(dev):
@@ -372,10 +567,17 @@ def main() -> int:
     report = {name: {"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": 0}
               for name, (src, rep) in KERNELS.items()}
+    ctx = {}
     phases = [("build", lambda: phase_build(report)),
               ("zbuffer", lambda: phase_zbuffer(report, dev)),
+              ("zbuffer_exact", lambda: phase_zbuffer_exact(report, dev)),
               ("convs", lambda: phase_convs(report, dev)),
               ("serve", lambda: phase_serve(report, dev, workdir)),
+              ("train_setup", lambda: ctx.update(train=train_setup(dev))),
+              ("train_vs_twin", lambda: phase_train_vs_twin(ctx)),
+              ("train", lambda: phase_train(report, ctx)),
+              ("serve_sort", lambda: phase_serve_sort(ctx, dev, workdir)),
+              ("free", lambda: (ctx.clear(), torch.cuda.empty_cache())),
               ("frame_vs_twin", lambda: phase_frame_vs_twin(dev)),
               ("frames", lambda: phase_frames(dev))]
     for name, fn in phases:

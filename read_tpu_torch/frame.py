@@ -1,6 +1,11 @@
-"""The serving frame that ``bench.py`` times, on PyTorch.
+"""The operating points that ``bench.py`` times, on PyTorch.
 
-Counterpart of ``__graft_entry__.entry_orchestrated`` (:76-192): the
+:func:`train_inputs` is the training step's (``bench.py:28-70``): 1M
+points ``uniform(-10, 10)`` shifted by z - 25, fx = fy = 720 at 256x256,
+B = 8 poses with x offset 0.05 * i, uniform random targets.
+
+:func:`make_frame` is the serving frame, the counterpart of
+``__graft_entry__.entry_orchestrated`` (:76-192): the
 same operating point (1M points ``uniform(-10, 10)`` shifted by z - 25,
 fx = fy = 720 at 1216x368, near 0.1, far 1000, one pose per frame with
 x offset 0.05 * i), the 'pallas' raster (K1), the packed pool to 4
@@ -24,7 +29,7 @@ from read_tpu_torch.models import texture as T
 from read_tpu_torch.models.unet import UNet
 from read_tpu_torch.ops import rasterize as R
 
-__all__ = ["make_frame", "frame_inputs"]
+__all__ = ["make_frame", "frame_inputs", "train_inputs"]
 
 
 def frame_inputs(batch: int = 1, n_points: int = 1_000_000,
@@ -44,6 +49,25 @@ def frame_inputs(batch: int = 1, n_points: int = 1_000_000,
         view[0, 3] = 0.05 * i  # a short trajectory, one pose per frame
         ms.append(camera.total_matrix(P, view))
     return xyz, np.stack(ms).astype(np.float32)
+
+
+def train_inputs(batch: int = 8, n_points: int = 1_000_000, hw: int = 256,
+                 focal: float = 720.0, seed: int = 0):
+    """``(xyz [N, 3], total_m [B, 4, 4], target [B, hw, hw, 3])`` float32
+    numpy arrays of the training benchmark, drawn in ``bench.py``'s
+    order from ``numpy.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    xyz = rng.uniform(-10, 10, size=(n_points, 3)).astype(np.float32)
+    xyz[:, 2] -= 25.0
+    K = np.array([[focal, 0, hw / 2], [0, focal, hw / 2], [0, 0, 1]])
+    P = camera.gl_projection(K, (hw, hw), znear=0.1, zfar=1000.0)
+    ms = []
+    for i in range(batch):
+        view = np.eye(4)
+        view[0, 3] = 0.05 * i
+        ms.append(camera.total_matrix(P, view))
+    target = rng.uniform(size=(batch, hw, hw, 3)).astype(np.float32)
+    return xyz, np.stack(ms).astype(np.float32), target
 
 
 def make_frame(batch: int = 1, operands: str = "bf16", *, device,
@@ -69,7 +93,7 @@ def make_frame(batch: int = 1, operands: str = "bf16", *, device,
         levels = R.rasterize_pyramid_pooled(xyz, total_m, (h, w), 4,
                                             method="pallas",
                                             pool_impl="packed")
-        pyr = [T.sample_point_texture(table, ix) for ix, _ in levels]
+        pyr = [T.sample_point_texture_unique(table, ix) for ix, _ in levels]
         return net(*pyr, operands=operands)["im_out"]
 
     args = (net.to(device), table.to(device),

@@ -1,20 +1,22 @@
-"""Point projection, the packed z-buffer path and the index pyramid.
+"""Point projection, the z-buffer paths and the index pyramid.
 
-Counterpart of ``read_tpu/ops/rasterize.py`` for the serving slice:
-``project_points`` (:81-120), ``_pixel_ids`` (:123-131),
-``_zbuffer_scatter1`` (:244-284: here ``RK.pack_keys`` ->
-``RK.scatter_min`` -> ``_unpack``), ``rasterize_batch`` for
-``method in ('pallas', 'scatter1')`` with ``point_radius=0``
-(:466-548), ``_pool2x2_zbuffer`` (:574-599), ``_pool2x2_packed``
-(:602-634) and ``rasterize_pyramid_pooled`` (:637-669).
+Counterpart of ``read_tpu/ops/rasterize.py``: ``project_points``
+(:81-120), ``_pixel_ids`` (:123-131), ``rasterize_batch`` with
+``point_radius=0`` for ``method='sort'`` (:497-515, ``_zbuffer_sort``
+:153-177: here K5) and ``method in ('pallas', 'scatter1')`` (:516-545,
+``_zbuffer_scatter1`` :244-284: here ``RK.pack_keys`` ->
+``RK.scatter_min`` -> ``_unpack``, K1), ``_pool2x2_zbuffer``
+(:574-599), ``_pool2x2_packed`` (:602-634) and
+``rasterize_pyramid_pooled`` (:637-669).
 
-Everything here is plain PyTorch except the z-buffer itself, which is
-K1 (:mod:`read_tpu_torch.ops.rasterize_kernels`). Semantics are the
-JAX package's, bit for bit: min packed key per pixel, ties within one
-depth bin broken by the smallest id, empty pixels -1 with depth 0, the
-winner's depth re-gathered exactly. Raster methods and options the port
-does not have yet raise ``NotImplementedError`` instead of switching to
-other semantics.
+Everything here is plain PyTorch except the z-buffers themselves, K1
+and K5 (:mod:`read_tpu_torch.ops.rasterize_kernels`). Semantics are the
+JAX package's, bit for bit: 'sort' keeps per pixel the least depth, ties
+to the least id; 'pallas'/'scatter1' the min packed key, ties within one
+depth bin broken by the least id, the winner's depth re-gathered
+exactly; empty pixels are -1 with depth 0. Raster methods and options
+the port does not have yet raise ``NotImplementedError`` instead of
+switching to other semantics.
 """
 
 from __future__ import annotations
@@ -31,23 +33,22 @@ __all__ = ["RASTER_METHODS", "project_points", "rasterize_batch",
 # Sentinel depth for invalid points; any real NDC depth lies in [0, 1].
 _FAR = 2.0
 
-# Every name ``read_tpu`` accepts (``rasterize.py:60-61``); only the
-# packed-key methods run here.
+# Every name ``read_tpu`` accepts (``rasterize.py:60-61``); the exact
+# 'sort' (K5) and the packed-key methods (K1) run here.
 RASTER_METHODS = ("sort", "sort2", "sort1q", "scatter", "scatter1",
                   "pallas")
-K1_METHODS = ("pallas", "scatter1")
+PORTED_METHODS = ("sort", "pallas", "scatter1")
 
 
 def _check_method(method: str) -> None:
     if method not in RASTER_METHODS:
         raise ValueError(f"unknown raster method {method!r}; expected one "
                          f"of {RASTER_METHODS}")
-    if method not in K1_METHODS:
+    if method not in PORTED_METHODS:
         raise NotImplementedError(
             f"raster method {method!r} is not ported: read_tpu_torch runs "
-            "the packed-key z-buffer ('pallas'/'scatter1'); the exact "
-            "'sort' semantics need K1's 64-bit key mode (ROADMAP queue 2, "
-            "K1)")
+            f"{PORTED_METHODS} ('sort2', 'sort1q' and 'scatter' are bench "
+            "alternates, ROADMAP 'Not ported')")
 
 
 def project_points(xyz: torch.Tensor, total_m: torch.Tensor):
@@ -110,8 +111,8 @@ def rasterize_batch(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
                     relative_size: bool = False,
                     min_point_size: float = 1.0):
     """``total_m [B, 4, 4]`` -> ``(index [B, h, w] int32, depth [B, h, w]
-    float32)`` through K1; ``method`` must be 'pallas' or 'scatter1'
-    (the JAX default 'sort' raises: it has exact tie semantics)."""
+    float32)``: 'sort' (the default) through K5, 'pallas' or 'scatter1'
+    through K1."""
     del min_point_size  # only meaningful with relative_size
     _check_method(method)
     _unported_options(point_radius, ndc_jitter, point_sizes, relative_size)
@@ -119,6 +120,9 @@ def rasterize_batch(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
     xyz = xyz.to(torch.float32).contiguous()
     total_m = total_m.to(device=xyz.device, dtype=torch.float32
                          ).contiguous()
+    if method == "sort":
+        index, depth = RK.zbuffer_exact(xyz, total_m, h, w)
+        return index.view(b, h, w), depth.view(b, h, w)
     buf, depth0 = RK.zbuffer(xyz, total_m, h, w)
     idb, _ = RK.key_bits(xyz.shape[0])
     index, depth = _unpack(buf, idb, depth0)

@@ -7,16 +7,15 @@ neural path: /16 viewport, ``rescale_K``, ``gl_projection``, ``infer``,
 
 The renderer loads a ``read_tpu`` checkpoint directory (numpy only),
 rebuilds the pipeline config from its embedded ``config``, and renders
-project -> K1 z-buffer -> exact 2x2 pyramid pool -> descriptor gather ->
-UNet (K2, K3). Only the packed-key raster methods are ported: a
-checkpoint trained with the default ``sort`` z-buffer needs
-``raster_method='pallas'`` (CLI ``--raster-method pallas``), exactly as
-the JAX CLI's override does.
+project -> z-buffer -> exact 2x2 pyramid pool -> descriptor gather ->
+UNet (K2, K3). The z-buffer is the checkpoint's own: the default
+``sort`` runs K5 (exact), ``pallas``/``scatter1`` K1 (packed key);
+``--raster-method`` overrides it, as the JAX CLI's flag does.
 
 Usage::
 
     python -m read_tpu_torch.render --scene scene.yaml --ckpt CKPT_DIR \\
-        --raster-method pallas --out renders --fps-report
+        --out renders --fps-report
 """
 
 from __future__ import annotations
@@ -70,11 +69,6 @@ class NeuralRenderer:
                          ("supersampling", supersampling)):
             if val is not None:            # explicit overrides only
                 self.config[key] = val
-        if (self.config.get("raster_method") or "sort") == "sort":
-            raise NotImplementedError(
-                "the exact 'sort' z-buffer is not ported; render this "
-                "checkpoint with the packed-key z-buffer: use "
-                "--raster-method pallas (raster_method='pallas')")
         if scene.get("point_sizes") is not None:
             raise NotImplementedError(
                 "per-point sizes are not ported (ROADMAP queue 1, item 9)")
@@ -163,7 +157,8 @@ def main(argv=None) -> int:
                    help="bfloat16 = bf16 conv operands, f32 accumulation")
     p.add_argument("--raster-method", "--raster", dest="raster_method",
                    default=None, choices=["sort", "scatter1", "pallas"],
-                   help="z-buffer; the port runs 'pallas'/'scatter1'")
+                   help="z-buffer override: 'sort' exact (K5), "
+                        "'pallas'/'scatter1' packed key (K1)")
     p.add_argument("--max-frames", type=int, default=None)
     p.add_argument("--fps-report", action="store_true")
     p.add_argument("--device", default="cuda",

@@ -9,6 +9,10 @@ paths, so the mapping is one to one: ``params/AFF0/BasicConv_1/conv_fm/
 kernel`` <-> ``AFF0.BasicConv_1.conv_fm.kernel`` and ``batch_stats/
 AFF0/BasicConv_1/norm/mean`` <-> ``AFF0.BasicConv_1.norm.mean``.
 
+A whole ``TrainState`` with its optimizer state is carried across by
+``read_tpu_torch.pipelines.texture_pipeline.state_from_flat`` and
+``flat_from_state``, on top of these functions.
+
 Layouts are kept as flax has them: conv kernels stay HWIO
 ``[k, k, Cin, 2*Cout]`` with the fused ``[f | m]`` halves, which is the
 layout the port's kernels read, so nothing is transposed.
@@ -16,12 +20,13 @@ layout the port's kernels read, so nothing is transposed.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["variables_from_flat", "flat_from_variables"]
+__all__ = ["variables_from_flat", "flat_from_variables",
+           "vgg_params_from_numpy"]
 
 _STATS = ("mean", "var")
 
@@ -65,3 +70,12 @@ def flat_from_variables(unet_state: Dict[str, torch.Tensor],
             t.detach().cpu().numpy())
     flat["texture"] = texture.detach().cpu().numpy()
     return flat
+
+
+def vgg_params_from_numpy(pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
+                          device="cpu"):
+    """VGG parameters given as numpy ``(w HWIO, b)`` pairs (e.g. JAX's
+    ``random_vgg_params``) -> the port's list of float32 tensors."""
+    return [(torch.from_numpy(np.array(w, np.float32)).to(device),
+             torch.from_numpy(np.array(b, np.float32)).to(device))
+            for w, b in pairs]

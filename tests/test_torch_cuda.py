@@ -6,19 +6,24 @@ every test skips. On a GPU machine, which need not have JAX installed::
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 TF32 is switched off for the twins (full float32 convolutions and
-matmuls). K1 must be bit-equal; K2/K3 within ``atol 2e-5, rtol 1e-4``
-(f32 operands) and ``atol 0.35, rtol 0.05`` (bf16 operands), the bounds
-of ``tests/test_unet_pallas.py``.
+matmuls). K1 and K5 must be bit-equal; K2/K3 within ``atol 2e-5, rtol
+1e-4`` (f32 operands) and ``atol 0.35, rtol 0.05`` (bf16 operands), the
+bounds of ``tests/test_unet_pallas.py``. One training step on the GPU
+(K5, cuDNN) is held against the same step on the CPU (the twins) from
+the same state: losses rtol 1e-3, running statistics atol 1e-5.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from read_tpu_torch.criterions import vgg as V
 from read_tpu_torch.frame import frame_inputs, make_frame
+from read_tpu_torch.models.unet import UNet
 from read_tpu_torch.ops import gated_conv as GC
 from read_tpu_torch.ops import rasterize as R
 from read_tpu_torch.ops import rasterize_kernels as RK
+from read_tpu_torch.pipelines import texture_pipeline as TP
 
 pytestmark = pytest.mark.cuda
 
@@ -52,6 +57,55 @@ def test_zbuffer_kernel_bit_equal(dev, batch, n, hw):
     assert torch.equal(buf, buf_p)
     assert torch.equal(d0, d0_p)
     assert (buf != RK.INT32_MAX).float().mean() > 0.2
+
+
+@pytest.mark.parametrize("batch,n,hw,dup", [(1, 5000, (24, 40), 1),
+                                            (3, 200_000, (96, 160), 1),
+                                            (2, 200_000, (64, 64), 8)])
+def test_zbuffer_exact_kernel_bit_equal(dev, batch, n, hw, dup):
+    """K5 vs its twin; ``dup=8`` repeats every position 8 times (exact
+    depth ties, won by the least id)."""
+    xyz, ms = frame_inputs(batch, n // dup, hw, focal=hw[1] * 0.6)
+    xyz = np.tile(xyz, (dup, 1))
+    xyz, ms = torch.from_numpy(xyz).to(dev), torch.from_numpy(ms).to(dev)
+    before = RK.launches["zbuffer_exact"]
+    index, depth = RK.zbuffer_exact(xyz, ms, *hw)
+    assert RK.launches["zbuffer_exact"] == before + 1
+    index_p, depth_p = RK.zbuffer_exact_plain(xyz, ms, *hw)
+    torch.cuda.synchronize()
+    assert torch.equal(index, index_p)
+    assert torch.equal(depth, depth_p)
+    assert (index >= 0).float().mean() > 0.2
+    if dup > 1:
+        assert int(index.max()) < n // dup
+
+
+def test_train_step_on_cuda_matches_cpu(dev):
+    """One full step at 32x32, B=2, base 8, VGG on, from the same state:
+    GPU (K5, cuDNN) vs CPU (twins)."""
+    rng = np.random.default_rng(0)
+    xyz, ms = frame_inputs(2, 4000, (32, 32), focal=30.0)
+    target = rng.uniform(size=(2, 32, 32, 3)).astype(np.float32)
+    cfg = TP.PipelineConfig(crop_size=(32, 32))
+    vgg = V.random_vgg_params(torch.Generator().manual_seed(0))
+    state, net = TP.create_state(torch.Generator().manual_seed(1), cfg, 4000,
+                                 net=UNet(base_channel=8, num_res=1))
+    out = []
+    for device in ("cpu", dev):
+        st = TP.state_from_flat(TP.flat_from_state(state), device)
+        step = TP.make_train_step(net.to(device), cfg,
+                                  [(w.to(device), b.to(device))
+                                   for w, b in vgg])
+        batch = {"total_m": torch.from_numpy(ms).to(device),
+                 "target": torch.from_numpy(target).to(device)}
+        new, metrics = step(st, torch.from_numpy(xyz).to(device), batch)
+        out.append((new, {k: float(v) for k, v in metrics.items()}))
+    (cpu, m_cpu), (gpu, m_gpu) = out
+    for key in ("loss", "huber_loss", "vgg_loss", "psnr"):
+        assert m_gpu[key] == pytest.approx(m_cpu[key], rel=1e-3), key
+    for key, t in cpu.batch_stats.items():
+        torch.testing.assert_close(gpu.batch_stats[key].cpu(), t, rtol=0,
+                                   atol=1e-5)
 
 
 def test_rasterize_on_cuda_matches_cpu(dev):

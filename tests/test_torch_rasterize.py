@@ -164,7 +164,7 @@ def test_pyramid_pools_match_jax(pool_impl):
         np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
 
 
-@pytest.mark.parametrize("kw", [dict(method="sort"), dict(method="scatter"),
+@pytest.mark.parametrize("kw", [dict(method="sort2"), dict(method="scatter"),
                                 dict(method="pallas", point_radius=1),
                                 dict(method="pallas", relative_size=True),
                                 dict(method="pallas",

@@ -3,7 +3,8 @@
 - ``read_tpu_torch.render.NeuralRenderer`` vs ``read_tpu.render.
   NeuralRenderer`` on one JAX-written checkpoint (``TP.create_state``
   with ``raster_method='pallas'``, ``conv_impl='xla'``) of a tiny scene
-  on disk, plain and with ``temporal_average``;
+  on disk, plain and with ``temporal_average``, and on the same weights
+  under the default config (the exact ``sort`` z-buffer, K5's twin);
 - ``read_tpu_torch.frame.make_frame`` at a small size vs the JAX
   composition it ports (packed pyramid -> gather -> flax UNet);
 - importing the renderer and frame loads no JAX.
@@ -15,7 +16,9 @@ test fast; the port reads the width off the checkpoint. Tolerance:
 """
 
 import functools
+import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -123,11 +126,35 @@ def test_renderer_takes_a_scene_dict(scene_and_ckpt):
 
 
 def test_renderer_refuses_sort_and_unported_config(scene_and_ckpt):
+    """'sort' renders now (below); a raster method that is still not
+    ported, and supersampling, raise."""
     scene, ckpt, _ = scene_and_ckpt
-    with pytest.raises(NotImplementedError, match="--raster-method pallas"):
-        TR.NeuralRenderer(scene, ckpt, raster_method="sort", device="cpu")
+    with pytest.raises(NotImplementedError, match="sort2"):
+        TR.NeuralRenderer(scene, ckpt, raster_method="sort2", device="cpu")
     with pytest.raises(NotImplementedError):
         TR.NeuralRenderer(scene, ckpt, supersampling=2, device="cpu")
+
+
+def test_renderer_sort_checkpoint_matches_read_tpu(scene_and_ckpt,
+                                                    tmp_path):
+    """The same weights under a default config (no raster_method: the
+    exact 'sort' z-buffer) render as read_tpu renders them."""
+    scene, ckpt, poses = scene_and_ckpt
+    sort_ckpt = str(tmp_path / "ckpt_sort")
+    shutil.copytree(ckpt, sort_ckpt)
+    meta_path = os.path.join(sort_ckpt, "meta.json")
+    with open(meta_path) as f:
+        meta = json.load(f)
+    meta["config"] = {"conv_impl": "xla"}
+    with open(meta_path, "w") as f:
+        json.dump(meta, f)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JTP, "UNet", SMALL_UNET)
+        jr = JaxRenderer(scene, sort_ckpt)
+    tr = TR.NeuralRenderer(scene, sort_ckpt, device="cpu")
+    assert tr.cfg.raster_method == jr.cfg.raster_method == "sort"
+    for pose in poses:
+        np.testing.assert_allclose(tr.infer(pose), jr.infer(pose), **TOL)
 
 
 def test_render_cli_writes_frames(scene_and_ckpt, tmp_path, capsys):

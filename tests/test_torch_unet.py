@@ -137,7 +137,58 @@ def test_nearest_resamples_match_flax():
 
 
 def test_train_mode_raises():
+    """The differentiable (training) route runs float32 operands only."""
     net = U.UNet(base_channel=8, num_res=1)
     x = [torch.zeros(1, 16 // f, 16 // f, 8) for f in (1, 2, 4, 8)]
     with pytest.raises(NotImplementedError):
-        net(*x, train=True)
+        net(*x, train=True, operands="bf16")
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_differentiable_route_matches_flax(jax_case, train):
+    """``train=True``: batch statistics and the moved running ones
+    (momentum 0.9, biased two-pass variance); ``train=False``: the
+    running ones, with autograd (the frozen-net step). Outputs within
+    the file's bound, new statistics within 1e-5."""
+    pyr, _, path, _ = jax_case
+    flat, _ = JCK.load_checkpoint(path)
+    variables = {"params": {}, "batch_stats": {}}
+    for key, arr in flat.items():
+        node, (*parents, leaf) = variables, key.split("/")
+        if not parents or parents[0] not in variables:
+            continue
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = jnp.asarray(arr)
+    net = FlaxUNet(base_channel=8, num_res=1, num_classes=3)
+    want, mutated = jax.jit(lambda v, *p: net.apply(
+        v, *p, train=train, mutable=["batch_stats"]))(variables, *pyr)
+    tn = U.unet_from_state(CV.variables_from_flat(flat)[0])
+    got = tn(*map(torch.from_numpy, pyr), train=train)
+    for key in ("im_out", "seg_out"):
+        np.testing.assert_allclose(got[key].detach().numpy(),
+                                   np.asarray(want[key]), **TOL)
+    stats = JCK._flatten({"batch_stats": mutated["batch_stats"]})
+    for name, t in tn.named_buffers():
+        np.testing.assert_allclose(
+            t.numpy(), stats["batch_stats/" + name.replace(".", "/")],
+            rtol=0, atol=1e-5, err_msg=name)
+    assert got["im_out"].requires_grad
+
+
+def test_bilinear_up4_lerp_matches_interpolate():
+    """The differentiable route's x4 bilinear (slices and lerps) against
+    F.interpolate and jax.image.resize, values and gradient."""
+    x = np.random.default_rng(3).normal(size=(2, 5, 7, 3)).astype(
+        np.float32)
+    want = np.asarray(flax_bilinear_up4(jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_()
+    got = U._bilinear_up4_lerp(xt)
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-6,
+                               rtol=1e-6)
+    cot = torch.from_numpy(np.random.default_rng(4).normal(
+        size=got.shape).astype(np.float32))
+    (g,) = torch.autograd.grad((got * cot).sum(), [xt])
+    xi = torch.from_numpy(x).requires_grad_()
+    (gi,) = torch.autograd.grad((U._bilinear_up4(xi) * cot).sum(), [xi])
+    np.testing.assert_allclose(g.numpy(), gi.numpy(), atol=1e-5, rtol=1e-5)
