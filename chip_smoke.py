@@ -30,14 +30,23 @@ without a device it exits non-zero at once. It
    through K5, K2 and K3;
 7. times ``read_tpu_torch.frame.make_frame`` at B=1 and B=4 with bf16
    and f32 operands, and compares one B=1 frame (f32 and bf16 operands)
-   with the same frame with every kernel swapped for its twin.
+   with the same frame with every kernel swapped for its twin;
+8. runs the kernel bench (``read_tpu_torch.kernel_bench``) in-process:
+   K1, K5 and K6 (bit-equal, ties included) at 1M points, 1216x368, B=1
+   and 2; K7 beside K2 and K3, and K8's four modes, at the four level
+   shapes; K4 at the frame's SCM sites and the two concat probes; f32
+   and bf16; each against its twin, with its library yardstick and
+   bound.
 
-TF32 is off throughout, so the twins' convolutions and matmuls are full
-float32. Any failed check raises and the script exits non-zero. The
-last stdout line is ``{"ok": true, "device": {...}}``; the line before
-it lists each kernel's launches (counted on the run of the path it
-serves: K1-K3 on the serving path, K5 on the training steps), error and
-times.
+The serving phases also require K4 (``gated_conv_1x1_cat``): 3 launches
+per request, the SCMs' ``BasicConv_4``. TF32 is off throughout, so the
+twins' convolutions and matmuls are full float32. Any failed check
+raises and the script exits non-zero. The last stdout line is ``{"ok":
+true, "device": {...}}``; the line before it lists each kernel's
+launches (counted on the run of the path it serves: K1-K4 on the
+serving path, K5 on the training steps, K6-K8 on the kernel bench's
+first pass), error, its time, its twin's, the library call's and its
+bound (``shape`` says what they were measured on).
 """
 
 import contextlib
@@ -66,44 +75,22 @@ KERNELS = {
                        "read_tpu/ops/gated_conv_pack.py:421"),
     "zbuffer_exact": ("read_tpu_torch/csrc/zbuffer.cu",
                       "read_tpu/ops/rasterize_pallas.py:40"),
+    "gated_conv_1x1_cat": ("read_tpu_torch/csrc/gated_conv.cu",
+                           "read_tpu/ops/gated_conv_pack.py:509"),
+    "zbuffer_keys": ("read_tpu_torch/csrc/zbuffer.cu",
+                     "read_tpu/ops/rasterize_pallas.py:234"),
+    "gated_conv3x3_r2": ("read_tpu_torch/csrc/gated_conv_r2.cu",
+                         "scripts/gated_conv_pallas_r2.py:73"),
+    "gated_conv1x1_r2": ("read_tpu_torch/csrc/gated_conv_r2.cu",
+                         "scripts/gated_conv_pallas_r2.py:169"),
+    "gated_conv_probe": ("read_tpu_torch/csrc/gated_conv_probe.cu",
+                         "scripts/probe_pack_split.py:33"),
 }
+LIBRARIES = ("zbuffer", "gated_conv", "gated_conv_r2", "gated_conv_probe")
 
 
 class SmokeFailure(RuntimeError):
     pass
-
-
-def check_close(name, got, want, atol, rtol):
-    import torch
-    if got.shape != want.shape:
-        raise SmokeFailure(f"{name}: shape {tuple(got.shape)} != "
-                           f"{tuple(want.shape)}")
-    if not torch.isfinite(got).all():
-        raise SmokeFailure(f"{name}: non-finite output")
-    err = (got - want).abs()
-    bound = atol + rtol * want.abs()
-    if not bool((err <= bound).all()):
-        raise SmokeFailure(f"{name}: max |err| {float(err.max()):.3g} "
-                           f"exceeds atol {atol} + rtol {rtol}")
-    return float(err.max())
-
-
-def event_ms(fn, iters=10, warmup=2):
-    """Median device time of ``fn()`` in ms (CUDA events)."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def wall_ms(fn, iters=5, warmup=2):
@@ -131,7 +118,8 @@ class Twins:
         self.saved = [(RK, "zbuffer", RK.zbuffer),
                       (RK, "zbuffer_exact", RK.zbuffer_exact),
                       (GC, "gated_conv_kxk", GC.gated_conv_kxk),
-                      (GC, "gated_conv_1x1", GC.gated_conv_1x1)]
+                      (GC, "gated_conv_1x1", GC.gated_conv_1x1),
+                      (GC, "gated_conv_1x1_cat", GC.gated_conv_1x1_cat)]
         for mod, name, _ in self.saved:
             setattr(mod, name, getattr(mod, name + "_plain"))
         return self
@@ -142,32 +130,49 @@ class Twins:
         return False
 
 
-def launches():
+def _counters():
     from read_tpu_torch.ops import gated_conv as GC
+    from read_tpu_torch.ops import gated_conv_probe as GP
+    from read_tpu_torch.ops import gated_conv_r2 as R2
     from read_tpu_torch.ops import rasterize_kernels as RK
-    return {**RK.launches, **GC.launches}
+    return (RK.launches, GC.launches, R2.launches, GP.launches)
+
+
+def launches():
+    return {k: v for counts in _counters() for k, v in counts.items()}
 
 
 def reset_launches():
-    from read_tpu_torch.ops import gated_conv as GC
-    from read_tpu_torch.ops import rasterize_kernels as RK
-    for counts in (RK.launches, GC.launches):
+    for counts in _counters():
         for name in counts:
             counts[name] = 0
 
 
 def phase_build(report):
+    """Every kernel library, one nvcc each, all started together."""
     from read_tpu_torch import _build
     t0 = time.perf_counter()
-    for name in ("zbuffer", "gated_conv"):
+    _build.build(LIBRARIES)
+    for name in LIBRARIES:
         _build.load(name)
     print(f"[build] nvcc {dict(_build.build_seconds)} s, total "
           f"{time.perf_counter() - t0:.2f} s")
 
 
+def library_and_bound(report_row, library_fn, flops, nbytes, bf16=False):
+    """Time ``library_fn`` (one PyTorch call of the same function) and
+    set the row's ``library_ms``, ``bound_ms`` and ``bound_by``."""
+    from read_tpu_torch.kernel_bench import bound, event_ms
+    b_ms, by = bound(flops, nbytes, bf16)
+    report_row.update(library_ms=event_ms(library_fn, iters=20),
+                      bound_ms=b_ms, bound_by=by)
+
+
 def phase_zbuffer(report, dev):
     import torch
+    from read_tpu_torch import kernel_bench as KB
     from read_tpu_torch.frame import frame_inputs
+    from read_tpu_torch.kernel_bench import event_ms
     from read_tpu_torch.ops import rasterize_kernels as RK
     for b in (1, 2):
         xyz, ms = frame_inputs(b, N_POINTS, HW)
@@ -189,13 +194,19 @@ def phase_zbuffer(report, dev):
               f"{filled:.3f} of pixels covered; kernel {t_k:.4f} ms, "
               f"twin {t_p:.4f} ms")
         if b == 1:
-            report["zbuffer"].update(ms=t_k, plain_ms=t_p)
+            report["zbuffer"].update(ms=t_k, plain_ms=t_p,
+                                     shape=f"B=1 N={N_POINTS} {HW[1]}x"
+                                           f"{HW[0]}")
+            library_and_bound(report["zbuffer"], *KB.zbuffer_yardsticks(
+                xyz, ms, HW)[2]["zbuffer"])
     report["zbuffer"]["max_abs_err"] = 0.0
 
 
 def phase_zbuffer_exact(report, dev):
     import torch
+    from read_tpu_torch import kernel_bench as KB
     from read_tpu_torch.frame import frame_inputs, train_inputs
+    from read_tpu_torch.kernel_bench import event_ms
     from read_tpu_torch.ops import rasterize_kernels as RK
     cases = []
     for b in (1, 2):
@@ -225,7 +236,11 @@ def phase_zbuffer_exact(report, dev):
               f"bit-equal, {filled:.3f} of pixels covered; kernel "
               f"{t_k:.4f} ms, twin {t_p:.4f} ms")
     # the training step's shape (the last case)
-    report["zbuffer_exact"].update(ms=t_k, plain_ms=t_p, max_abs_err=0.0)
+    report["zbuffer_exact"].update(ms=t_k, plain_ms=t_p, max_abs_err=0.0,
+                                   shape=f"{label} N={xyz.shape[0]} "
+                                         f"{hw[1]}x{hw[0]}")
+    library_and_bound(report["zbuffer_exact"], *KB.zbuffer_yardsticks(
+        xyz, ms, hw)[2]["zbuffer_exact"])
 
 
 def train_setup(dev):
@@ -359,9 +374,13 @@ def phase_serve_sort(ctx, dev, workdir):
             raise SmokeFailure(f"serve_sort request {i}: bad frame")
     if not float(np.abs(imgs[0] - imgs[1]).max()) > 0:
         raise SmokeFailure("serve_sort: the 2 requests rendered the same")
-    for name in ("zbuffer_exact", "gated_conv_kxk", "gated_conv_1x1"):
+    for name in ("zbuffer_exact", "gated_conv_kxk", "gated_conv_1x1",
+                 "gated_conv_1x1_cat"):
         if counts[name] == 0:
             raise SmokeFailure(f"serve_sort: {name} never ran")
+    if counts["gated_conv_1x1_cat"] != 3 * len(imgs):
+        raise SmokeFailure("serve_sort: K4 did not launch 3 times per "
+                           "request")
     print(f"[serve_sort] trained checkpoint, default config (sort): "
           f"{len(imgs)} requests at {w}x{h}, "
           f"{seconds * 1e3 / len(imgs):.2f} ms/request (first included); "
@@ -396,11 +415,17 @@ def record_conv_shapes(dev):
 
 def phase_convs(report, dev):
     import torch
+    from read_tpu_torch.kernel_bench import (bound, conv_cost, event_ms,
+                                             library_conv, max_err)
     from read_tpu_torch.ops import gated_conv as GC
     counts = record_conv_shapes(dev)
     torch.cuda.synchronize()
     gen = torch.Generator(device=dev).manual_seed(0)
-    per_frame = {n: {"f32": [0.0, 0.0], "bf16": [0.0, 0.0]}
+    # per B=1 frame and operand type: kernel, twin and library ms, and
+    # the bound's ms by limiting resource
+    per_frame = {n: {ops: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                           "operations": 0.0, "bytes": 0.0}
+                     for ops in ("f32", "bf16")}
                  for n in ("gated_conv_kxk", "gated_conv_1x1")}
     errs = {n: 0.0 for n in per_frame}
     print(f"[convs] {len(counts)} distinct gated-conv shapes in one "
@@ -421,6 +446,8 @@ def phase_convs(report, dev):
         out_shape = kernel(x, w, b, scale, offset, None, **kw).shape
         res = (torch.randn(out_shape, generator=gen, device=dev)
                if has_res else None)
+        k = ws[0] if len(ws) == 4 else 1
+        flops, nbytes = conv_cost(xs, k, stride, c2, c2 // 2, res=has_res)
         line = []
         # bf16: the bf16 bound, then the f32 bound too, because the
         # kernel and its twin round the same operands and sum in f32
@@ -430,26 +457,44 @@ def phase_convs(report, dev):
             got = kernel(x, w, b, scale, offset, res, **kw)
             want = twin(x, w, b, scale, offset, res, **kw)
             torch.cuda.synchronize()
-            for tol in tols:
-                err = check_close(f"{name} {xs} {ws} s{stride} {ops}", got,
-                                  want, **tol)
+            err = max_err(f"{name} {xs} {ws} s{stride} {ops}", got, want,
+                          tols)
             errs[name] = max(errs[name], err)
+            xl, wl = (x.bfloat16(), w.bfloat16()) if kw["bf16"] else (x, w)
+            if name == "gated_conv_kxk":
+                library = (lambda: library_conv(xl, wl, stride))
+            else:
+                library = (lambda: torch.matmul(xl, wl.reshape(cin, c2)))
             t_k = event_ms(lambda: kernel(x, w, b, scale, offset, res,
                                           **kw))
             t_p = event_ms(lambda: twin(x, w, b, scale, offset, res, **kw))
-            per_frame[name][ops][0] += n * t_k
-            per_frame[name][ops][1] += n * t_p
+            t_l = event_ms(library)
+            b_ms, by = bound(flops, nbytes, kw["bf16"])
+            acc = per_frame[name][ops]
+            for key, t in (("ms", t_k), ("plain_ms", t_p),
+                           ("library_ms", t_l), (by, b_ms)):
+                acc[key] += n * t
             line.append(f"{ops}: err {err:.2e} kernel {t_k:.4f} ms twin "
-                        f"{t_p:.4f} ms")
+                        f"{t_p:.4f} library {t_l:.4f} bound {b_ms:.4f} "
+                        f"({by})")
         print(f"[convs] {name} x{list(xs)} w{list(ws)} s{stride} "
               f"relu={relu} res={has_res} (x{n}/frame) | "
               + " | ".join(line))
     for name, by_ops in per_frame.items():
-        for ops, (t_k, t_p) in by_ops.items():
+        for ops, a in by_ops.items():
+            b_ms = a["operations"] + a["bytes"]
             print(f"[convs] {name} per B=1 frame ({ops} operands): kernel "
-                  f"{t_k:.3f} ms, twin {t_p:.3f} ms")
-        report[name].update(max_abs_err=errs[name], ms=by_ops["f32"][0],
-                            plain_ms=by_ops["f32"][1])
+                  f"{a['ms']:.3f} ms, twin {a['plain_ms']:.3f}, library "
+                  f"{a['library_ms']:.3f}, bound {b_ms:.3f} (operations "
+                  f"{a['operations']:.3f}, bytes {a['bytes']:.3f}), "
+                  f"kernel/bound {a['ms'] / b_ms:.1f}")
+        a = by_ops["f32"]
+        report[name].update(
+            max_abs_err=errs[name], ms=a["ms"], plain_ms=a["plain_ms"],
+            library_ms=a["library_ms"],
+            bound_ms=a["operations"] + a["bytes"],
+            bound_by=max(("operations", "bytes"), key=a.get),
+            shape="the shapes of one full-width B=1 frame, f32, summed")
 
 
 def phase_serve(report, dev, workdir):
@@ -499,10 +544,14 @@ def phase_serve(report, dev, workdir):
     print(f"[serve] NeuralRenderer: {len(imgs)} requests at {w}x{h}, "
           f"{N_POINTS} points, {seconds * 1e3 / len(imgs):.2f} ms/request"
           f" (first included); launches {counts}")
-    for name in ("zbuffer", "gated_conv_kxk", "gated_conv_1x1"):
+    for name in ("zbuffer", "gated_conv_kxk", "gated_conv_1x1",
+                 "gated_conv_1x1_cat"):
         if counts[name] == 0:
             raise SmokeFailure(f"kernel {name} never ran on the main path")
         report[name]["launches"] = counts[name]
+    if counts["gated_conv_1x1_cat"] != 3 * len(imgs):
+        raise SmokeFailure(f"serve: K4 launched {counts['gated_conv_1x1_cat']}"
+                           f" times for {len(imgs)} requests, not 3 each")
 
 
 def phase_frames(dev):
@@ -530,6 +579,7 @@ def phase_frames(dev):
 def phase_frame_vs_twin(dev):
     import torch
     from read_tpu_torch.frame import make_frame
+    from read_tpu_torch.kernel_bench import max_err
     for ops, tols in (("f32", (FRAME_TOL,)),
                       ("bf16", (BF16_TOL, FRAME_TOL))):
         frame_fn, args = make_frame(1, ops, device=dev)
@@ -537,13 +587,61 @@ def phase_frame_vs_twin(dev):
         with Twins():
             want = frame_fn(*args)
         torch.cuda.synchronize()
-        for tol in tols:
-            err = check_close(f"frame B=1 {ops} kernels vs twins", got,
-                              want, **tol)
+        err = max_err(f"frame B=1 {ops} kernels vs twins", got, want, tols)
         bounds = "; ".join(f"atol {t['atol']}, rtol {t['rtol']}"
                            for t in tols)
         print(f"[frame] B=1 {ops}: kernels vs all-twin frame max |err| "
               f"{err:.3g} (within {bounds})")
+
+
+def phase_kernel_bench(report, dev):
+    """The kernel bench in-process: K6, K7 and K8 on their path (the
+    bench's first pass counts their launches), K4 at the frame's SCM
+    sites; every row held against its twin."""
+    from read_tpu_torch import kernel_bench as KB
+    rows, counts = KB.run(dev)
+
+    def fill(name, pick, shape):
+        sel = [r for r in rows if r["kernel"] == name and pick(r["label"])]
+        if not sel:
+            raise SmokeFailure(f"kernel_bench: no {name} row for {shape}")
+        by = {}
+        for r in sel:
+            by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"]
+        report[name].update(
+            ms=sum(r["ms"] for r in sel),
+            plain_ms=sum(r["plain_ms"] for r in sel),
+            library_ms=sum(r["library_ms"] for r in sel),
+            bound_ms=sum(by.values()), bound_by=max(by, key=by.get),
+            max_abs_err=max(r["max_abs_err"] for r in sel), shape=shape)
+
+    for name in ("zbuffer_keys", "gated_conv3x3_r2", "gated_conv1x1_r2",
+                 "gated_conv_probe"):
+        if counts[name] == 0:
+            raise SmokeFailure(f"kernel_bench: {name} never ran")
+        report[name]["launches"] = counts[name]
+    fill("gated_conv_1x1_cat",
+         lambda l: l.startswith("SCM") and l.endswith("f32"),
+         "the 3 SCM sites of one full-width B=1 frame, f32, summed")
+    fill("zbuffer_keys", lambda l: l == "B=1",
+         f"B=1 N={N_POINTS} {HW[1]}x{HW[0]}, the frame's packed keys")
+    for name in ("gated_conv3x3_r2", "gated_conv1x1_r2"):
+        fill(name, lambda l: l.endswith("f32"),
+             "the 4 bench shapes (368x1216x32 .. 46x152x256), f32, summed")
+    fill("gated_conv_probe", lambda l: l.startswith("full") and
+         l.endswith("f32"), "mode full at the 4 bench shapes, f32, summed")
+    print(f"[kernel_bench] {len(rows)} rows, every kernel within its "
+          f"tolerance of its twin; first-pass launches {counts}")
+
+
+def check_report(report):
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err")
+    for name, row in report.items():
+        missing = [k for k in keys if row.get(k) is None]
+        if missing or row["launches"] <= 0:
+            raise SmokeFailure(f"kernel {name}: launches {row['launches']}, "
+                               f"missing {missing}")
 
 
 def main() -> int:
@@ -579,7 +677,9 @@ def main() -> int:
               ("serve_sort", lambda: phase_serve_sort(ctx, dev, workdir)),
               ("free", lambda: (ctx.clear(), torch.cuda.empty_cache())),
               ("frame_vs_twin", lambda: phase_frame_vs_twin(dev)),
-              ("frames", lambda: phase_frames(dev))]
+              ("frames", lambda: phase_frames(dev)),
+              ("kernel_bench", lambda: phase_kernel_bench(report, dev)),
+              ("report", lambda: check_report(report))]
     for name, fn in phases:
         t0 = time.perf_counter()
         fn()

@@ -4,18 +4,22 @@ Each ``csrc/<name>.cu`` is compiled on its own by ``nvcc`` into a shared
 library with a plain C interface and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds, not minutes). Libraries land in
 ``build/kernels/`` at the repo root (listed in ``.gitignore``), named by
-a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused. Importing this module builds nothing.
+a hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
+so an edited source rebuilds and an unchanged one is reused.
+:func:`build` runs one ``nvcc`` per missing library, all at once.
+Importing this module builds nothing.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC`` and no ``--use_fast_math``: the kernels are held
-bit-exactly (K1) or to f32 tolerances (K2, K3) against their PyTorch
-twins, which fast math would break.
+bit-exactly (z-buffers) or to f32 tolerances (convs) against their
+PyTorch twins, which fast math would break. What nvcc prints (warnings)
+goes to stdout.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -23,7 +27,7 @@ import subprocess
 import time
 from typing import Dict
 
-__all__ = ["load", "build_seconds", "CSRC", "BUILD_DIR"]
+__all__ = ["load", "build", "build_seconds", "CSRC", "BUILD_DIR"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -48,33 +52,51 @@ def _nvcc() -> str:
     return found
 
 
-def _build(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
+def _target(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC, f"{name}.cu")] + sorted(
+            glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+
+
+def build(names) -> None:
+    """Build the libraries of ``csrc/<name>.cu`` for every name that has
+    none yet, one ``nvcc`` process each, all started together."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    out = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
-    if os.path.exists(out):
-        build_seconds[name] = 0.0
-        return out
-    tmp = f"{out}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}\n"
-                           f"{proc.stderr}")
-    os.replace(tmp, out)
-    build_seconds[name] = time.perf_counter() - t0
-    return out
+    jobs = []
+    for name in names:
+        out = _target(name)
+        if os.path.exists(out):
+            build_seconds.setdefault(name, 0.0)
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        src = os.path.join(CSRC, f"{name}.cu")
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, src, out, tmp, proc, time.perf_counter()))
+    failed = []
+    for name, src, out, tmp, proc, t0 in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {src}:\n{log}")
+            continue
+        if log.strip():  # warnings
+            print(f"[nvcc {name}]\n{log.strip()}", flush=True)
+        os.replace(tmp, out)
+        build_seconds[name] = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built if needed."""
     lib = _LIBS.get(name)
     if lib is None:
-        lib = ctypes.CDLL(_build(name))
+        build([name])
+        lib = ctypes.CDLL(_target(name))
         _LIBS[name] = lib
     return lib
 

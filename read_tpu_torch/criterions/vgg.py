@@ -43,7 +43,7 @@ _PYTORCH_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
 def random_vgg_params(generator: torch.Generator,
-                      device="cpu") -> VggParams:
+                      device="cuda") -> VggParams:
     """A He-normal random VGG19 conv stack (biases 0) from
     ``generator``."""
     params, cin = [], 3
@@ -55,7 +55,7 @@ def random_vgg_params(generator: torch.Generator,
     return params
 
 
-def load_vgg_params(weights_path: str, device="cpu") -> VggParams:
+def load_vgg_params(weights_path: str, device="cuda") -> VggParams:
     """VGG19 conv weights from ``.npz`` (keys ``conv{i}_w`` HWIO and
     ``conv{i}_b``) or from a torch VGG19 state dict (``features.*``,
     OIHW, converted to HWIO)."""

@@ -1,6 +1,7 @@
-// The projecting z-buffers for Hopper: K1 (packed int32 key) and K5
-// (exact 64-bit key). Both share one projection, so they pick the same
-// pixel for every point, bit for bit.
+// The z-buffers for Hopper: K1 (projecting, packed int32 key), K5
+// (projecting, exact 64-bit key) and K6 (given packed keys). K1 and K5
+// share one projection, so they pick the same pixel for every point, bit
+// for bit.
 //
 // K1 replaces read_tpu/ops/rasterize_pallas.py `_kernel2` (via
 // `zbuffer_pallas2` / `zbuffer_scatter1_pallas`) together with the XLA
@@ -19,6 +20,15 @@
 // quantization and no limit on the number of points below 2^31. A second
 // small kernel unpacks the keys into index (-1 empty) and exact depth
 // (0 empty), so no depth is re-gathered.
+//
+// K6 replaces read_tpu/ops/rasterize_pallas.py `_kernel3` (via
+// `zbuffer_pallas3`, and `_kernel2`'s contract on given keys): the
+// per-pixel minimum of keys the caller packed, pix [N] or [B, N] -> [B,
+// n_pixels], empty INT32_MAX. It is K1 without the fused projection: one
+// thread per key, one atomicMin; a pix outside [0, n_pixels) returns at
+// once (no dump slot). The TPU kernel's (8, 128)-tiled framebuffer, a
+// layout for VMEM row read-modify-writes, has no use here. Bound: 8 bytes
+// read per key and the atomics (the framebuffer stays in L2).
 //
 // What bounds them: memory. Each (view, point) reads 12 bytes of xyz,
 // and at most one atomicMin lands in the framebuffer (K1 4 bytes, K5 8;
@@ -130,7 +140,30 @@ __global__ void zbuffer_exact_unpack_kernel(
   depth[j] = empty ? 0.0f : __uint_as_float((unsigned)(key >> 32));
 }
 
+__global__ void zbuffer_keys_kernel(const int* __restrict__ pix,
+                                    const int* __restrict__ key, int n,
+                                    int n_pixels, int* __restrict__ buf) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const size_t j = (size_t)blockIdx.y * n + i;
+  const int p = pix[j];
+  if (p < 0 || p >= n_pixels) return;
+  atomicMin(buf + (size_t)blockIdx.y * n_pixels + p, key[j]);
+}
+
 }  // namespace
+
+// K6: pix, key [b, n] int32; buf [b, n_pixels] int32 pre-filled with
+// INT32_MAX. Returns cudaGetLastError() after the launch.
+extern "C" int zbuffer_keys(const int* pix, const int* key, int n, int b,
+                            int n_pixels, int* buf, void* stream) {
+  if (n > 0 && b > 0) {
+    dim3 grid((n + kThreads - 1) / kThreads, b);
+    zbuffer_keys_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        pix, key, n, n_pixels, buf);
+  }
+  return (int)cudaGetLastError();
+}
 
 // buf [B, h*w] int32 pre-filled with INT32_MAX; depth0 [B, n] float32.
 // Returns cudaGetLastError() after the launch.

@@ -24,7 +24,7 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
-from read_tpu.scene import camera
+from read_tpu_torch.scene import camera
 from read_tpu_torch.models import texture as T
 from read_tpu_torch.models.unet import UNet
 from read_tpu_torch.ops import rasterize as R

@@ -6,9 +6,10 @@ runs it the way ``read_tpu/models/unet_pallas.py`` runs it for
 inference, under ``torch.no_grad()``: BatchNorm folded into each gated
 conv's affine
 (``_fold_bn`` :43-49), every 3x3 and strided conv on K2, the SCM 1x1
-convs on K3, and the 1x1 convs over concatenations of resampled maps
-(SCM ``BasicConv_4``, AFF ``BasicConv_0``, ``Convs*``) as
-``conv1x1_comb`` (:228-276): ``conv1x1(concat(up(x_j))) == sum_j
+convs on K3, the SCM ``BasicConv_4`` over its concat of two
+same-resolution maps on K4 (the concat never written), and the 1x1 convs
+over concatenations of resampled maps (AFF ``BasicConv_0``, ``Convs*``)
+as ``conv1x1_comb`` (:228-276): ``conv1x1(concat(up(x_j))) == sum_j
 up(x_j @ W_j)``, low-resolution matmuls, the resample, and a PyTorch
 epilogue.
 
@@ -206,12 +207,21 @@ class BasicConv(nn.Module):
              train: Optional[bool] = None) -> torch.Tensor:
         """This 1x1 conv over the channel concat of resampled ``parts``
         (``(x [B, h_j, w_j, C_j], mode, factor)``, mode in id / nearest /
-        bilinear). Serving contracts each part at its own resolution;
-        the differentiable route resamples and concatenates first."""
+        bilinear). Serving sends a site whose parts are all ``id`` (the
+        SCMs' ``BasicConv_4``) to K4 in one launch, and contracts the
+        parts of any other site at their own resolution; the
+        differentiable route resamples and concatenates first."""
         if train is not None:
             x = torch.cat([_resample(x, mode, f, train)
                            for x, mode, f in parts], dim=-1)
             return self(x, train=train)
+        if len(parts) <= GC.MAX_CAT and all(mode == "id"
+                                            for _, mode, _ in parts):
+            scale, offset = self.folded_bn()
+            return GC.gated_conv_1x1_cat([x for x, _, _ in parts],
+                                         self.conv_fm.kernel,
+                                         self.conv_fm.bias, scale, offset,
+                                         relu=self.relu, bf16=bf16)
         w = self.conv_fm.kernel
         w2 = w.reshape(w.shape[2], w.shape[3])
         acc, coff = None, 0

@@ -1,10 +1,13 @@
-"""K2 and K3: fused gated convolutions (``csrc/gated_conv.cu``) and twins.
+"""K2, K3 and K4: fused gated convolutions (``csrc/gated_conv.cu``) and
+twins.
 
 Counterpart of ``read_tpu/ops/gated_conv_pack.py``: ``gated_conv3x3_chw``
 (:298-418, the 3x3 stride-1 kernels) together with the strided
 transitions ``read_tpu/models/unet_pallas.py`` ``_Ctx.conv`` routes
 through space-to-depth or im2col (:178-219) -> :func:`gated_conv_kxk`
-(K2); ``gated_conv1x1_chw`` (:441-506) -> :func:`gated_conv_1x1` (K3).
+(K2); ``gated_conv1x1_chw`` (:441-506) -> :func:`gated_conv_1x1` (K3);
+``gated_conv1x1_cat_chw`` (:537-614) -> :func:`gated_conv_1x1_cat` (K4),
+the 1x1 conv over a logical channel concat of up to 4 inputs.
 
 One BasicConv of the UNet (``read_tpu/models/unet.py:130-184``) with its
 eval BatchNorm folded to ``scale``/``offset``::
@@ -13,7 +16,9 @@ eval BatchNorm folded to ``scale``/``offset``::
     out = act(fm[..., :Cout]) * sigmoid(fm[..., Cout:]) * scale + offset
     out = out + res                   # optional fused residual
 
-``act`` is ELU when ``relu`` else identity. Activations are NHWC
+``act`` is ELU when ``relu`` else identity; K4 with ``gated=False`` has
+no m half (``w [Ctot, Cout]``, ``out = act(fm) * scale + offset``).
+Activations are NHWC
 ``[B, H, W, C]`` float32, as in JAX. ``bf16=True`` rounds both operands
 to bfloat16 and accumulates in float32 (JAX's ``bf16_mxu``).
 
@@ -33,11 +38,13 @@ import torch.nn.functional as F
 from read_tpu_torch import _build
 
 __all__ = ["gated_epilogue", "gated_conv_kxk", "gated_conv_kxk_plain",
-           "gated_conv_1x1", "gated_conv_1x1_plain", "round_bf16",
-           "launches"]
+           "gated_conv_1x1", "gated_conv_1x1_plain", "gated_conv_1x1_cat",
+           "gated_conv_1x1_cat_plain", "round_bf16", "launches"]
 
 # kernel launches per wrapper (a CPU call runs the twin and counts nothing)
-launches = {"gated_conv_kxk": 0, "gated_conv_1x1": 0}
+launches = {"gated_conv_kxk": 0, "gated_conv_1x1": 0,
+            "gated_conv_1x1_cat": 0}
+MAX_CAT = 4  # inputs K4 takes in one launch
 
 
 def round_bf16(t: torch.Tensor) -> torch.Tensor:
@@ -47,42 +54,58 @@ def round_bf16(t: torch.Tensor) -> torch.Tensor:
 
 def gated_epilogue(fm: torch.Tensor, b: torch.Tensor, scale: torch.Tensor,
                    offset: torch.Tensor, res: Optional[torch.Tensor],
-                   relu: bool) -> torch.Tensor:
-    """Bias, ELU(f) * sigmoid(m) gate, folded BN affine, residual."""
+                   relu: bool, gated: bool = True) -> torch.Tensor:
+    """Bias, ELU(f) * sigmoid(m) gate (or act alone when not ``gated``),
+    folded BN affine, residual."""
     fm = fm + b
-    c = fm.shape[-1] // 2
-    f, m = fm[..., :c], fm[..., c:]
-    if relu:
-        f = F.elu(f)
-    out = f * torch.sigmoid(m) * scale + offset
+    if gated:
+        c = fm.shape[-1] // 2
+        f, m = fm[..., :c], fm[..., c:]
+        if relu:
+            f = F.elu(f)
+        out = f * torch.sigmoid(m) * scale + offset
+    else:
+        out = (F.elu(fm) if relu else fm) * scale + offset
     return out if res is None else out + res
 
 
-def _check(name, x, w, b, scale, offset, res, out_shape):
-    tensors = [x, w, b, scale, offset] + ([] if res is None else [res])
+def _on_cuda(name, tensors) -> bool:
+    """Check a wrapper's float32 tensors: False on the CPU (the twin
+    runs), True when all are contiguous CUDA tensors (the kernel runs);
+    raise otherwise."""
+    dev = tensors[0].device
     for t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: want float32 tensors, got {t.dtype}")
-        if t.device != x.device:
+        if t.device != dev:
             raise ValueError(f"{name}: tensors on different devices")
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for device {dev}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: tensors must be contiguous")
+    return True
+
+
+def _check_epilogue(name, b, scale, offset, res, c2, cout, out_shape):
+    if tuple(b.shape) != (c2,) or tuple(scale.shape) != (cout,) \
+            or tuple(offset.shape) != (cout,):
+        raise ValueError(f"{name}: bias/scale/offset shapes do not match "
+                         f"C2={c2}, Cout={cout}")
+    if res is not None and tuple(res.shape) != tuple(out_shape):
+        raise ValueError(f"{name}: residual {tuple(res.shape)} != output "
+                         f"{tuple(out_shape)}")
+
+
+def _check(name, x, w, b, scale, offset, res, out_shape):
     cout = w.shape[-1] // 2
     if w.shape[-1] != 2 * cout or w.shape[-2] != x.shape[-1]:
         raise ValueError(f"{name}: weight {tuple(w.shape)} does not fit "
                          f"input {tuple(x.shape)}")
-    if tuple(b.shape) != (2 * cout,) or tuple(scale.shape) != (cout,) \
-            or tuple(offset.shape) != (cout,):
-        raise ValueError(f"{name}: bias/scale/offset shapes do not match "
-                         f"Cout={cout}")
-    if res is not None and tuple(res.shape) != tuple(out_shape):
-        raise ValueError(f"{name}: residual {tuple(res.shape)} != output "
-                         f"{tuple(out_shape)}")
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise RuntimeError(f"{name}: no kernel for device {x.device}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name}: tensors must be contiguous")
-    return True
+    _check_epilogue(name, b, scale, offset, res, 2 * cout, cout, out_shape)
+    return _on_cuda(name, [x, w, b, scale, offset]
+                    + ([] if res is None else [res]))
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -137,6 +160,15 @@ def gated_conv_kxk(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def _weight_2d(name: str, w: torch.Tensor) -> torch.Tensor:
+    """A 1x1 weight ``[1, 1, Cin, C2]`` as ``[Cin, C2]`` (2-D passes)."""
+    if w.dim() == 4:
+        if tuple(w.shape[:2]) != (1, 1):
+            raise ValueError(f"{name}: weight {tuple(w.shape)} is not 1x1")
+        w = w.reshape(w.shape[2], w.shape[3])
+    return w
+
+
 def gated_conv_1x1_plain(x, w, b, scale, offset, res=None, *, relu=True,
                          bf16=False):
     """Plain PyTorch twin of :func:`gated_conv_1x1` (``torch.matmul``)."""
@@ -158,11 +190,7 @@ def gated_conv_1x1(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """K3: gated 1x1 conv, ``[..., Cin] @ [Cin, 2*Cout]`` + epilogue.
     ``w`` is ``[1, 1, Cin, 2*Cout]`` or ``[Cin, 2*Cout]``; returns
     ``[..., Cout]``."""
-    if w.dim() == 4:
-        if tuple(w.shape[:2]) != (1, 1):
-            raise ValueError(f"gated_conv_1x1: weight {tuple(w.shape)} "
-                             "is not 1x1")
-        w = w.reshape(w.shape[2], w.shape[3])
+    w = _weight_2d("gated_conv_1x1", w)
     cout = w.shape[-1] // 2
     out_shape = tuple(x.shape[:-1]) + (cout,)
     if not _check("gated_conv_1x1", x, w, b, scale, offset, res,
@@ -181,3 +209,74 @@ def gated_conv_1x1(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     launches["gated_conv_1x1"] += 1
     return out
 
+
+def gated_conv_1x1_cat_plain(xs, w, b, scale, offset, res=None, *,
+                             relu=True, gated=True, bf16=False):
+    """Plain PyTorch twin of :func:`gated_conv_1x1_cat`: one
+    ``torch.matmul`` per input against its rows of ``w``, summed."""
+    w2 = _weight_2d("gated_conv_1x1_cat", w)
+    acc, off = None, 0
+    for x in xs:
+        c = x.shape[-1]
+        xj, wj = x, w2[off:off + c]
+        off += c
+        if bf16:
+            xj, wj = round_bf16(xj), round_bf16(wj)
+        d = torch.matmul(xj, wj)
+        acc = d if acc is None else acc + d
+    if off != w2.shape[0]:
+        raise ValueError(f"gated_conv_1x1_cat: inputs carry {off} "
+                         f"channels, weight wants {w2.shape[0]}")
+    return gated_epilogue(acc, b, scale, offset, res, relu,
+                          gated).contiguous()
+
+
+_CAT_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                 + [ctypes.c_void_p])
+
+
+def gated_conv_1x1_cat(xs, w: torch.Tensor, b: torch.Tensor,
+                       scale: torch.Tensor, offset: torch.Tensor,
+                       res: Optional[torch.Tensor] = None, *,
+                       relu: bool = True, gated: bool = True,
+                       bf16: bool = False) -> torch.Tensor:
+    """K4: gated 1x1 conv over the channel concat of ``xs`` (1 to 4
+    tensors ``[..., C_j]`` with the same leading shape), never
+    materialized: ``sum_j x_j @ w[rows of j]`` + epilogue. ``w`` is
+    ``[1, 1, sum C_j, C2]`` or ``[sum C_j, C2]`` with ``C2 = 2*Cout``
+    (``Cout`` when not ``gated``); returns ``[..., Cout]``."""
+    name = "gated_conv_1x1_cat"
+    xs = list(xs)
+    if not 1 <= len(xs) <= MAX_CAT:
+        raise ValueError(f"{name}: takes 1 to {MAX_CAT} inputs, got "
+                         f"{len(xs)}")
+    lead = tuple(xs[0].shape[:-1])
+    if any(tuple(x.shape[:-1]) != lead for x in xs):
+        raise ValueError(f"{name}: inputs {[tuple(x.shape) for x in xs]} "
+                         "differ in their leading shape")
+    w = _weight_2d(name, w)
+    cins = [x.shape[-1] for x in xs]
+    c2 = w.shape[-1]
+    cout = c2 // 2 if gated else c2
+    if w.shape[0] != sum(cins) or (gated and c2 != 2 * cout):
+        raise ValueError(f"{name}: weight {tuple(w.shape)} does not fit "
+                         f"inputs of {cins} channels")
+    out_shape = lead + (cout,)
+    _check_epilogue(name, b, scale, offset, res, c2, cout, out_shape)
+    if not _on_cuda(name, xs + [w, b, scale, offset]
+                    + ([] if res is None else [res])):
+        return gated_conv_1x1_cat_plain(xs, w, b, scale, offset, res,
+                                        relu=relu, gated=gated, bf16=bf16)
+    n = xs[0].numel() // max(cins[0], 1)
+    out = torch.empty(out_shape, dtype=torch.float32, device=w.device)
+    pad = MAX_CAT - len(xs)
+    ptrs = [x.data_ptr() for x in xs] + [None] * pad
+    fn = _build.function("gated_conv", name, _CAT_ARGTYPES)
+    err = fn(*ptrs, *cins, *([0] * pad), len(xs), w.data_ptr(),
+             b.data_ptr(), scale.data_ptr(), offset.data_ptr(), _ptr(res),
+             out.data_ptr(), n, cout, int(relu), int(gated), int(bf16),
+             torch.cuda.current_stream(w.device).cuda_stream)
+    _build.check(err, name)
+    launches[name] += 1
+    return out

@@ -12,10 +12,17 @@ K5, the exact 64-bit key: counterpart of ``rasterize_pallas.py``
 least id, empty pixels -1 with depth 0.
 
 Both CUDA kernels also fuse the projection and pixel mapping that feed
-them (see the source's header note). :func:`zbuffer` and
-:func:`zbuffer_exact` are the wrappers: a CPU tensor goes to the plain
-twin, a CUDA tensor to the kernel, anything else raises.
-``launches[<wrapper name>]`` counts kernel launches.
+them (see the source's header note).
+
+K6, the packed int32 key on keys the caller made: counterpart of
+``rasterize_pallas.py`` ``zbuffer_pallas3`` / ``_kernel3`` (:234-292)
+and of ``zbuffer_pallas2``'s contract on given keys: K1 without the
+fused projection.
+
+:func:`zbuffer`, :func:`zbuffer_exact` and :func:`zbuffer_keys` are the
+wrappers: a CPU tensor goes to the plain twin, a CUDA tensor to the
+kernel, anything else raises. ``launches[<wrapper name>]`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -29,13 +36,13 @@ from read_tpu_torch import _build
 __all__ = ["INT32_MAX", "INT64_MAX", "key_bits", "pack_keys",
            "pack_exact_keys", "unpack_exact", "scatter_min", "zbuffer",
            "zbuffer_plain", "zbuffer_exact", "zbuffer_exact_plain",
-           "launches"]
+           "zbuffer_keys", "zbuffer_keys_plain", "launches"]
 
 INT32_MAX = 2 ** 31 - 1
 INT64_MAX = 2 ** 63 - 1
 
 # kernel launches (a CPU call runs the twin and counts nothing)
-launches = {"zbuffer": 0, "zbuffer_exact": 0}
+launches = {"zbuffer": 0, "zbuffer_exact": 0, "zbuffer_keys": 0}
 
 
 def key_bits(n_ids: int):
@@ -209,3 +216,47 @@ def zbuffer_exact(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
     _build.check(err, "zbuffer_exact")
     launches["zbuffer_exact"] += 1
     return index, depth
+
+
+def zbuffer_keys_plain(pix: torch.Tensor, key: torch.Tensor,
+                       n_pixels: int) -> torch.Tensor:
+    """Plain PyTorch twin of :func:`zbuffer_keys` (``scatter_reduce_``
+    amin, :func:`scatter_min`)."""
+    return scatter_min(pix, key, n_pixels)
+
+
+_KEYS_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                  ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                  ctypes.c_void_p]
+
+
+def zbuffer_keys(pix: torch.Tensor, key: torch.Tensor,
+                 n_pixels: int) -> torch.Tensor:
+    """K6: the per-pixel minimum of the packed int32 ``key`` (e.g. from
+    :func:`pack_keys`) over points with flat pixel ids ``pix >= 0``,
+    both ``[N]`` (one view) or ``[B, N]``. A ``pix >= n_pixels`` is
+    dropped. Returns ``[n_pixels]`` or ``[B, n_pixels]`` int32,
+    ``INT32_MAX`` where empty."""
+    if pix.dtype != torch.int32 or key.dtype != torch.int32:
+        raise TypeError("zbuffer_keys: pix and key must be int32")
+    if pix.shape != key.shape or pix.dim() not in (1, 2):
+        raise ValueError(f"zbuffer_keys: want pix, key both [N] or [B, N];"
+                         f" got {tuple(pix.shape)}, {tuple(key.shape)}")
+    if pix.device != key.device:
+        raise ValueError("zbuffer_keys: pix and key on different devices")
+    if pix.device.type == "cpu":
+        return zbuffer_keys_plain(pix, key, n_pixels)
+    if pix.device.type != "cuda":
+        raise RuntimeError(f"zbuffer_keys: no kernel for device "
+                           f"{pix.device}")
+    if not (pix.is_contiguous() and key.is_contiguous()):
+        raise ValueError("zbuffer_keys: inputs must be contiguous")
+    b, n = (1, pix.shape[0]) if pix.dim() == 1 else pix.shape
+    buf = torch.full((b, n_pixels), INT32_MAX, dtype=torch.int32,
+                     device=pix.device)
+    fn = _build.function("zbuffer", "zbuffer_keys", _KEYS_ARGTYPES)
+    err = fn(pix.data_ptr(), key.data_ptr(), n, b, n_pixels, buf.data_ptr(),
+             torch.cuda.current_stream(pix.device).cuda_stream)
+    _build.check(err, "zbuffer_keys")
+    launches["zbuffer_keys"] += 1
+    return buf if pix.dim() == 2 else buf[0]

@@ -118,7 +118,7 @@ class PipelineConfig:
 def parse_format_geometry(input_format: str):
     """``(point_radius, relative_point_size, extra_modes)`` from the
     input-format DSL string (same derivation as ``read_tpu``)."""
-    from read_tpu.scene.formats import parse_input_format
+    from read_tpu_torch.scene.formats import parse_input_format
     specs = parse_input_format(input_format)
     relative_ps = any(sp.splat_mode for sp in specs)
     point_radius = 0
@@ -350,7 +350,7 @@ def rms_update(g: torch.Tensor, state: RmsState, decay: float = 0.99,
 
 def create_state(generator: torch.Generator, cfg: PipelineConfig,
                  n_points: int, texture_init: str = "rand",
-                 net: Optional[UNet] = None, device="cpu"
+                 net: Optional[UNet] = None, device="cuda"
                  ) -> Tuple[TrainState, UNet]:
     """A fresh state: the net's flax-distributed init and the descriptor
     table ('rand' by default, as ``read_tpu``) drawn from ``generator``
@@ -389,7 +389,7 @@ def _subtree(flat: Dict[str, np.ndarray], prefix: str, device) -> Tensors:
             for key, arr in flat.items() if key.startswith(prefix)}
 
 
-def state_from_flat(flat: Dict[str, np.ndarray], device="cpu"
+def state_from_flat(flat: Dict[str, np.ndarray], device="cuda"
                     ) -> TrainState:
     """A whole ``read_tpu`` ``TrainState``, flattened as its checkpoint
     holds it (``read_tpu/utils/ckpt.py:42-47``: ``step``, ``lr_scale``,

@@ -30,7 +30,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from read_tpu.scene import camera
+from read_tpu_torch.scene import camera
 from read_tpu_torch.models.unet import unet_from_state
 from read_tpu_torch.pipelines import texture_pipeline as TP
 from read_tpu_torch.utils import ckpt as CK
@@ -42,7 +42,7 @@ __all__ = ["NeuralRenderer", "main"]
 class NeuralRenderer:
     """Render neural frames of one scene from one checkpoint.
 
-    ``scene`` is a scene YAML path (loaded with ``read_tpu.scene.io``,
+    ``scene`` is a scene YAML path (loaded with ``read_tpu_torch.scene.io``,
     which needs PyYAML) or an already-loaded scene-data dict with the
     keys ``load_scene_data`` returns (``pointcloud['xyz']``,
     ``intrinsic_matrix``, ``config['viewport_size']``, and optionally
@@ -58,7 +58,7 @@ class NeuralRenderer:
                  raster_method: Optional[str] = None,
                  device="cuda"):
         if isinstance(scene, str):
-            from read_tpu.scene.io import load_scene_data
+            from read_tpu_torch.scene.io import load_scene_data
             scene = load_scene_data(scene)
         self.scene_data = scene
         self.device = torch.device(device)

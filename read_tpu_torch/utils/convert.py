@@ -73,7 +73,7 @@ def flat_from_variables(unet_state: Dict[str, torch.Tensor],
 
 
 def vgg_params_from_numpy(pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
-                          device="cpu"):
+                          device="cuda"):
     """VGG parameters given as numpy ``(w HWIO, b)`` pairs (e.g. JAX's
     ``random_vgg_params``) -> the port's list of float32 tensors."""
     return [(torch.from_numpy(np.array(w, np.float32)).to(device),

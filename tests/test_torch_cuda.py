@@ -6,9 +6,13 @@ every test skips. On a GPU machine, which need not have JAX installed::
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 TF32 is switched off for the twins (full float32 convolutions and
-matmuls). K1 and K5 must be bit-equal; K2/K3 within ``atol 2e-5, rtol
-1e-4`` (f32 operands) and ``atol 0.35, rtol 0.05`` (bf16 operands), the
-bounds of ``tests/test_unet_pallas.py``. One training step on the GPU
+matmuls). K1, K5, K6 and K8 ``packonly`` must be bit-equal; K2/K3/K4,
+K7 and K8 within ``atol 2e-5, rtol 1e-4`` (f32 operands) and K2-K4
+within ``atol 0.35, rtol 0.05`` (bf16 operands; also within the f32
+bound: the same rounded operands, f32 sums), the bounds of
+``tests/test_unet_pallas.py``; K7's bf16 output within ``atol 1e-3,
+rtol 1e-2`` (one f32 sum rounded to bf16 once: at most one bf16 ulp
+apart). One training step on the GPU
 (K5, cuDNN) is held against the same step on the CPU (the twins) from
 the same state: losses rtol 1e-3, running statistics atol 1e-5.
 """
@@ -21,6 +25,8 @@ from read_tpu_torch.criterions import vgg as V
 from read_tpu_torch.frame import frame_inputs, make_frame
 from read_tpu_torch.models.unet import UNet
 from read_tpu_torch.ops import gated_conv as GC
+from read_tpu_torch.ops import gated_conv_probe as GP
+from read_tpu_torch.ops import gated_conv_r2 as R2
 from read_tpu_torch.ops import rasterize as R
 from read_tpu_torch.ops import rasterize_kernels as RK
 from read_tpu_torch.pipelines import texture_pipeline as TP
@@ -29,6 +35,7 @@ pytestmark = pytest.mark.cuda
 
 F32 = dict(atol=2e-5, rtol=1e-4)
 BF16 = dict(atol=0.35, rtol=0.05)
+BF16_OUT = dict(atol=1e-3, rtol=1e-2)
 
 
 @pytest.fixture
@@ -87,9 +94,10 @@ def test_train_step_on_cuda_matches_cpu(dev):
     xyz, ms = frame_inputs(2, 4000, (32, 32), focal=30.0)
     target = rng.uniform(size=(2, 32, 32, 3)).astype(np.float32)
     cfg = TP.PipelineConfig(crop_size=(32, 32))
-    vgg = V.random_vgg_params(torch.Generator().manual_seed(0))
+    vgg = V.random_vgg_params(torch.Generator().manual_seed(0), device="cpu")
     state, net = TP.create_state(torch.Generator().manual_seed(1), cfg, 4000,
-                                 net=UNet(base_channel=8, num_res=1))
+                                 net=UNet(base_channel=8, num_res=1),
+                                 device="cpu")
     out = []
     for device in ("cpu", dev):
         st = TP.state_from_flat(TP.flat_from_state(state), device)
@@ -183,15 +191,123 @@ def test_small_frame_kernels_match_twins(dev, operands):
     frame_fn, args = make_frame(batch=2, operands=operands, device=dev,
                                 n_points=20000, hw=(48, 64), focal=40.0,
                                 base_channel=8, num_res=1)
+    before = GC.launches["gated_conv_1x1_cat"]
     got = frame_fn(*args)
-    saved = RK.zbuffer, GC.gated_conv_kxk, GC.gated_conv_1x1
+    assert GC.launches["gated_conv_1x1_cat"] == before + 3  # the SCMs
+    saved = (RK.zbuffer, GC.gated_conv_kxk, GC.gated_conv_1x1,
+             GC.gated_conv_1x1_cat)
     RK.zbuffer = RK.zbuffer_plain
     GC.gated_conv_kxk = GC.gated_conv_kxk_plain
     GC.gated_conv_1x1 = GC.gated_conv_1x1_plain
+    GC.gated_conv_1x1_cat = GC.gated_conv_1x1_cat_plain
     try:
         want = frame_fn(*args)
     finally:
-        RK.zbuffer, GC.gated_conv_kxk, GC.gated_conv_1x1 = saved
+        (RK.zbuffer, GC.gated_conv_kxk, GC.gated_conv_1x1,
+         GC.gated_conv_1x1_cat) = saved
     torch.cuda.synchronize()
     assert np.isfinite(got.cpu().numpy()).all()
     torch.testing.assert_close(got, want, atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("cins,gated", [((8, 56), True), ((16, 8, 4), True),
+                                        ((32, 64, 128, 256), True),
+                                        ((16, 8, 4), False), ((5, 3), True)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_gated_conv_1x1_cat_kernel_matches_twin(dev, cins, gated, bf16):
+    gen = torch.Generator(device=dev).manual_seed(sum(cins))
+    xs = [torch.randn(2, 13, 29, c, generator=gen, device=dev)
+          for c in cins]
+    cout = 24
+    c2 = 2 * cout if gated else cout
+    w = torch.randn(1, 1, sum(cins), c2, generator=gen, device=dev) \
+        / sum(cins) ** 0.5
+    b = torch.randn(c2, generator=gen, device=dev) * 0.1
+    scale = torch.rand(cout, generator=gen, device=dev) + 0.5
+    offset = torch.randn(cout, generator=gen, device=dev) * 0.1
+    res = torch.randn(2, 13, 29, cout, generator=gen, device=dev)
+    for relu in (True, False):
+        before = GC.launches["gated_conv_1x1_cat"]
+        got = GC.gated_conv_1x1_cat(xs, w, b, scale, offset, res, relu=relu,
+                                    gated=gated, bf16=bf16)
+        assert GC.launches["gated_conv_1x1_cat"] == before + 1
+        want = GC.gated_conv_1x1_cat_plain(xs, w, b, scale, offset, res,
+                                           relu=relu, gated=gated, bf16=bf16)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **F32)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_zbuffer_keys_kernel_bit_equal(dev, batched):
+    """K6 on packed keys with heavy ties (every position 4 times) and
+    dropped points (pix >= n_pixels)."""
+    hw = (96, 160)
+    xyz, ms = frame_inputs(2 if batched else 1, 50_000, hw, focal=96.0)
+    xyz = torch.from_numpy(np.tile(xyz, (4, 1))).to(dev)
+    ms = torch.from_numpy(ms).to(dev)
+    n, npx = xyz.shape[0], hw[0] * hw[1]
+    pix, depth, _, _ = RK._projected(xyz, ms, *hw)
+    ids = torch.arange(n, dtype=torch.int32, device=dev).expand_as(pix)
+    key = RK.pack_keys(pix, depth, ids, npx, n)[0].contiguous()
+    pix = pix.to(torch.int32).contiguous()
+    assert int((pix >= npx).sum()) > 0
+    if not batched:
+        pix, key = pix[0].contiguous(), key[0].contiguous()
+    before = RK.launches["zbuffer_keys"]
+    got = RK.zbuffer_keys(pix, key, npx)
+    assert RK.launches["zbuffer_keys"] == before + 1
+    want = RK.zbuffer_keys_plain(pix, key, npx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert (got != RK.INT32_MAX).float().mean() > 0.2
+
+
+@pytest.mark.parametrize("k", [3, 1])
+@pytest.mark.parametrize("cin,cout,h,w", [(32, 32, 20, 70), (8, 12, 9, 33),
+                                          (64, 40, 16, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gated_conv_r2_kernel_matches_twin(dev, k, cin, cout, h, w, dtype):
+    """K7, gated and not, relu on and off, H and W not tile multiples."""
+    kern, twin = ((R2.gated_conv3x3_r2, R2.gated_conv3x3_r2_plain) if k == 3
+                  else (R2.gated_conv1x1_r2, R2.gated_conv1x1_r2_plain))
+    for gated in (True, False):
+        c2 = 2 * cout if gated else cout
+        x = torch.randn(h, w, cin, device=dev).to(dtype)
+        wk = torch.randn(k, k, cin, c2, device=dev).to(dtype) / (
+            k * k * cin) ** 0.5
+        b = torch.randn(c2, device=dev) * 0.1
+        scale = torch.rand(cout, device=dev) + 0.5
+        offset = torch.randn(cout, device=dev) * 0.1
+        for relu in (True, False):
+            got = kern(x, wk, b, scale, offset, relu=relu, gated=gated)
+            want = twin(x, wk, b, scale, offset, relu=relu, gated=gated)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype
+            torch.testing.assert_close(
+                got.float(), want.float(),
+                **(BF16_OUT if dtype == torch.bfloat16 else F32))
+
+
+@pytest.mark.parametrize("cin,cout,h,w", [(32, 32, 20, 70), (8, 12, 9, 33),
+                                          (64, 16, 11, 13)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_gated_conv_probe_kernel_matches_twin(dev, cin, cout, h, w, bf16):
+    """K8: full and nowin within the f32 bound, packonly bit-equal,
+    nopack runs (no defined output)."""
+    gen = torch.Generator(device=dev).manual_seed(cin + cout)
+    x = torch.randn(2, h, w, cin, generator=gen, device=dev)
+    wk = torch.randn(3, 3, cin, 2 * cout, generator=gen, device=dev) / (
+        9 * cin) ** 0.5
+    for mode in ("full", "nowin", "packonly"):
+        got = GP.gated_conv_probe(x, wk, mode=mode, bf16=bf16)
+        want = GP.gated_conv_probe_plain(x, wk, mode=mode, bf16=bf16)
+        torch.cuda.synchronize()
+        if mode == "packonly":
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, **F32)
+    before = GP.launches["gated_conv_probe"]
+    out = GP.gated_conv_probe(x, wk, mode="nopack", bf16=bf16)
+    torch.cuda.synchronize()
+    assert out.shape == (2, h, w, 2 * cout)
+    assert GP.launches["gated_conv_probe"] == before + 1

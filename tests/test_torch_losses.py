@@ -45,7 +45,7 @@ def _images(seed=0, b=2, h=32, w=32):
 def vgg_params():
     jp = JV.random_vgg_params(0)
     return jp, CV.vgg_params_from_numpy([(np.asarray(w), np.asarray(b))
-                                         for w, b in jp])
+                                         for w, b in jp], device="cpu")
 
 
 @pytest.mark.parametrize("per_item", [False, True])
@@ -151,7 +151,8 @@ def test_vgg_params_random_and_loaded(tmp_path, vgg_params):
     """The port's own random init has VGG19's shapes and He-normal
     scale; a .npz of JAX's params loads back bit for bit."""
     jp, _ = vgg_params
-    params = V.random_vgg_params(torch.Generator().manual_seed(0))
+    params = V.random_vgg_params(torch.Generator().manual_seed(0),
+                                  device="cpu")
     cin = 3
     for (w, b), cout in zip(params, V.VGG_CHANNELS):
         assert tuple(w.shape) == (3, 3, cin, cout) and float(b.abs().max()) \
@@ -161,7 +162,7 @@ def test_vgg_params_random_and_loaded(tmp_path, vgg_params):
     path = str(tmp_path / "vgg.npz")
     np.savez(path, **{f"conv{i}_{k}": np.asarray(a) for i, wb in
                       enumerate(jp) for k, a in zip("wb", wb)})
-    for (w, b), (jw, jb) in zip(V.load_vgg_params(path), jp):
+    for (w, b), (jw, jb) in zip(V.load_vgg_params(path, device="cpu"), jp):
         np.testing.assert_array_equal(w.numpy(), np.asarray(jw))
         np.testing.assert_array_equal(b.numpy(), np.asarray(jb))
 
@@ -179,9 +180,9 @@ def test_vgg_params_load_pth_state_dict(tmp_path, vgg_params):
         i += 2 if i % 5 else 3
     path = str(tmp_path / "vgg.pth")
     torch.save(sd, path)
-    for (w, b), (jw, jb) in zip(V.load_vgg_params(path), jp):
+    for (w, b), (jw, jb) in zip(V.load_vgg_params(path, device="cpu"), jp):
         np.testing.assert_array_equal(w.numpy(), np.asarray(jw))
         np.testing.assert_array_equal(b.numpy(), np.asarray(jb))
     torch.save(torch.nn.Conv2d(3, 64, 3), path)
     with pytest.raises(Exception, match="[Ww]eights"):
-        V.load_vgg_params(path)
+        V.load_vgg_params(path, device="cpu")

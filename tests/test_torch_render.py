@@ -7,7 +7,9 @@
   under the default config (the exact ``sort`` z-buffer, K5's twin);
 - ``read_tpu_torch.frame.make_frame`` at a small size vs the JAX
   composition it ports (packed pyramid -> gather -> flax UNet);
-- importing the renderer and frame loads no JAX.
+- importing every module of the port (the kernel bench included) loads
+  no JAX and nothing of ``read_tpu``, and no source of the port or
+  ``chip_smoke.py`` names ``read_tpu`` in an import.
 
 The UNet is cut to ``base_channel=8, num_res=1`` (the JAX pipeline's
 ``UNet`` is swapped for that width in this process only) to keep the
@@ -213,12 +215,54 @@ def test_make_frame_matches_jax_composition():
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
 
 
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import read_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(read_tpu_torch.__path__,
+                                               "read_tpu_torch.")]
+assert "read_tpu_torch.kernel_bench" in names, names
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "flax", "optax", "triton",
+                                    "read_tpu"))
+assert not bad, bad
+print(len(names))
+"""
+
+
 def test_port_imports_no_jax():
-    code = ("import sys, read_tpu_torch.render, read_tpu_torch.frame; "
-            "bad = [m for m in ('jax', 'flax', 'optax', 'triton', "
-            "'read_tpu.utils.ckpt') if m in sys.modules]; "
-            "assert not bad, bad")
+    """Every module of the port, and chip_smoke.py, imported in a clean
+    process: no jax, flax, optax or triton, and no read_tpu or
+    read_tpu.* module, is loaded."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=120)
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
     assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 20
+
+
+def test_port_sources_import_nothing_of_read_tpu():
+    """No import statement anywhere in the port's sources or in
+    chip_smoke.py, at module level or inside a function, names jax, flax,
+    optax or read_tpu(.*)."""
+    import ast
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "read_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    bad = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module]
+            else:
+                continue
+            bad += [(path, m) for m in mods if m.split(".")[0] in (
+                "jax", "flax", "optax", "read_tpu")]
+    assert len(files) > 20 and not bad, bad

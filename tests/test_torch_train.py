@@ -145,7 +145,7 @@ def test_train_state_round_trip(ref):
     """A whole JAX TrainState's flat leaves come back bit for bit, with
     the same keys and dtypes."""
     flat, _ = CK.load_checkpoint(ref["path"])
-    back = TP.flat_from_state(TP.state_from_flat(flat))
+    back = TP.flat_from_state(TP.state_from_flat(flat, device="cpu"))
     assert set(back) == set(flat)
     for key, arr in flat.items():
         assert back[key].dtype == arr.dtype, key
@@ -158,7 +158,8 @@ def test_create_state_matches_jax_layout(ref):
     flat, _ = CK.load_checkpoint(ref["path"])
     state, net = TP.create_state(torch.Generator().manual_seed(0),
                                  TP.PipelineConfig(crop_size=HW), N,
-                                 net=UNet(base_channel=8, num_res=1))
+                                 net=UNet(base_channel=8, num_res=1),
+                                 device="cpu")
     mine = TP.flat_from_state(state)
     assert {k: v.shape for k, v in mine.items()} == \
         {k: v.shape for k, v in flat.items()}
@@ -261,7 +262,8 @@ def test_unported_training_configs_raise(change):
     with pytest.raises(NotImplementedError):
         TP.make_train_step(net, cfg, None)
     with pytest.raises(NotImplementedError):
-        TP.create_state(torch.Generator().manual_seed(0), cfg, 10, net=net)
+        TP.create_state(torch.Generator().manual_seed(0), cfg, 10, net=net,
+                        device="cpu")
 
 
 @pytest.mark.parametrize("activation", ["none", "sigmoid", "tanh"])
