@@ -161,6 +161,7 @@ class BasicConv(nn.Module):
         self.conv_fm = _Conv(kernel_size, cin, 2 * cout)
         self.norm = _Norm(cout)
         self._folded = None  # (BN tensor versions, (scale, offset))
+        self._packed = None  # (kernel version, pack_kxk_bf16(kernel))
 
     def folded_bn(self):
         """``scale = gamma * rsqrt(var + eps)``, ``offset = beta -
@@ -176,6 +177,17 @@ class BasicConv(nn.Module):
             self._folded = (key, (scale, n.bias - n.mean * scale))
         return self._folded[1]
 
+    def packed_kxk_bf16(self) -> torch.Tensor:
+        """``GC.pack_kxk_bf16`` of the conv kernel (K2's wgmma loop),
+        packed once and reused until the kernel is replaced or written
+        to, as :meth:`folded_bn`."""
+        w = self.conv_fm.kernel
+        key = (w.data_ptr(), w._version)
+        if self._packed is None or self._packed[0] != key:
+            with torch.no_grad():
+                self._packed = (key, GC.pack_kxk_bf16(w))
+        return self._packed[1]
+
     def forward(self, x: torch.Tensor, bf16: bool = False,
                 train: Optional[bool] = None,
                 res: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -186,9 +198,12 @@ class BasicConv(nn.Module):
         if self.k == 1 and self.stride == 1:
             return GC.gated_conv_1x1(x, w, b, scale, offset, res,
                                      relu=self.relu, bf16=bf16)
+        packed = None
+        if x.is_cuda and GC.kxk_route(x, w, bf16) == "wgmma":
+            packed = self.packed_kxk_bf16()
         return GC.gated_conv_kxk(x, w, b, scale, offset, res,
                                  stride=self.stride, relu=self.relu,
-                                 bf16=bf16)
+                                 bf16=bf16, packed=packed)
 
     def _differentiable(self, x: torch.Tensor, train: bool,
                         res: Optional[torch.Tensor]) -> torch.Tensor:

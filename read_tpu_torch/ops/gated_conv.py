@@ -24,7 +24,15 @@ to bfloat16 and accumulates in float32 (JAX's ``bf16_mxu``).
 
 Each wrapper sends a CPU tensor to its plain twin and a CUDA tensor to
 its kernel (anything else raises). ``launches[<wrapper name>]`` counts
-each wrapper's kernel launches.
+each wrapper's kernel launches; ``launches['gated_conv_kxk_wgmma']``
+counts the K2 launches :func:`kxk_route` sent to the wgmma loop (they
+count in ``launches['gated_conv_kxk']`` too).
+
+K2 has two loops on CUDA, chosen by :func:`kxk_route`: bf16 operands with
+``Cin % 32 == 0``, ``Cout % 8 == 0`` and a 16-byte aligned ``x`` take the
+warp-specialized wgmma loop (``csrc/gated_conv_wgmma.cuh``), whose weight
+:func:`pack_kxk_bf16` packs once (``models.unet.BasicConv`` caches it);
+the rest take the tile loops of ``csrc/gated_conv_tile.cuh``.
 """
 
 from __future__ import annotations
@@ -38,13 +46,15 @@ import torch.nn.functional as F
 from read_tpu_torch import _build
 
 __all__ = ["gated_epilogue", "gated_conv_kxk", "gated_conv_kxk_plain",
-           "gated_conv_1x1", "gated_conv_1x1_plain", "gated_conv_1x1_cat",
+           "kxk_route", "wgmma_tile_n", "pack_kxk_bf16", "gated_conv_1x1",
+           "gated_conv_1x1_plain", "gated_conv_1x1_cat",
            "gated_conv_1x1_cat_plain", "round_bf16", "launches"]
 
 # kernel launches per wrapper (a CPU call runs the twin and counts nothing)
-launches = {"gated_conv_kxk": 0, "gated_conv_1x1": 0,
-            "gated_conv_1x1_cat": 0}
+launches = {"gated_conv_kxk": 0, "gated_conv_kxk_wgmma": 0,
+            "gated_conv_1x1": 0, "gated_conv_1x1_cat": 0}
 MAX_CAT = 4  # inputs K4 takes in one launch
+WGMMA_K = 64  # K slice of the wgmma loop: one 128-byte bf16 row
 
 
 def round_bf16(t: torch.Tensor) -> torch.Tensor:
@@ -113,8 +123,9 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def gated_conv_kxk_plain(x, w, b, scale, offset, res=None, *, stride=1,
-                         relu=True, bf16=False):
-    """Plain PyTorch twin of :func:`gated_conv_kxk` (``F.conv2d``)."""
+                         relu=True, bf16=False, packed=None):
+    """Plain PyTorch twin of :func:`gated_conv_kxk` (``F.conv2d``);
+    ``packed`` is accepted and ignored (it is the same weight)."""
     k = w.shape[0]
     if bf16:
         x, w = round_bf16(x), round_bf16(w)
@@ -125,15 +136,94 @@ def gated_conv_kxk_plain(x, w, b, scale, offset, res=None, *, stride=1,
 
 _KXK_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                  + [ctypes.c_void_p])
+_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 13
+                   + [ctypes.c_void_p])
+
+
+def kxk_route(x: torch.Tensor, w: torch.Tensor, bf16: bool) -> str:
+    """Which CUDA loop K2 runs for ``x [B, H, W, Cin]`` and ``w [k, k,
+    Cin, 2*Cout]``: ``'wgmma'`` for bf16 operands with ``Cin % 32 == 0``,
+    ``Cout % 8 == 0`` and a 16-byte aligned ``x``; ``'tile'`` otherwise
+    (the 8-channel descriptor inputs, the ``Cout = 3`` heads, f32)."""
+    cin, cout = w.shape[-2], w.shape[-1] // 2
+    if bf16 and cin % 32 == 0 and cout % 8 == 0 \
+            and x.data_ptr() % 16 == 0:
+        return "wgmma"
+    return "tile"
+
+
+def wgmma_tile_n(cout: int) -> int:
+    """Columns of one N tile of the wgmma loop (f and m together): the
+    layer's ``2*Cout`` rounded up to 64, 128 or 256; wider layers take
+    several 256-column tiles."""
+    return 64 if cout <= 32 else 128 if cout <= 64 else 256
+
+
+def pack_kxk_bf16(w: torch.Tensor, tile_n: Optional[int] = None
+                  ) -> torch.Tensor:
+    """The wgmma loop's weight: HWIO ``w [k, k, Cin, 2*Cout]`` (f32) as
+    bf16 (round to nearest even) ``[ntiles, slices, tile_n, 64]``, one
+    contiguous block per (N tile, K slice) for one bulk copy a stage.
+
+    K = k*k*Cin (tap-major, as ``w.reshape``) is cut into ``slices`` of 64,
+    the last zero-padded. Column ``n`` of tile ``t`` holds, by group ``g =
+    n // 8``, channel ``c = t*tile_n/2 + 8*(g // 2) + n % 8`` of f (``g``
+    even) or m (``g`` odd), zero where ``c >= Cout``: f and m interleave
+    in groups of 8. Each row (``n``) stores its 64 K values as eight
+    16-byte chunks, chunk ``j`` at position ``j ^ (n % 8)``: the 128-byte
+    swizzle the kernel's wgmma descriptors read."""
+    k, _, cin, c2 = w.shape
+    cout = c2 // 2
+    tile_n = tile_n or wgmma_tile_n(cout)
+    half = tile_n // 2
+    ntiles = -(-cout // half)
+    kk = k * k * cin
+    slices = -(-kk // WGMMA_K)
+    dev = w.device
+    n = torch.arange(ntiles * tile_n, device=dev)
+    g = (n % tile_n) // 8
+    ch = (n // tile_n) * half + 8 * (g // 2) + n % 8
+    col = torch.where(ch < cout, ch + cout * (g % 2),
+                      torch.full_like(ch, c2))  # c2: a zero column
+    wm = torch.zeros(slices * WGMMA_K, c2 + 1, dtype=torch.float32,
+                     device=dev)
+    wm[:kk, :c2] = w.reshape(kk, c2)
+    b = wm[:, col].reshape(slices, WGMMA_K, ntiles, tile_n)
+    b = b.permute(2, 0, 3, 1).reshape(ntiles, slices, tile_n, 8, 8)
+    swz = torch.arange(8, device=dev)[None, :] ^ (
+        torch.arange(tile_n, device=dev)[:, None] % 8)  # [tile_n, 8]
+    b = torch.gather(b, 3, swz[None, None, :, :, None].expand_as(b))
+    return b.reshape(ntiles, slices, tile_n, WGMMA_K).to(
+        torch.bfloat16).contiguous()
+
+
+def _launch_wgmma(x, packed, b, scale, offset, res, out, k, stride, relu,
+                  stages=0, nwg=0, loop=0):
+    """Launch ``gated_conv_kxk_wgmma`` into ``out``. ``loop`` (1 gather,
+    2 strip), ``stages`` and ``nwg`` 0 take the kernel's default; other
+    values are the bench's variants."""
+    bsz, h, wd, cin = x.shape
+    cout = out.shape[-1]
+    ntiles, _, tile_n, _ = packed.shape
+    fn = _build.function("gated_conv", "gated_conv_kxk_wgmma",
+                         _WGMMA_ARGTYPES)
+    err = fn(x.data_ptr(), packed.data_ptr(), b.data_ptr(),
+             scale.data_ptr(), offset.data_ptr(), _ptr(res), out.data_ptr(),
+             bsz, h, wd, cin, cout, k, stride, int(relu), tile_n, ntiles,
+             stages, nwg, loop,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "gated_conv_kxk (wgmma)")
 
 
 def gated_conv_kxk(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                    scale: torch.Tensor, offset: torch.Tensor,
                    res: Optional[torch.Tensor] = None, *, stride: int = 1,
-                   relu: bool = True, bf16: bool = False) -> torch.Tensor:
+                   relu: bool = True, bf16: bool = False,
+                   packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K2: gated k x k conv (k in {3, 4}, stride in {1, 2}, zero pad
     ``(k-1)//2``) of ``x [B, H, W, Cin]`` with ``w [k, k, Cin, 2*Cout]``;
-    returns ``[B, Ho, Wo, Cout]``."""
+    returns ``[B, Ho, Wo, Cout]``. ``packed`` is ``pack_kxk_bf16(w)``
+    for the wgmma loop (packed here when it is needed and not given)."""
     k = w.shape[0]
     if w.dim() != 4 or w.shape[1] != k or k not in (3, 4) \
             or stride not in (1, 2) or x.dim() != 4:
@@ -150,6 +240,22 @@ def gated_conv_kxk(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                                     stride=stride, relu=relu, bf16=bf16)
     out = torch.empty((bsz, ho, wo, cout), dtype=torch.float32,
                       device=x.device)
+    if kxk_route(x, w, bf16) == "wgmma":
+        if packed is None:
+            packed = pack_kxk_bf16(w)
+        slices = -(-k * k * cin // WGMMA_K)
+        if packed.dtype != torch.bfloat16 or packed.device != x.device \
+                or not packed.is_contiguous() or packed.dim() != 4 \
+                or tuple(packed.shape[1:]) != (slices, packed.shape[2],
+                                               WGMMA_K):
+            raise ValueError(f"gated_conv_kxk: packed weight "
+                             f"{tuple(packed.shape)} {packed.dtype} does "
+                             f"not fit w {tuple(w.shape)}")
+        _launch_wgmma(x, packed, b, scale, offset, res, out, k, stride,
+                      relu)
+        launches["gated_conv_kxk"] += 1
+        launches["gated_conv_kxk_wgmma"] += 1
+        return out
     fn = _build.function("gated_conv", "gated_conv_kxk", _KXK_ARGTYPES)
     err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), scale.data_ptr(),
              offset.data_ptr(), _ptr(res), out.data_ptr(), bsz, h, wd, cin,

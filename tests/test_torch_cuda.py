@@ -164,6 +164,75 @@ def test_gated_conv_kxk_kernel_matches_twin(dev, cin, cout, k, stride,
             torch.testing.assert_close(got, want, **F32)
 
 
+@pytest.mark.parametrize("cin,cout,k,stride", [
+    (32, 32, 3, 1), (64, 64, 3, 1), (128, 128, 3, 1), (256, 256, 3, 1),
+    (32, 64, 3, 2), (64, 128, 4, 2), (256, 128, 4, 2), (96, 64, 3, 1)])
+@pytest.mark.parametrize("with_res", [False, True])
+def test_gated_conv_kxk_wgmma_matches_twin(dev, cin, cout, k, stride,
+                                           with_res):
+    """K2's bf16 wgmma loops (strip at stride 1, gather at stride 2 and
+    at Cin = 96) on a ragged 23x70 image, B=2, relu on and off: the same
+    bf16 operands and f32 sums as the twin, so within the f32 bound; the
+    route counter shows the new loop ran."""
+    x, w, b, scale, offset = _conv_case(dev, (2, 23, 70), cin, cout, k,
+                                        cin + 3 * cout + k)
+    assert GC.kxk_route(x, w, True) == "wgmma"
+    pad = (k - 1) // 2
+    ho, wo = ((n + 2 * pad - k) // stride + 1 for n in (23, 70))
+    res = (torch.randn(2, ho, wo, cout, device=dev) if with_res else None)
+    packed = GC.pack_kxk_bf16(w)
+    for relu in (True, False):
+        before = dict(GC.launches)
+        got = GC.gated_conv_kxk(x, w, b, scale, offset, res, stride=stride,
+                                relu=relu, bf16=True, packed=packed)
+        assert GC.launches["gated_conv_kxk_wgmma"] == \
+            before["gated_conv_kxk_wgmma"] + 1
+        assert GC.launches["gated_conv_kxk"] == before["gated_conv_kxk"] + 1
+        want = GC.gated_conv_kxk_plain(x, w, b, scale, offset, res,
+                                       stride=stride, relu=relu, bf16=True)
+        torch.cuda.synchronize()
+        assert got.shape == (2, ho, wo, cout)
+        torch.testing.assert_close(got, want, **F32)
+
+
+@pytest.mark.parametrize("tile_n,nwg,stages,loop", [
+    (64, 1, 2, 1), (64, 2, 3, 1), (128, 1, 3, 1), (128, 2, 4, 1),
+    (256, 1, 2, 1), (256, 1, 3, 1), (64, 1, 8, 1),
+    (64, 1, 2, 2), (64, 2, 6, 2), (128, 1, 3, 2), (128, 2, 4, 2),
+    (256, 1, 4, 2), (256, 2, 3, 2)])
+@pytest.mark.parametrize("cin", [32, 128])
+def test_gated_conv_kxk_wgmma_tilings_match_twin(dev, tile_n, nwg, stages,
+                                                 loop, cin):
+    """Every tiling of both wgmma loops (gather 1, strip 2) that the
+    bench's variants launch (N tile width, consumer warpgroups, ring
+    stages), at a layer with two N tiles or more, on a ragged image."""
+    cout = tile_n
+    x, w, b, scale, offset = _conv_case(dev, (2, 19, 77), cin, cout, 3, 5)
+    out = torch.empty(2, 19, 77, cout, device=dev)
+    GC._launch_wgmma(x, GC.pack_kxk_bf16(w, tile_n), b, scale, offset,
+                     None, out, 3, 1, True, stages=stages, nwg=nwg,
+                     loop=loop)
+    want = GC.gated_conv_kxk_plain(x, w, b, scale, offset, relu=True,
+                                   bf16=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, **F32)
+
+
+def test_gated_conv_kxk_wgmma_refused_launch_raises(dev):
+    """A tiling the kernel refuses (9 stages > 8; 256 columns with two
+    consumer warpgroups on the gather loop; the strip loop at stride 2)
+    surfaces as the wrapper's error."""
+    x, w, b, scale, offset = _conv_case(dev, (1, 8, 8), 32, 128, 3, 1)
+    packed = GC.pack_kxk_bf16(w)
+    for stride, stages, nwg, loop in ((1, 9, 0, 0), (1, 4, 2, 1),
+                                      (2, 4, 0, 2)):
+        out = torch.empty(1, 8 // stride, 8 // stride, 128, device=dev)
+        with pytest.raises(RuntimeError, match="CUDA launch failed"):
+            GC._launch_wgmma(x, packed, b, scale, offset, None, out, 3,
+                             stride, True, stages=stages, nwg=nwg,
+                             loop=loop)
+
+
 @pytest.mark.parametrize("cin,cout", [(16, 32), (32, 56), (128, 248)])
 @pytest.mark.parametrize("bf16", [False, True])
 def test_gated_conv_1x1_kernel_matches_twin(dev, cin, cout, bf16):
