@@ -101,12 +101,19 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+_FUNCTIONS: Dict[tuple, ctypes._CFuncPtr] = {}
+
+
 def function(lib_name: str, fn_name: str, argtypes: list):
-    """C entry point ``fn_name`` of ``csrc/<lib_name>.cu``, typed. Every
-    entry point returns ``cudaGetLastError()`` after its launch."""
-    fn = getattr(load(lib_name), fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    """C entry point ``fn_name`` of ``csrc/<lib_name>.cu``, typed (once a
+    process: the wrappers call this per launch). Every entry point returns
+    ``cudaGetLastError()`` after its launch."""
+    fn = _FUNCTIONS.get((lib_name, fn_name))
+    if fn is None:
+        fn = getattr(load(lib_name), fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FUNCTIONS[(lib_name, fn_name)] = fn
     return fn
 
 

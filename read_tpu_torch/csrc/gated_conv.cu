@@ -112,63 +112,42 @@ extern "C" int gated_conv_kxk(const float* x, const float* w,
   return dispatch<true>(a, gc::PlainSrc(), aligned16(x), stream);
 }
 
-// K2 with bf16 operands on the wgmma loops (gated_conv_wgmma.cuh). wp is
+// K2 with bf16 operands on the wgmma loop (gated_conv_wgmma.cuh). wp is
 // the packed weight of ops/gated_conv.py `pack_kxk_bf16`: ntiles N tiles of
 // tile_n columns (64, 128 or 256), each ceil(k*k*Cin / 64) blocks of
-// [tile_n, 64] bf16. loop 1 is the gather loop, 2 the strip loop (stride 1
-// with Cin = 32 or Cin % 64 == 0); stages (2..8) and nwg (consumer
-// warpgroups, 1 or 2) pick a tiling; 0 takes the default (the header's
-// note). Returns the error of setting the shared-memory size or of the
-// launch.
+// [tile_n, 64] bf16. stages (2..8) and nwg (consumer warpgroups, 1 or 2)
+// pick a tiling; 0 takes the default (the header's note). Returns the
+// error of setting the shared-memory size, of the occupancy query or of
+// the launch.
 extern "C" int gated_conv_kxk_wgmma(const float* x, const void* wp,
                                     const float* bias, const float* scale,
                                     const float* offset, const float* res,
                                     float* out, int B, int H, int W,
                                     int Cin, int Cout, int k, int stride,
                                     int relu, int tile_n, int ntiles,
-                                    int stages, int nwg, int loop,
-                                    void* stream) {
+                                    int stages, int nwg, void* stream) {
   const int pad = (k - 1) / 2;
   gcw::Args a{x, static_cast<const uint8_t*>(wp), bias, scale, offset,
               res, out, B, H, W, Cin,
               (H + 2 * pad - k) / stride + 1, (W + 2 * pad - k) / stride + 1,
               Cout, k, stride, pad, relu, k * k * Cin,
-              (k * k * Cin + gcw::BK - 1) / gcw::BK, stages ? stages : 4};
-  const bool strip_ok = stride == 1 && (Cin == 32 || Cin % 64 == 0);
-  if (loop == 0) loop = strip_ok ? 2 : 1;
+              (k * k * Cin + gcw::BK - 1) / gcw::BK, stages ? stages : 4,
+              ntiles};
   if (Cin % 32 != 0 || Cout % 8 != 0 || !aligned16(x) || !aligned16(wp) ||
       (tile_n != 64 && tile_n != 128 && tile_n != 256) ||
       ntiles != (Cout + tile_n / 2 - 1) / (tile_n / 2) || a.stages < 2 ||
-      a.stages > gcw::MAX_STAGES || nwg < 0 || nwg > 2 || loop < 1 ||
-      loop > 2 || (loop == 2 && !strip_ok) ||
-      (loop == 1 && tile_n == 256 && nwg == 2))
+      a.stages > gcw::MAX_STAGES || nwg < 0 || nwg > 2 ||
+      (tile_n == 256 && nwg == 2))
     return (int)cudaErrorInvalidValue;
   const int npix = B * a.Ho * a.Wo;
   if (npix == 0) return (int)cudaGetLastError();
-  if (nwg == 0) {  // two consumer warpgroups when that leaves two waves
-    const long blocks2 = loop == 2 ? (long)B * ((a.Ho + 1) / 2) *
-                                         ((a.Wo + 63) / 64) * ntiles
-                                   : (npix + 127L) / 128 * ntiles;
-    nwg = (loop == 1 && tile_n != 128) || blocks2 < 2 * 132 ? 1 : 2;
-  }
+  if (nwg == 0) nwg = 1;
   cudaStream_t s = (cudaStream_t)stream;
-  if (loop == 2) {
-    if (tile_n == 64)
-      return nwg == 2 ? gcw::launch<64, 2, true>(a, ntiles, s)
-                      : gcw::launch<64, 1, true>(a, ntiles, s);
-    if (tile_n == 128)
-      return nwg == 2 ? gcw::launch<128, 2, true>(a, ntiles, s)
-                      : gcw::launch<128, 1, true>(a, ntiles, s);
-    return nwg == 2 ? gcw::launch<256, 2, true>(a, ntiles, s)
-                    : gcw::launch<256, 1, true>(a, ntiles, s);
-  }
   if (tile_n == 64)
-    return nwg == 2 ? gcw::launch<64, 2, false>(a, ntiles, s)
-                    : gcw::launch<64, 1, false>(a, ntiles, s);
+    return nwg == 2 ? gcw::launch<64, 2>(a, s) : gcw::launch<64, 1>(a, s);
   if (tile_n == 128)
-    return nwg == 2 ? gcw::launch<128, 2, false>(a, ntiles, s)
-                    : gcw::launch<128, 1, false>(a, ntiles, s);
-  return gcw::launch<256, 1, false>(a, ntiles, s);
+    return nwg == 2 ? gcw::launch<128, 2>(a, s) : gcw::launch<128, 1>(a, s);
+  return gcw::launch<256, 1>(a, s);
 }
 
 // K3: 1x1 conv over n pixels, i.e. [n, Cin] @ [Cin, 2*Cout] + epilogue.

@@ -1,5 +1,6 @@
-// K2's bf16 route for Hopper: a warp-specialized wgmma tile loop fed by an
-// mbarrier ring of staged tiles (`gated_conv_kxk_wgmma`, gated_conv.cu).
+// K2's bf16 route for Hopper: a persistent, warp-specialized wgmma tile
+// loop fed by an mbarrier ring of staged tiles (`gated_conv_kxk_wgmma`,
+// gated_conv.cu).
 //
 // Replaces, for bf16 operands (JAX's `mxu_bf16`), read_tpu/ops/
 // gated_conv_pack.py `_conv3x3_chw_dot3_kernel` (:190, pallas_call :392)
@@ -13,7 +14,10 @@
 // What bounds it: at the 32-channel full-resolution layer (368x1216) the
 // f32 activations read and written (0.034 ms at 3.35 TB/s against 0.017 ms
 // of bf16 tensor-core work); at the deeper levels the tensor-core
-// operations. Each block stages the input patch once per tap, from L2.
+// operations (0.017 ms a 3x3 layer). It runs at 6-11x that (PERF.md), with
+// the tensor cores mostly idle: fewer barrier arrivals changed nothing,
+// and more registers a thread (one block per SM instead of two) made it
+// slower, so the number of stages each SM keeps in flight sets its pace.
 //
 // Design. A channels-last implicit GEMM: M = output pixels, N = the
 // layer's f|m columns, K = k*k*Cin tap-major, in 64-deep slices (two taps
@@ -23,7 +27,7 @@
 //   block per (N tile, K slice), already in the 128-byte swizzle the wgmma
 //   descriptor reads, with f and m columns interleaved in groups of 8
 //   ([f c0..7 | m c0..7 | f c8..15 | ...]). One `cp.async.bulk` per stage
-//   brings a block in; no tensor map, so nothing links the driver API.
+//   brings a block in; no tensor map, so the build links only cudart.
 // - Producer warpgroup (the block's last 128 threads): per slice, waits
 //   for the stage to be empty, has one thread post the weight block's byte
 //   count and issue its bulk copy, then all 128 load the input patch as
@@ -42,13 +46,14 @@
 //   are f and m of the same (pixel, channel), so bias, ELU(f)*sigmoid(m),
 //   the BN affine and the residual are applied in registers and stored as
 //   8-byte pairs; no shared-memory round trip.
-// Tilings (chosen in gated_conv.cu, TILE_N by the packing):
-//   Cout <= 32: TILE_N 64, Cout <= 64: 128, else 256 (Cout = 256 takes
-//   two N tiles); NWG = 2 (128-pixel blocks) unless TILE_N = 256 (the
-//   m64n256 accumulator is 128 registers a thread, so one consumer
-//   warpgroup: 64-pixel blocks) or 128-pixel blocks would make fewer than
-//   two waves over 132 SMs. At 46x152x256 that gives 110 x 2 = 220 blocks
-//   of 64 pixels; at 92x304x128 437; at 368x1216x32 3496 of 128.
+// - Persistent blocks: as many as fit on the card at once, each walking
+//   tiles t, t + gridDim.x, ... through one ring, so no block waits to
+//   start and one tile's epilogue overlaps the next tile's staging.
+// Tilings: TILE_N (chosen by the packing) is 64 for Cout <= 32 and 128
+// otherwise (Cout = 128 and 256 take 2 and 4 N tiles); NWG = 1 (64-pixel
+// tiles) and 4 stages by default. The kernel bench's variants (TILE_N
+// 256, NWG 2, 2-6 stages) measured no faster (PERF.md). At 46x152x256
+// that gives 110 x 4 = 440 tiles; at 92x304x128 874; at 368x1216x32 6992.
 
 #pragma once
 
@@ -71,7 +76,7 @@ struct Args {
   const float* res;     // [B, Ho, Wo, Cout] or nullptr
   float* out;           // [B, Ho, Wo, Cout]
   int B, H, W, Cin, Ho, Wo, Cout, k, stride, pad, relu;
-  int K, slices, stages;
+  int K, slices, stages, ntiles;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -131,30 +136,6 @@ __device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
                : "memory");
 }
 
-__device__ __forceinline__ float4 ld_shared_f4(uint32_t addr) {
-  float4 v;
-  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(addr)
-               : "memory");
-  return v;
-}
-
-// 16 bytes global -> shared, asynchronous; zero-filled when !valid (src is
-// then not read).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
@@ -166,14 +147,6 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 __device__ __forceinline__ uint64_t desc(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// K-major operand in the no-swizzle layout: 8-row core matrices of 16-byte
-// rows (8 rows 128 bytes apart, SBO), the two 16-byte K halves of a k16
-// step `lbo` bytes apart (LBO), layout type 0.
-__device__ __forceinline__ uint64_t desc_plain(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(128 >> 4) << 32);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -352,31 +325,23 @@ __device__ __forceinline__ void epilogue(const Args& a, const float* d,
   }
 }
 
-// The gather loop: a block owns 64 NWG consecutive output pixels and
-// stages, per 64-deep K slice, their input values (each tap's own
-// pixels) in the swizzled A stage of the ring. Any stride and k. The
-// f32 values travel by cp.async through gather_depth(NWG) staging slots,
-// so that many slices' loads are in flight at once.
-__host__ __device__ constexpr int gather_depth(int nwg) {
-  return nwg == 1 ? 4 : 3;
-}
-
+// The tile loop, persistent: each block walks the output tiles t =
+// blockIdx.x, + gridDim.x, ... (64 NWG consecutive pixels of N tile
+// t / mblocks), and its producer and consumers run one ring through all of
+// them, so one tile's epilogue overlaps the next tile's staging.
 template <int TILE_N, int NWG>
 __global__ void __launch_bounds__(128 * (NWG + 1), 1)
 wgmma_kernel(const Args a) {
   constexpr int BM = 64 * NWG;
   constexpr uint32_t A_BYTES = BM * ROW_BYTES, B_BYTES = TILE_N * ROW_BYTES;
-  constexpr int DEPTH = gather_depth(NWG);
-  constexpr uint32_t F_BYTES = 2 * A_BYTES;  // a slice's f32 values
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const int ST = a.stages;
   const uint32_t sA = base, sB = base + ST * A_BYTES;
-  const uint32_t sF = sB + ST * B_BYTES;  // f32 staging, DEPTH slots
-  const uint32_t full = sF + DEPTH * F_BYTES, empty = full + 8 * ST;
+  const uint32_t full = sB + ST * B_BYTES, empty = full + 8 * ST;
   const int tid = threadIdx.x, wg = tid / 128;
   const int npix = a.B * a.Ho * a.Wo;
-  const int m0 = blockIdx.x * BM;
+  const int mblocks = (npix + BM - 1) / BM, tiles = mblocks * a.ntiles;
 
   if (tid == 0) {
     for (int s = 0; s < ST; ++s) {
@@ -391,298 +356,142 @@ wgmma_kernel(const Args a) {
     // ---- producer warpgroup: pixel rows r0 + 16 i, 8-channel chunk c8
     constexpr int PER = BM / 16;
     const int tp = tid - 128 * NWG, c8 = tp & 7, r0 = tp >> 3;
-    int img[PER], iy0[PER], ix0[PER];
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int p = m0 + r0 + 16 * i;
-      if (p < npix) {
-        const int b = p / (a.Ho * a.Wo);
-        const int r = p - b * a.Ho * a.Wo;
-        const int oy = r / a.Wo;
-        img[i] = b * a.H;
-        iy0[i] = oy * a.stride - a.pad;
-        ix0[i] = (r - oy * a.Wo) * a.stride - a.pad;
-      } else {
-        img[i] = -1;
-        iy0[i] = ix0[i] = 0;
-      }
-    }
     // row m = r0 + 16 i keeps m % 8 = r0 % 8: chunk c8 lands at c8 ^ (m % 8)
     const uint32_t a_off = r0 * ROW_BYTES + ((c8 ^ (r0 & 7)) << 4);
-    // f32 staging: pixel row m at m * 256 bytes, chunk c8 at c8 * 32
-    const uint32_t f_off = r0 * 2 * ROW_BYTES + c8 * 32;
-    const uint8_t* wsrc = a.wp + (size_t)blockIdx.y * a.slices * B_BYTES;
-    // slice it's f32 values are copied (cp.async, zero-filled outside the
-    // image, past K and past the last pixel) into staging slot it % DEPTH;
-    // DEPTH - 1 slices later, when they have landed, the same thread
-    // converts its own values into the swizzled A stage
-    for (int it = 0; it < a.slices + DEPTH - 1; ++it) {
-      if (it < a.slices) {
+    int g = 0;  // ring stages filled so far
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = (t % mblocks) * BM;
+      int img[PER], iy0[PER], ix0[PER];
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const int p = m0 + r0 + 16 * i;
+        if (p < npix) {
+          const int b = p / (a.Ho * a.Wo);
+          const int r = p - b * a.Ho * a.Wo;
+          const int oy = r / a.Wo;
+          img[i] = b * a.H;
+          iy0[i] = oy * a.stride - a.pad;
+          ix0[i] = (r - oy * a.Wo) * a.stride - a.pad;
+        } else {
+          img[i] = -1;
+          iy0[i] = ix0[i] = 0;
+        }
+      }
+      const uint8_t* wsrc =
+          a.wp + (size_t)(t / mblocks) * a.slices * B_BYTES;
+      for (int it = 0; it < a.slices; ++it, ++g) {
+        const int st = g % ST;
+        bar_wait(empty + 8 * st, ((g / ST) & 1) ^ 1);
+        if (tp == 0) {
+          bar_arrive_tx(full + 8 * st, B_BYTES);
+          bulk_copy(sB + st * B_BYTES, wsrc + (size_t)it * B_BYTES, B_BYTES,
+                    full + 8 * st);
+        }
         const int kidx = it * BK + c8 * 8;
         const bool kin = kidx < a.K;
         const int tap = kin ? kidx / a.Cin : 0;
         const int ci = kidx - tap * a.Cin;
         const int ky = tap / a.k, kx = tap - ky * a.k;
-        const uint32_t slot = sF + (it % DEPTH) * F_BYTES + f_off;
+        float4 v[PER][2];
 #pragma unroll
         for (int i = 0; i < PER; ++i) {
           const int iy = iy0[i] + ky, ix = ix0[i] + kx;
-          const bool ok = kin && img[i] >= 0 && iy >= 0 && iy < a.H &&
-                          ix >= 0 && ix < a.W;
-          const float* src =
-              ok ? a.x + ((size_t)(img[i] + iy) * a.W + ix) * a.Cin + ci
-                 : a.x;
-          cp_async16(slot + i * 32 * ROW_BYTES, src, ok);
-          cp_async16(slot + i * 32 * ROW_BYTES + 16, src + 4, ok);
+          v[i][0] = v[i][1] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          if (kin && img[i] >= 0 && iy >= 0 && iy < a.H && ix >= 0 &&
+              ix < a.W) {
+            const float4* src = reinterpret_cast<const float4*>(
+                a.x + ((size_t)(img[i] + iy) * a.W + ix) * a.Cin + ci);
+            v[i][0] = src[0];
+            v[i][1] = src[1];
+          }
         }
-      }
-      cp_async_commit();
-      const int j = it - (DEPTH - 1);
-      if (j < 0) continue;
-      cp_async_wait<DEPTH - 1>();  // slice j's copies have landed
-      const int st = j % ST;
-      bar_wait(empty + 8 * st, ((j / ST) & 1) ^ 1);
-      if (tp == 0) {
-        bar_arrive_tx(full + 8 * st, B_BYTES);
-        bulk_copy(sB + st * B_BYTES, wsrc + (size_t)j * B_BYTES, B_BYTES,
-                  full + 8 * st);
-      }
-      const uint32_t slot = sF + (j % DEPTH) * F_BYTES + f_off;
+        const uint32_t dst = sA + st * A_BYTES + a_off;
 #pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        const float4 lo = ld_shared_f4(slot + i * 32 * ROW_BYTES);
-        const float4 hi = ld_shared_f4(slot + i * 32 * ROW_BYTES + 16);
-        uint4 pk;
-        pk.x = pack_bf16x2(lo.x, lo.y);
-        pk.y = pack_bf16x2(lo.z, lo.w);
-        pk.z = pack_bf16x2(hi.x, hi.y);
-        pk.w = pack_bf16x2(hi.z, hi.w);
-        st_shared_v4(sA + st * A_BYTES + a_off + i * 16 * ROW_BYTES, pk);
+        for (int i = 0; i < PER; ++i) {
+          uint4 pk;
+          pk.x = pack_bf16x2(v[i][0].x, v[i][0].y);
+          pk.y = pack_bf16x2(v[i][0].z, v[i][0].w);
+          pk.z = pack_bf16x2(v[i][1].x, v[i][1].y);
+          pk.w = pack_bf16x2(v[i][1].z, v[i][1].w);
+          st_shared_v4(dst + i * 16 * ROW_BYTES, pk);
+        }
+        // generic-proxy stores -> visible to wgmma (async proxy)
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        bar_arrive(full + 8 * st);
       }
-      // generic-proxy stores -> visible to wgmma (async proxy)
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      bar_arrive(full + 8 * st);
     }
   } else {
-    // ---- consumer warpgroup wg: pixels m0 + 64 wg .. + 63
-    float d[TILE_N / 2];
-#pragma unroll
-    for (int i = 0; i < TILE_N / 2; ++i) d[i] = 0.0f;
+    // ---- consumer warpgroup wg: pixels m0 + 64 wg .. + 63 of each tile
     const uint32_t a_wg = wg * 64 * ROW_BYTES;
     const int lane = tid % 32;
-    for (int it = 0; it < a.slices; ++it) {
-      const int st = it % ST;
-      bar_wait(full + 8 * st, (it / ST) & 1);
-      const uint64_t da = desc(sA + st * A_BYTES + a_wg);
-      const uint64_t db = desc(sB + st * B_BYTES);
-      wgmma_fence();
+    int g = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      float d[TILE_N / 2];
 #pragma unroll
-      for (int ks = 0; ks < BK / 16; ++ks)  // +32 bytes per k16 step
-        mma<TILE_N>(d, da + 2 * ks, db + 2 * ks);
-      wgmma_commit();
-      wgmma_wait<1>();  // the previous slice's group has retired
-      if (it > 0 && lane == 0) bar_arrive(empty + 8 * ((it - 1) % ST));
+      for (int i = 0; i < TILE_N / 2; ++i) d[i] = 0.0f;
+      for (int it = 0; it < a.slices; ++it, ++g) {
+        const int st = g % ST;
+        bar_wait(full + 8 * st, (g / ST) & 1);
+        const uint64_t da = desc(sA + st * A_BYTES + a_wg);
+        const uint64_t db = desc(sB + st * B_BYTES);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < BK / 16; ++ks)  // +32 bytes per k16 step
+          mma<TILE_N>(d, da + 2 * ks, db + 2 * ks);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's group has retired
+        if (it > 0 && lane == 0) bar_arrive(empty + 8 * ((g - 1) % ST));
+      }
+      wgmma_wait<0>();
+      if (lane == 0) bar_arrive(empty + 8 * ((g - 1) % ST));
+      const int row = (t % mblocks) * BM + 64 * wg +
+                      16 * ((tid % 128) / 32) + lane / 4;
+      const int p[2] = {row < npix ? row : -1,
+                        row + 8 < npix ? row + 8 : -1};
+      epilogue<TILE_N>(a, d, p, t / mblocks);
     }
-    wgmma_wait<0>();
-
-    const int row = m0 + 64 * wg + 16 * ((tid % 128) / 32) + lane / 4;
-    const int p[2] = {row < npix ? row : -1, row + 8 < npix ? row + 8 : -1};
-    epilogue<TILE_N>(a, d, p, blockIdx.y);
   }
 }
 
-// The strip loop, for stride 1 with Cin = 32 or Cin % 64 == 0: a block
-// owns NWG output rows x 64 output columns of one image. Per channel chunk
-// (CH = 32 or 64 channels) three producer warps stage the haloed input
-// strip, (NWG + k - 1) rows x (64 + k - 1) columns, once, as bf16 in the
-// no-swizzle K-major layout [8-channel group][strip pixel] (16 bytes
-// each; SP pixels a group, SP = 1 mod 8 so a quarter-warp's 16-byte
-// stores meet no bank twice); every tap's A operand is then a descriptor
-// shifted along that strip (+16 bytes a column, + SW pixels a row), so
-// the input is read about (NWG + k - 1) (64 + k - 1) / (64 NWG) times,
-// not k*k times. Two strip buffers (full/empty barriers each); the weight
-// blocks stream through the ring as in the gather loop, from one thread,
-// in chunk-major order: slice tap * (Cin / 64) + chunk (Cin = 32: slice
-// s holds taps 2s and 2s + 1).
-struct Strip {
-  int sw, sr, sp, ch, ch8;
-  uint32_t bytes;
-  __host__ __device__ Strip(const Args& a, int nwg)
-      : sw(64 + a.k - 1), sr(nwg + a.k - 1),
-        sp((sr * sw + 7) / 8 * 8 + 1), ch(a.Cin < 64 ? a.Cin : 64),
-        ch8(ch / 8), bytes((uint32_t)(ch / 8) * sp * 16) {}
-};
-
-__device__ __forceinline__ int strip_slice(const Args& a, int it, int taps,
-                                           int nch) {
-  return a.Cin == 32 ? it : (it % taps) * nch + it / taps;
-}
-
+// Dynamic shared memory of one block: the A and B stages, the full and
+// empty barriers, and 1 KB to align the stages to the swizzle's 1024 bytes.
 template <int TILE_N, int NWG>
-__global__ void __launch_bounds__(128 * (NWG + 1), 1)
-strip_kernel(const Args a) {
-  constexpr uint32_t B_BYTES = TILE_N * ROW_BYTES;
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const int ST = a.stages;
-  const Strip g(a, NWG);
-  const uint32_t sB = base, sS = base + ST * B_BYTES;
-  const uint32_t bfull = sS + 2 * g.bytes, bempty = bfull + 8 * ST;
-  const uint32_t sfull = bempty + 8 * ST, sempty = sfull + 16;
-  const int tid = threadIdx.x, wg = tid / 128;
-  const int nbx = (a.Wo + 63) / 64, nby = (a.Ho + NWG - 1) / NWG;
-  const int bx = blockIdx.x % nbx, t = blockIdx.x / nbx;
-  const int oy0 = (t % nby) * NWG, img = t / nby, ox0 = bx * 64;
-  const int taps = a.k * a.k, nch = a.Cin / g.ch;
-
-  if (tid == 0) {
-    for (int s = 0; s < ST; ++s) {
-      bar_init(bfull + 8 * s, 1);
-      bar_init(bempty + 8 * s, 4 * NWG);
-    }
-    for (int s = 0; s < 2; ++s) {
-      bar_init(sfull + 8 * s, 96);
-      bar_init(sempty + 8 * s, 4 * NWG);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (wg == NWG) {
-    const int tp = tid - 128 * NWG;
-    if (tp == 0) {
-      // ---- the weight ring: one thread, one bulk copy a slice
-      const uint8_t* wsrc = a.wp + (size_t)blockIdx.y * a.slices * B_BYTES;
-      for (int it = 0; it < a.slices; ++it) {
-        const int st = it % ST;
-        bar_wait(bempty + 8 * st, ((it / ST) & 1) ^ 1);
-        bar_arrive_tx(bfull + 8 * st, B_BYTES);
-        bulk_copy(sB + st * B_BYTES,
-                  wsrc + (size_t)strip_slice(a, it, taps, nch) * B_BYTES,
-                  B_BYTES, bfull + 8 * st);
-      }
-    } else if (tp >= 32) {
-      // ---- the strips: warps 1-3 of the producer warpgroup
-      constexpr int U = 4;  // items in flight per thread
-      const int lt = tp - 32, items = g.sr * g.sw * g.ch8;
-      for (int c = 0; c < nch; ++c) {
-        const int buf = c & 1;
-        bar_wait(sempty + 8 * buf, ((c >> 1) & 1) ^ 1);
-        const uint32_t dst = sS + buf * g.bytes;
-        for (int i0 = lt; i0 < items; i0 += 96 * U) {
-          float4 v[U][2];
-#pragma unroll
-          for (int u = 0; u < U; ++u) {
-            const int i = i0 + 96 * u;
-            v[u][0] = v[u][1] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-            if (i < items) {
-              const int pix = i / g.ch8, c8 = i - pix * g.ch8;
-              const int iy = oy0 - a.pad + pix / g.sw;
-              const int ix = ox0 - a.pad + pix % g.sw;
-              if (iy >= 0 && iy < a.H && ix >= 0 && ix < a.W) {
-                const float4* src = reinterpret_cast<const float4*>(
-                    a.x + (((size_t)img * a.H + iy) * a.W + ix) * a.Cin +
-                    c * g.ch + c8 * 8);
-                v[u][0] = src[0];
-                v[u][1] = src[1];
-              }
-            }
-          }
-#pragma unroll
-          for (int u = 0; u < U; ++u) {
-            const int i = i0 + 96 * u;
-            if (i < items) {
-              const int pix = i / g.ch8, c8 = i - pix * g.ch8;
-              uint4 pk;
-              pk.x = pack_bf16x2(v[u][0].x, v[u][0].y);
-              pk.y = pack_bf16x2(v[u][0].z, v[u][0].w);
-              pk.z = pack_bf16x2(v[u][1].x, v[u][1].y);
-              pk.w = pack_bf16x2(v[u][1].z, v[u][1].w);
-              st_shared_v4(dst + (c8 * g.sp + pix) * 16, pk);
-            }
-          }
-        }
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        bar_arrive(sfull + 8 * buf);
-      }
-    }
-  } else {
-    // ---- consumer warpgroup wg: output row oy0 + wg, columns ox0 ..+63
-    float d[TILE_N / 2];
-#pragma unroll
-    for (int i = 0; i < TILE_N / 2; ++i) d[i] = 0.0f;
-    const int lane = tid % 32;
-    int cur = -1;  // the strip chunk in use
-    for (int it = 0; it < a.slices; ++it) {
-      const int chunk = a.Cin == 32 ? 0 : it / taps;
-      const int s = strip_slice(a, it, taps, nch);
-      if (chunk != cur) {
-        bar_wait(sfull + 8 * (chunk & 1), (chunk >> 1) & 1);
-        cur = chunk;
-      }
-      const int st = it % ST;
-      bar_wait(bfull + 8 * st, (it / ST) & 1);
-      const uint32_t strip = sS + (chunk & 1) * g.bytes;
-      const uint64_t db = desc(sB + st * B_BYTES);
-      wgmma_fence();
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j) {
-        // K index of this k16 step; with Cin = 32 the last slice's second
-        // half holds no tap (zero weights): it reads the last tap's
-        // pixels, since a wgmma under a branch would be serialized
-        const int kg = s * BK + 16 * j;
-        const int tap_k = kg / a.Cin;
-        const int cc = kg - tap_k * a.Cin - chunk * g.ch;
-        const int tap = tap_k < taps ? tap_k : taps - 1;
-        const int ky = tap / a.k, kx = tap - ky * a.k;
-        const uint32_t at =
-            strip + ((cc / 8) * g.sp + (wg + ky) * g.sw + kx) * 16;
-        mma<TILE_N>(d, desc_plain(at, g.sp * 16), db + 2 * j);
-      }
-      wgmma_commit();
-      wgmma_wait<1>();  // the previous slice's group has retired
-      if (it > 0 && lane == 0) {
-        bar_arrive(bempty + 8 * ((it - 1) % ST));
-        const int prev = a.Cin == 32 ? 0 : (it - 1) / taps;
-        if (prev != chunk) bar_arrive(sempty + 8 * (prev & 1));
-      }
-    }
-    wgmma_wait<0>();
-    const int oy = oy0 + wg, ox = ox0 + 16 * ((tid % 128) / 32) + lane / 4;
-    const size_t prow = ((size_t)img * a.Ho + oy) * a.Wo;
-    const int p[2] = {oy < a.Ho && ox < a.Wo ? (int)(prow + ox) : -1,
-                      oy < a.Ho && ox + 8 < a.Wo ? (int)(prow + ox + 8) : -1};
-    epilogue<TILE_N>(a, d, p, blockIdx.y);
-  }
+constexpr size_t smem_bytes(int stages) {
+  return (size_t)stages * (64 * NWG + TILE_N) * ROW_BYTES + 16 * stages +
+         1024;
 }
 
-// Dynamic shared memory of one block: the B stages and the A stages (the
-// gather loop) or two strips (the strip loop), the barriers, and 1 KB to
-// align the stages to the swizzle's 1024 bytes.
-template <int TILE_N, int NWG, bool STRIP>
-size_t smem_bytes(const Args& a) {
-  const size_t b = (size_t)a.stages * TILE_N * ROW_BYTES + 1024;
-  if (STRIP) return b + 2 * Strip(a, NWG).bytes + 16 * a.stages + 32;
-  return b + (size_t)(a.stages + 2 * gather_depth(NWG)) * 64 * NWG *
-                 ROW_BYTES + 16 * a.stages;
-}
-
-template <int TILE_N, int NWG, bool STRIP>
-int launch(const Args& a, int ntiles, cudaStream_t stream) {
-  const size_t smem = smem_bytes<TILE_N, NWG, STRIP>(a);
-  void (*kern)(const Args);
-  if constexpr (STRIP) kern = strip_kernel<TILE_N, NWG>;
-  else kern = wgmma_kernel<TILE_N, NWG>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) {
+// Launch as many blocks as fit on the card at once (at most one a tile).
+// The shared-memory limit is raised to the card's maximum once, and the
+// blocks per SM are asked once per stage count, a kernel each.
+template <int TILE_N, int NWG>
+int launch(const Args& a, cudaStream_t stream) {
+  static int sms = 0, per_sm[MAX_STAGES + 1] = {};
+  auto kern = wgmma_kernel<TILE_N, NWG>;
+  const size_t smem = smem_bytes<TILE_N, NWG>(a.stages);
+  cudaError_t e = cudaSuccess;
+  if (sms == 0) {
+    int optin = 0;
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, 0);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0);
+  }
+  if (e == cudaSuccess && per_sm[a.stages] == 0)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm[a.stages], kern, 128 * (NWG + 1), smem);
+  if (e != cudaSuccess || per_sm[a.stages] == 0) {
+    sms = 0;
     cudaGetLastError();  // clear it, or the next launch would report it
-    return (int)e;
+    return e != cudaSuccess ? (int)e : (int)cudaErrorInvalidValue;
   }
-  const int blocks =
-      STRIP ? a.B * ((a.Ho + NWG - 1) / NWG) * ((a.Wo + 63) / 64)
-            : (a.B * a.Ho * a.Wo + 64 * NWG - 1) / (64 * NWG);
-  kern<<<dim3(blocks, ntiles), 128 * (NWG + 1), smem, stream>>>(a);
+  const int npix = a.B * a.Ho * a.Wo;
+  const int tiles = (npix + 64 * NWG - 1) / (64 * NWG) * a.ntiles;
+  const int most = per_sm[a.stages] * sms;
+  kern<<<tiles < most ? tiles : most, 128 * (NWG + 1), smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

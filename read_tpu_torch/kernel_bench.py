@@ -79,12 +79,9 @@ SCM_SITES = (("SCM2", 184, 608, (8, 56)), ("SCM1", 92, 304, (8, 120)),
 CAT_PROBES = (("cat11_convs2", 368, 1216, (32, 32), 32),
               ("cat11_aff0", 368, 1216, (32, 64, 128, 256), 32))
 # K2 wgmma tilings: (N tile width or None for the layer's default,
-# consumer warpgroups or 0 for the default, ring stages, loop: 1 gather,
-# 2 strip, 0 the default)
-WGMMA_VARIANTS = ((None, 0, 4, 0), (None, 0, 4, 1), (None, 1, 4, 2),
-                  (None, 2, 4, 2), (None, 0, 2, 2), (None, 0, 3, 2),
-                  (None, 0, 6, 2), (128, 0, 4, 2), (128, 2, 4, 2))
-SMEM_LIMIT = 232448  # bytes of shared memory a block may use (H100)
+# consumer warpgroups or 0 for the default, ring stages)
+WGMMA_VARIANTS = ((None, 0, 4), (None, 2, 4), (None, 0, 2), (None, 0, 3),
+                  (None, 0, 6), (256, 0, 4), (256, 0, 3))
 
 
 class BenchFailure(RuntimeError):
@@ -383,25 +380,10 @@ def cat_rows(dev) -> List[Row]:
     return rows
 
 
-def wgmma_smem(tile_n: int, nwg: int, stages: int, loop: int, cin: int,
-               k: int = 3) -> int:
-    """Shared-memory bytes of one wgmma block (``smem_bytes`` in
-    ``csrc/gated_conv_wgmma.cuh``): the B stages, the A stages (gather
-    loop, ``loop=1``) or two input strips (strip loop), the barriers and
-    1 KB of alignment."""
-    b = stages * tile_n * 128 + 1024
-    if loop == 1:   # + the f32 staging slots (gather_depth)
-        depth = 4 if nwg == 1 else 3
-        return b + (stages + 2 * depth) * 64 * nwg * 128 + 16 * stages
-    sp = ((nwg + k - 1) * (64 + k - 1) + 7) // 8 * 8 + 1
-    return b + 2 * (min(cin, 64) // 8) * sp * 16 + 16 * stages + 32
-
-
 def wgmma_rows(dev) -> List[Row]:
-    """K2's bf16 wgmma loops in each tiling of ``WGMMA_VARIANTS`` that
-    fits (the gather loop takes no 256-column tile with two consumer
-    warpgroups; shared memory within ``SMEM_LIMIT``), at the four level
-    shapes."""
+    """K2's bf16 wgmma loop in each tiling of ``WGMMA_VARIANTS`` (all fit
+    in a block's shared memory; the first is the layer's default), at the
+    four level shapes, launched without ``gated_conv_kxk``'s checks."""
     rows = []
     gen = torch.Generator(device=dev).manual_seed(3)
     for h, w, c in CONV_SHAPES:
@@ -411,28 +393,23 @@ def wgmma_rows(dev) -> List[Row]:
                library_conv(xl, wl))
         twin = (lambda x=x, a=(wk, b, scale, offset):
                 GC.gated_conv_kxk_plain(x, *a, bf16=True))
-        for tile_n, nwg, stages, loop in WGMMA_VARIANTS:
+        for tile_n, nwg, stages in WGMMA_VARIANTS:
             tn = tile_n or GC.wgmma_tile_n(c)
-            if tile_n == GC.wgmma_tile_n(c) or (
-                    loop == 1 and tn == 256 and nwg == 2) or wgmma_smem(
-                    tn, nwg or 1, stages, loop or 2, c) > SMEM_LIMIT:
-                continue
             packed = GC.pack_kxk_bf16(wk, tn)
 
             def fn(x=x, wk=wk, a=(packed, b, scale, offset), nwg=nwg,
-                   stages=stages, loop=loop):
+                   stages=stages):
                 if x.device.type == "cpu":   # the rehearsal: the twin
                     return GC.gated_conv_kxk_plain(x, wk, *a[1:], bf16=True)
                 out = torch.empty(x.shape, device=x.device)
                 GC._launch_wgmma(x, *a, None, out, 3, 1, True,
-                                 stages=stages, nwg=nwg, loop=loop)
+                                 stages=stages, nwg=nwg)
                 return out
             rows.append(Row(
                 "wgmma", "gated_conv_kxk_wgmma",
-                f"loop={loop or 'auto'} tn={tn} nwg={nwg or 'auto'} "
-                f"st={stages} {h}x{w} {c}->{c} bf16", fn, twin, lib,
-                (BF16_TOL, F32_TOL), *conv_cost(x.shape, 3, 1, 2 * c, c),
-                True))
+                f"tn={tn} nwg={nwg or 'auto'} st={stages} {h}x{w} "
+                f"{c}->{c} bf16", fn, twin, lib, (BF16_TOL, F32_TOL),
+                *conv_cost(x.shape, 3, 1, 2 * c, c), True))
     return rows
 
 

@@ -136,7 +136,7 @@ def gated_conv_kxk_plain(x, w, b, scale, offset, res=None, *, stride=1,
 
 _KXK_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                  + [ctypes.c_void_p])
-_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 13
+_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
                    + [ctypes.c_void_p])
 
 
@@ -153,10 +153,11 @@ def kxk_route(x: torch.Tensor, w: torch.Tensor, bf16: bool) -> str:
 
 
 def wgmma_tile_n(cout: int) -> int:
-    """Columns of one N tile of the wgmma loop (f and m together): the
-    layer's ``2*Cout`` rounded up to 64, 128 or 256; wider layers take
-    several 256-column tiles."""
-    return 64 if cout <= 32 else 128 if cout <= 64 else 256
+    """Columns of one N tile of the wgmma loop (f and m together): 64
+    for ``Cout <= 32``, else 128: wider layers take several tiles (the
+    kernel bench's 256-column variant was slower at 64 and 128 channels
+    and no faster at 256)."""
+    return 64 if cout <= 32 else 128
 
 
 def pack_kxk_bf16(w: torch.Tensor, tile_n: Optional[int] = None
@@ -198,10 +199,10 @@ def pack_kxk_bf16(w: torch.Tensor, tile_n: Optional[int] = None
 
 
 def _launch_wgmma(x, packed, b, scale, offset, res, out, k, stride, relu,
-                  stages=0, nwg=0, loop=0):
-    """Launch ``gated_conv_kxk_wgmma`` into ``out``. ``loop`` (1 gather,
-    2 strip), ``stages`` and ``nwg`` 0 take the kernel's default; other
-    values are the bench's variants."""
+                  stages=0, nwg=0):
+    """Launch ``gated_conv_kxk_wgmma`` into ``out``; ``stages``/``nwg``
+    0 take the kernel's default tiling (other values: the bench's
+    variants)."""
     bsz, h, wd, cin = x.shape
     cout = out.shape[-1]
     ntiles, _, tile_n, _ = packed.shape
@@ -210,8 +211,7 @@ def _launch_wgmma(x, packed, b, scale, offset, res, out, k, stride, relu,
     err = fn(x.data_ptr(), packed.data_ptr(), b.data_ptr(),
              scale.data_ptr(), offset.data_ptr(), _ptr(res), out.data_ptr(),
              bsz, h, wd, cin, cout, k, stride, int(relu), tile_n, ntiles,
-             stages, nwg, loop,
-             torch.cuda.current_stream(x.device).cuda_stream)
+             stages, nwg, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "gated_conv_kxk (wgmma)")
 
 

@@ -170,10 +170,9 @@ def test_gated_conv_kxk_kernel_matches_twin(dev, cin, cout, k, stride,
 @pytest.mark.parametrize("with_res", [False, True])
 def test_gated_conv_kxk_wgmma_matches_twin(dev, cin, cout, k, stride,
                                            with_res):
-    """K2's bf16 wgmma loops (strip at stride 1, gather at stride 2 and
-    at Cin = 96) on a ragged 23x70 image, B=2, relu on and off: the same
-    bf16 operands and f32 sums as the twin, so within the f32 bound; the
-    route counter shows the new loop ran."""
+    """K2's bf16 wgmma loop on a ragged 23x70 image, B=2, relu on and
+    off: the same bf16 operands and f32 sums as the twin, so within the
+    f32 bound; the route counter shows the new loop ran."""
     x, w, b, scale, offset = _conv_case(dev, (2, 23, 70), cin, cout, k,
                                         cin + 3 * cout + k)
     assert GC.kxk_route(x, w, True) == "wgmma"
@@ -195,23 +194,20 @@ def test_gated_conv_kxk_wgmma_matches_twin(dev, cin, cout, k, stride,
         torch.testing.assert_close(got, want, **F32)
 
 
-@pytest.mark.parametrize("tile_n,nwg,stages,loop", [
-    (64, 1, 2, 1), (64, 2, 3, 1), (128, 1, 3, 1), (128, 2, 4, 1),
-    (256, 1, 2, 1), (256, 1, 3, 1), (64, 1, 8, 1),
-    (64, 1, 2, 2), (64, 2, 6, 2), (128, 1, 3, 2), (128, 2, 4, 2),
-    (256, 1, 4, 2), (256, 2, 3, 2)])
+@pytest.mark.parametrize("tile_n,nwg,stages", [
+    (64, 1, 2), (64, 2, 6), (128, 1, 3), (128, 2, 4), (256, 1, 2),
+    (256, 1, 5), (64, 2, 8)])
 @pytest.mark.parametrize("cin", [32, 128])
 def test_gated_conv_kxk_wgmma_tilings_match_twin(dev, tile_n, nwg, stages,
-                                                 loop, cin):
-    """Every tiling of both wgmma loops (gather 1, strip 2) that the
-    bench's variants launch (N tile width, consumer warpgroups, ring
-    stages), at a layer with two N tiles or more, on a ragged image."""
+                                                 cin):
+    """Every tiling the bench's variants launch (N tile width, consumer
+    warpgroups, ring stages), at a layer with two N tiles or more, on a
+    ragged image of more tiles than the persistent grid has blocks."""
     cout = tile_n
-    x, w, b, scale, offset = _conv_case(dev, (2, 19, 77), cin, cout, 3, 5)
-    out = torch.empty(2, 19, 77, cout, device=dev)
+    x, w, b, scale, offset = _conv_case(dev, (2, 119, 177), cin, cout, 3, 5)
+    out = torch.empty(2, 119, 177, cout, device=dev)
     GC._launch_wgmma(x, GC.pack_kxk_bf16(w, tile_n), b, scale, offset,
-                     None, out, 3, 1, True, stages=stages, nwg=nwg,
-                     loop=loop)
+                     None, out, 3, 1, True, stages=stages, nwg=nwg)
     want = GC.gated_conv_kxk_plain(x, w, b, scale, offset, relu=True,
                                    bf16=True)
     torch.cuda.synchronize()
@@ -220,17 +216,14 @@ def test_gated_conv_kxk_wgmma_tilings_match_twin(dev, tile_n, nwg, stages,
 
 def test_gated_conv_kxk_wgmma_refused_launch_raises(dev):
     """A tiling the kernel refuses (9 stages > 8; 256 columns with two
-    consumer warpgroups on the gather loop; the strip loop at stride 2)
-    surfaces as the wrapper's error."""
+    consumer warpgroups; 8 stages of 256 columns, 320 KB of shared
+    memory) surfaces as the wrapper's error."""
     x, w, b, scale, offset = _conv_case(dev, (1, 8, 8), 32, 128, 3, 1)
-    packed = GC.pack_kxk_bf16(w)
-    for stride, stages, nwg, loop in ((1, 9, 0, 0), (1, 4, 2, 1),
-                                      (2, 4, 0, 2)):
-        out = torch.empty(1, 8 // stride, 8 // stride, 128, device=dev)
+    out = torch.empty(1, 8, 8, 128, device=dev)
+    for stages, nwg in ((9, 0), (4, 2), (8, 1)):
         with pytest.raises(RuntimeError, match="CUDA launch failed"):
-            GC._launch_wgmma(x, packed, b, scale, offset, None, out, 3,
-                             stride, True, stages=stages, nwg=nwg,
-                             loop=loop)
+            GC._launch_wgmma(x, GC.pack_kxk_bf16(w, 256), b, scale, offset,
+                             None, out, 3, 1, True, stages=stages, nwg=nwg)
 
 
 @pytest.mark.parametrize("cin,cout", [(16, 32), (32, 56), (128, 248)])
