@@ -21,7 +21,8 @@ The counterpart of the JAX package's kernel benches, one group each:
   SCM sites of the serving frame and at ``cat11_convs2`` (32+32->32) and
   ``cat11_aff0`` (32+64+128+256->32), 1216x368, f32 and bf16.
 
-Each row gives the kernel's time (CUDA events, median), the twin's, the
+Each row gives the kernel's device time (:func:`event_ms`: CUDA events
+around back-to-back calls), the twin's, the
 library call's where one PyTorch call computes the function or its main
 part (``scatter_reduce_`` amin for the z-buffers; ``F.conv2d`` without
 the epilogue for K2, K7 3x3 and K8 full; ``torch.matmul`` on a
@@ -115,20 +116,29 @@ def conv_cost(x_shape, k: int, stride: int, c2: int, cout: int,
     return flops, nbytes
 
 
-def event_ms(fn: Callable, iters: int = 10, warmup: int = 2) -> float:
-    """Median device time of ``fn()`` in ms (CUDA events)."""
+def event_ms(fn: Callable, iters: int = 10, warmup: int = 2,
+             reps: int = 3) -> float:
+    """Device time of one ``fn()`` in ms: ``iters`` calls back to back
+    between one pair of CUDA events, divided by ``iters``; the median of
+    ``reps`` such pairs. One more call queued before the start event
+    keeps the device busy while the host launches the first timed call,
+    so the host's launch path (ctypes, checks, the launch itself) hides
+    behind the device's work wherever a call's device time is the longer
+    of the two."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(iters):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
+        start.record()
+        for _ in range(iters):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
 
 

@@ -70,6 +70,31 @@ def test_rows_run_and_compare_at_a_tiny_size(monkeypatch):
                if r["group"] == "zbuffer")
 
 
+def test_event_ms_divides_back_to_back_calls(monkeypatch):
+    """Each timed pair of events encloses ``iters`` calls and one call
+    runs before the start event; the result is per call."""
+    calls = []
+
+    class Event:   # elapsed time: 1 ms per call between the two records
+        def __init__(self, enable_timing):
+            assert enable_timing
+
+        def record(self):
+            self.at = len(calls)
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, end):
+            return float(end.at - self.at)
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    assert KB.event_ms(lambda: calls.append(1), iters=7, warmup=2,
+                       reps=3) == 1.0
+    assert len(calls) == 2 + 3 * (1 + 7)
+
+
 def test_entry_point_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
