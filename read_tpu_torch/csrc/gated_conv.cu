@@ -114,40 +114,30 @@ extern "C" int gated_conv_kxk(const float* x, const float* w,
 
 // K2 with bf16 operands on the wgmma loop (gated_conv_wgmma.cuh). wp is
 // the packed weight of ops/gated_conv.py `pack_kxk_bf16`: ntiles N tiles of
-// tile_n columns (64, 128 or 256), each ceil(k*k*Cin / 64) blocks of
-// [tile_n, 64] bf16. stages (2..8) and nwg (consumer warpgroups, 1 or 2)
-// pick a tiling; 0 takes the default (the header's note). Returns the
-// error of setting the shared-memory size, of the occupancy query or of
-// the launch.
+// tile_n columns (64 or 128), each ceil(k*k*Cin / 64) blocks of
+// [tile_n, 64] bf16. Returns the error of setting the shared-memory size,
+// of the occupancy query or of the launch (cudaErrorInvalidValue for
+// arguments the loop does not take).
 extern "C" int gated_conv_kxk_wgmma(const float* x, const void* wp,
                                     const float* bias, const float* scale,
                                     const float* offset, const float* res,
                                     float* out, int B, int H, int W,
                                     int Cin, int Cout, int k, int stride,
                                     int relu, int tile_n, int ntiles,
-                                    int stages, int nwg, void* stream) {
+                                    void* stream) {
   const int pad = (k - 1) / 2;
   gcw::Args a{x, static_cast<const uint8_t*>(wp), bias, scale, offset,
               res, out, B, H, W, Cin,
               (H + 2 * pad - k) / stride + 1, (W + 2 * pad - k) / stride + 1,
               Cout, k, stride, pad, relu, k * k * Cin,
-              (k * k * Cin + gcw::BK - 1) / gcw::BK, stages ? stages : 4,
-              ntiles};
+              (k * k * Cin + gcw::BK - 1) / gcw::BK, ntiles};
   if (Cin % 32 != 0 || Cout % 8 != 0 || !aligned16(x) || !aligned16(wp) ||
-      (tile_n != 64 && tile_n != 128 && tile_n != 256) ||
-      ntiles != (Cout + tile_n / 2 - 1) / (tile_n / 2) || a.stages < 2 ||
-      a.stages > gcw::MAX_STAGES || nwg < 0 || nwg > 2 ||
-      (tile_n == 256 && nwg == 2))
+      (tile_n != 64 && tile_n != 128) ||
+      ntiles != (Cout + tile_n / 2 - 1) / (tile_n / 2))
     return (int)cudaErrorInvalidValue;
-  const int npix = B * a.Ho * a.Wo;
-  if (npix == 0) return (int)cudaGetLastError();
-  if (nwg == 0) nwg = 1;
+  if (B * a.Ho * a.Wo == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  if (tile_n == 64)
-    return nwg == 2 ? gcw::launch<64, 2>(a, s) : gcw::launch<64, 1>(a, s);
-  if (tile_n == 128)
-    return nwg == 2 ? gcw::launch<128, 2>(a, s) : gcw::launch<128, 1>(a, s);
-  return gcw::launch<256, 1>(a, s);
+  return tile_n == 64 ? gcw::launch<64>(a, s) : gcw::launch<128>(a, s);
 }
 
 // K3: 1x1 conv over n pixels, i.e. [n, Cin] @ [Cin, 2*Cout] + epilogue.

@@ -14,7 +14,7 @@
 // What bounds it: at the 32-channel full-resolution layer (368x1216) the
 // f32 activations read and written (0.034 ms at 3.35 TB/s against 0.017 ms
 // of bf16 tensor-core work); at the deeper levels the tensor-core
-// operations (0.017 ms a 3x3 layer). It runs at 6-11x that (PERF.md), with
+// operations (0.017 ms a 3x3 layer). It runs at 5-7x that (PERF.md), with
 // the tensor cores mostly idle: fewer barrier arrivals changed nothing,
 // and more registers a thread (one block per SM instead of two) made it
 // slower, so the number of stages each SM keeps in flight sets its pace.
@@ -37,10 +37,11 @@
 //   swizzled A stage; `fence.proxy.async.shared::cta` makes those generic
 //   stores visible to wgmma before each thread's arrive on the stage's
 //   full barrier (129 arrivals: 128 threads + the byte-count arrive).
-// - Consumer warpgroups (NWG = 1 or 2, 64 pixels each): wait for the full
-//   barrier, issue 4 `wgmma.mma_async m64nTILE_Nk16` from shared memory,
-//   commit, keep that group in flight (`wait_group 1`) and free the
-//   previous stage (one arrive per warp on its empty barrier).
+// - Consumer warpgroup (the block's first 128 threads, 64 pixels): waits
+//   for the full barrier, issues 4 `wgmma.mma_async m64nTILE_Nk16` from
+//   shared memory, commits, keeps that group in flight (`wait_group 1`)
+//   and frees the previous stage (one arrive per warp on its empty
+//   barrier).
 // - Epilogue from the accumulator registers: with f and m interleaved by
 //   8 columns, a thread's fragments d[8q + 2h + e] and d[8q + 4 + 2h + e]
 //   are f and m of the same (pixel, channel), so bias, ELU(f)*sigmoid(m),
@@ -49,11 +50,12 @@
 // - Persistent blocks: as many as fit on the card at once, each walking
 //   tiles t, t + gridDim.x, ... through one ring, so no block waits to
 //   start and one tile's epilogue overlaps the next tile's staging.
-// Tilings: TILE_N (chosen by the packing) is 64 for Cout <= 32 and 128
-// otherwise (Cout = 128 and 256 take 2 and 4 N tiles); NWG = 1 (64-pixel
-// tiles) and 4 stages by default. The kernel bench's variants (TILE_N
-// 256, NWG 2, 2-6 stages) measured no faster (PERF.md). At 46x152x256
-// that gives 110 x 4 = 440 tiles; at 92x304x128 874; at 368x1216x32 6992.
+// Tiling: 64-pixel tiles, STAGES = 4, and TILE_N (set by the packing) 64
+// for Cout <= 32 and 128 otherwise (Cout = 128 and 256 take 2 and 4 N
+// tiles). At 46x152x256 that gives 110 x 4 = 440 tiles; at 92x304x128
+// 874; at 368x1216x32 6992. Other tilings (2-6 stages, two consumer
+// warpgroups, 256-column tiles) were measured (PERF.md): none was faster
+// at every level, so this one alone is built.
 
 #pragma once
 
@@ -65,7 +67,8 @@ namespace gcw {
 
 constexpr int BK = 64;          // K slice: 64 bf16 = one 128-byte row
 constexpr int ROW_BYTES = 128;  // a swizzled row of A or B
-constexpr int MAX_STAGES = 8;
+constexpr int BM = 64;          // output pixels a tile: one warpgroup's M
+constexpr int STAGES = 4;       // ring depth
 
 struct Args {
   const float* x;       // [B, H, W, Cin] f32, 16-byte aligned
@@ -76,7 +79,7 @@ struct Args {
   const float* res;     // [B, Ho, Wo, Cout] or nullptr
   float* out;           // [B, Ho, Wo, Cout]
   int B, H, W, Cin, Ho, Wo, Cout, k, stride, pad, relu;
-  int K, slices, stages, ntiles;
+  int K, slices, ntiles;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -218,69 +221,10 @@ __device__ __forceinline__ void mma_n128(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ void mma_n256(float* d, uint64_t da,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
-}
-
 template <int TILE_N>
 __device__ __forceinline__ void mma(float* d, uint64_t da, uint64_t db) {
   if constexpr (TILE_N == 64) mma_n64(d, da, db);
-  else if constexpr (TILE_N == 128) mma_n128(d, da, db);
-  else mma_n256(d, da, db);
+  else mma_n128(d, da, db);
 }
 
 __device__ __forceinline__ float gate(float f, float g, int relu) {
@@ -326,17 +270,15 @@ __device__ __forceinline__ void epilogue(const Args& a, const float* d,
 }
 
 // The tile loop, persistent: each block walks the output tiles t =
-// blockIdx.x, + gridDim.x, ... (64 NWG consecutive pixels of N tile
-// t / mblocks), and its producer and consumers run one ring through all of
+// blockIdx.x, + gridDim.x, ... (BM consecutive pixels of N tile
+// t / mblocks), and its producer and consumer run one ring through all of
 // them, so one tile's epilogue overlaps the next tile's staging.
-template <int TILE_N, int NWG>
-__global__ void __launch_bounds__(128 * (NWG + 1), 1)
-wgmma_kernel(const Args a) {
-  constexpr int BM = 64 * NWG;
+template <int TILE_N>
+__global__ void __launch_bounds__(256, 1) wgmma_kernel(const Args a) {
   constexpr uint32_t A_BYTES = BM * ROW_BYTES, B_BYTES = TILE_N * ROW_BYTES;
+  constexpr int ST = STAGES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const int ST = a.stages;
   const uint32_t sA = base, sB = base + ST * A_BYTES;
   const uint32_t full = sB + ST * B_BYTES, empty = full + 8 * ST;
   const int tid = threadIdx.x, wg = tid / 128;
@@ -346,16 +288,16 @@ wgmma_kernel(const Args a) {
   if (tid == 0) {
     for (int s = 0; s < ST; ++s) {
       bar_init(full + 8 * s, 129);
-      bar_init(empty + 8 * s, 4 * NWG);
+      bar_init(empty + 8 * s, 4);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (wg == NWG) {
+  if (wg == 1) {
     // ---- producer warpgroup: pixel rows r0 + 16 i, 8-channel chunk c8
     constexpr int PER = BM / 16;
-    const int tp = tid - 128 * NWG, c8 = tp & 7, r0 = tp >> 3;
+    const int tp = tid - 128, c8 = tp & 7, r0 = tp >> 3;
     // row m = r0 + 16 i keeps m % 8 = r0 % 8: chunk c8 lands at c8 ^ (m % 8)
     const uint32_t a_off = r0 * ROW_BYTES + ((c8 ^ (r0 & 7)) << 4);
     int g = 0;  // ring stages filled so far
@@ -421,8 +363,7 @@ wgmma_kernel(const Args a) {
       }
     }
   } else {
-    // ---- consumer warpgroup wg: pixels m0 + 64 wg .. + 63 of each tile
-    const uint32_t a_wg = wg * 64 * ROW_BYTES;
+    // ---- consumer warpgroup: pixels m0 .. m0 + 63 of each tile
     const int lane = tid % 32;
     int g = 0;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
@@ -432,7 +373,7 @@ wgmma_kernel(const Args a) {
       for (int it = 0; it < a.slices; ++it, ++g) {
         const int st = g % ST;
         bar_wait(full + 8 * st, (g / ST) & 1);
-        const uint64_t da = desc(sA + st * A_BYTES + a_wg);
+        const uint64_t da = desc(sA + st * A_BYTES);
         const uint64_t db = desc(sB + st * B_BYTES);
         wgmma_fence();
 #pragma unroll
@@ -444,8 +385,7 @@ wgmma_kernel(const Args a) {
       }
       wgmma_wait<0>();
       if (lane == 0) bar_arrive(empty + 8 * ((g - 1) % ST));
-      const int row = (t % mblocks) * BM + 64 * wg +
-                      16 * ((tid % 128) / 32) + lane / 4;
+      const int row = (t % mblocks) * BM + 16 * (tid / 32) + lane / 4;
       const int p[2] = {row < npix ? row : -1,
                         row + 8 < npix ? row + 8 : -1};
       epilogue<TILE_N>(a, d, p, t / mblocks);
@@ -455,22 +395,21 @@ wgmma_kernel(const Args a) {
 
 // Dynamic shared memory of one block: the A and B stages, the full and
 // empty barriers, and 1 KB to align the stages to the swizzle's 1024 bytes.
-template <int TILE_N, int NWG>
-constexpr size_t smem_bytes(int stages) {
-  return (size_t)stages * (64 * NWG + TILE_N) * ROW_BYTES + 16 * stages +
-         1024;
+template <int TILE_N>
+constexpr size_t smem_bytes() {
+  return (size_t)STAGES * (BM + TILE_N) * ROW_BYTES + 16 * STAGES + 1024;
 }
 
 // Launch as many blocks as fit on the card at once (at most one a tile).
-// The shared-memory limit is raised to the card's maximum once, and the
-// blocks per SM are asked once per stage count, a kernel each.
-template <int TILE_N, int NWG>
+// The shared-memory limit is raised to the card's maximum and the blocks
+// per SM are asked once, for each TILE_N.
+template <int TILE_N>
 int launch(const Args& a, cudaStream_t stream) {
-  static int sms = 0, per_sm[MAX_STAGES + 1] = {};
-  auto kern = wgmma_kernel<TILE_N, NWG>;
-  const size_t smem = smem_bytes<TILE_N, NWG>(a.stages);
+  static int sms = 0, per_sm = 0;
+  auto kern = wgmma_kernel<TILE_N>;
+  constexpr size_t smem = smem_bytes<TILE_N>();
   cudaError_t e = cudaSuccess;
-  if (sms == 0) {
+  if (per_sm == 0) {
     int optin = 0;
     e = cudaDeviceGetAttribute(&optin,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, 0);
@@ -479,19 +418,19 @@ int launch(const Args& a, cudaStream_t stream) {
           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0);
-  }
-  if (e == cudaSuccess && per_sm[a.stages] == 0)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm[a.stages], kern, 128 * (NWG + 1), smem);
-  if (e != cudaSuccess || per_sm[a.stages] == 0) {
-    sms = 0;
-    cudaGetLastError();  // clear it, or the next launch would report it
-    return e != cudaSuccess ? (int)e : (int)cudaErrorInvalidValue;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, 256,
+                                                        smem);
+    if (e != cudaSuccess || per_sm == 0) {
+      per_sm = 0;
+      cudaGetLastError();  // clear it, or the next launch would report it
+      return e != cudaSuccess ? (int)e : (int)cudaErrorInvalidValue;
+    }
   }
   const int npix = a.B * a.Ho * a.Wo;
-  const int tiles = (npix + 64 * NWG - 1) / (64 * NWG) * a.ntiles;
-  const int most = per_sm[a.stages] * sms;
-  kern<<<tiles < most ? tiles : most, 128 * (NWG + 1), smem, stream>>>(a);
+  const int tiles = (npix + BM - 1) / BM * a.ntiles;
+  const int most = per_sm * sms;
+  kern<<<tiles < most ? tiles : most, 256, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -15,8 +15,6 @@ The counterpart of the JAX package's kernel benches, one group each:
   same four shapes, f32 and bf16 (K8 runs K2's old tile loops, so its
   bf16 ``full`` rows are the old bf16 loop beside the ``convs`` group's
   K2 bf16 rows, which run the wgmma loop);
-- ``wgmma``: K2's bf16 wgmma loop at the same four shapes in the tilings
-  ``WGMMA_VARIANTS`` (N tile width, consumer warpgroups, ring stages);
 - ``cat`` (``scripts/probe_pack_new.py`` ``cat11_*``): K4 at the three
   SCM sites of the serving frame and at ``cat11_convs2`` (32+32->32) and
   ``cat11_aff0`` (32+64+128+256->32), 1216x368, f32 and bf16.
@@ -79,10 +77,6 @@ SCM_SITES = (("SCM2", 184, 608, (8, 56)), ("SCM1", 92, 304, (8, 120)),
              ("SCM0", 46, 152, (8, 248)))
 CAT_PROBES = (("cat11_convs2", 368, 1216, (32, 32), 32),
               ("cat11_aff0", 368, 1216, (32, 64, 128, 256), 32))
-# K2 wgmma tilings: (N tile width or None for the layer's default,
-# consumer warpgroups or 0 for the default, ring stages)
-WGMMA_VARIANTS = ((None, 0, 4), (None, 2, 4), (None, 0, 2), (None, 0, 3),
-                  (None, 0, 6), (256, 0, 4), (256, 0, 3))
 
 
 class BenchFailure(RuntimeError):
@@ -390,41 +384,8 @@ def cat_rows(dev) -> List[Row]:
     return rows
 
 
-def wgmma_rows(dev) -> List[Row]:
-    """K2's bf16 wgmma loop in each tiling of ``WGMMA_VARIANTS`` (all fit
-    in a block's shared memory; the first is the layer's default), at the
-    four level shapes, launched without ``gated_conv_kxk``'s checks."""
-    rows = []
-    gen = torch.Generator(device=dev).manual_seed(3)
-    for h, w, c in CONV_SHAPES:
-        x = torch.randn(1, h, w, c, generator=gen, device=dev)
-        wk, b, scale, offset = _weights(gen, dev, 3, c, 2 * c, c)
-        lib = (lambda xl=x.bfloat16(), wl=wk.bfloat16():
-               library_conv(xl, wl))
-        twin = (lambda x=x, a=(wk, b, scale, offset):
-                GC.gated_conv_kxk_plain(x, *a, bf16=True))
-        for tile_n, nwg, stages in WGMMA_VARIANTS:
-            tn = tile_n or GC.wgmma_tile_n(c)
-            packed = GC.pack_kxk_bf16(wk, tn)
-
-            def fn(x=x, wk=wk, a=(packed, b, scale, offset), nwg=nwg,
-                   stages=stages):
-                if x.device.type == "cpu":   # the rehearsal: the twin
-                    return GC.gated_conv_kxk_plain(x, wk, *a[1:], bf16=True)
-                out = torch.empty(x.shape, device=x.device)
-                GC._launch_wgmma(x, *a, None, out, 3, 1, True,
-                                 stages=stages, nwg=nwg)
-                return out
-            rows.append(Row(
-                "wgmma", "gated_conv_kxk_wgmma",
-                f"tn={tn} nwg={nwg or 'auto'} st={stages} {h}x{w} "
-                f"{c}->{c} bf16", fn, twin, lib, (BF16_TOL, F32_TOL),
-                *conv_cost(x.shape, 3, 1, 2 * c, c), True))
-    return rows
-
-
 _BUILDERS = {"zbuffer": zbuffer_rows, "convs": conv_rows,
-             "probe": probe_rows, "cat": cat_rows, "wgmma": wgmma_rows}
+             "probe": probe_rows, "cat": cat_rows}
 
 
 def run(dev, echo: Optional[Callable] = print):

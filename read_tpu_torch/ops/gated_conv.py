@@ -136,7 +136,7 @@ def gated_conv_kxk_plain(x, w, b, scale, offset, res=None, *, stride=1,
 
 _KXK_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                  + [ctypes.c_void_p])
-_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
+_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
                    + [ctypes.c_void_p])
 
 
@@ -154,17 +154,16 @@ def kxk_route(x: torch.Tensor, w: torch.Tensor, bf16: bool) -> str:
 
 def wgmma_tile_n(cout: int) -> int:
     """Columns of one N tile of the wgmma loop (f and m together): 64
-    for ``Cout <= 32``, else 128: wider layers take several tiles (the
-    kernel bench's 256-column variant was slower at 64 and 128 channels
-    and no faster at 256)."""
+    for ``Cout <= 32``, else 128: wider layers take several tiles
+    (256-column tiles lost at 32 to 128 channels, ``PERF.md``)."""
     return 64 if cout <= 32 else 128
 
 
-def pack_kxk_bf16(w: torch.Tensor, tile_n: Optional[int] = None
-                  ) -> torch.Tensor:
+def pack_kxk_bf16(w: torch.Tensor) -> torch.Tensor:
     """The wgmma loop's weight: HWIO ``w [k, k, Cin, 2*Cout]`` (f32) as
     bf16 (round to nearest even) ``[ntiles, slices, tile_n, 64]``, one
-    contiguous block per (N tile, K slice) for one bulk copy a stage.
+    contiguous block per (N tile, K slice) for one bulk copy a stage;
+    ``tile_n`` is :func:`wgmma_tile_n` of ``Cout``.
 
     K = k*k*Cin (tap-major, as ``w.reshape``) is cut into ``slices`` of 64,
     the last zero-padded. Column ``n`` of tile ``t`` holds, by group ``g =
@@ -175,7 +174,7 @@ def pack_kxk_bf16(w: torch.Tensor, tile_n: Optional[int] = None
     swizzle the kernel's wgmma descriptors read."""
     k, _, cin, c2 = w.shape
     cout = c2 // 2
-    tile_n = tile_n or wgmma_tile_n(cout)
+    tile_n = wgmma_tile_n(cout)
     half = tile_n // 2
     ntiles = -(-cout // half)
     kk = k * k * cin
@@ -198,11 +197,8 @@ def pack_kxk_bf16(w: torch.Tensor, tile_n: Optional[int] = None
         torch.bfloat16).contiguous()
 
 
-def _launch_wgmma(x, packed, b, scale, offset, res, out, k, stride, relu,
-                  stages=0, nwg=0):
-    """Launch ``gated_conv_kxk_wgmma`` into ``out``; ``stages``/``nwg``
-    0 take the kernel's default tiling (other values: the bench's
-    variants)."""
+def _launch_wgmma(x, packed, b, scale, offset, res, out, k, stride, relu):
+    """Launch ``gated_conv_kxk_wgmma`` into ``out``."""
     bsz, h, wd, cin = x.shape
     cout = out.shape[-1]
     ntiles, _, tile_n, _ = packed.shape
@@ -211,7 +207,7 @@ def _launch_wgmma(x, packed, b, scale, offset, res, out, k, stride, relu,
     err = fn(x.data_ptr(), packed.data_ptr(), b.data_ptr(),
              scale.data_ptr(), offset.data_ptr(), _ptr(res), out.data_ptr(),
              bsz, h, wd, cin, cout, k, stride, int(relu), tile_n, ntiles,
-             stages, nwg, torch.cuda.current_stream(x.device).cuda_stream)
+             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "gated_conv_kxk (wgmma)")
 
 
@@ -243,11 +239,12 @@ def gated_conv_kxk(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if kxk_route(x, w, bf16) == "wgmma":
         if packed is None:
             packed = pack_kxk_bf16(w)
-        slices = -(-k * k * cin // WGMMA_K)
+        tile_n = wgmma_tile_n(cout)
+        want = (-(-cout // (tile_n // 2)), -(-k * k * cin // WGMMA_K),
+                tile_n, WGMMA_K)
         if packed.dtype != torch.bfloat16 or packed.device != x.device \
-                or not packed.is_contiguous() or packed.dim() != 4 \
-                or tuple(packed.shape[1:]) != (slices, packed.shape[2],
-                                               WGMMA_K):
+                or not packed.is_contiguous() \
+                or tuple(packed.shape) != want:
             raise ValueError(f"gated_conv_kxk: packed weight "
                              f"{tuple(packed.shape)} {packed.dtype} does "
                              f"not fit w {tuple(w.shape)}")

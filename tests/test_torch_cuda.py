@@ -194,36 +194,20 @@ def test_gated_conv_kxk_wgmma_matches_twin(dev, cin, cout, k, stride,
         torch.testing.assert_close(got, want, **F32)
 
 
-@pytest.mark.parametrize("tile_n,nwg,stages", [
-    (64, 1, 2), (64, 2, 6), (128, 1, 3), (128, 2, 4), (256, 1, 2),
-    (256, 1, 5), (64, 2, 8)])
-@pytest.mark.parametrize("cin", [32, 128])
-def test_gated_conv_kxk_wgmma_tilings_match_twin(dev, tile_n, nwg, stages,
-                                                 cin):
-    """Every tiling the bench's variants launch (N tile width, consumer
-    warpgroups, ring stages), at a layer with two N tiles or more, on a
-    ragged image of more tiles than the persistent grid has blocks."""
-    cout = tile_n
-    x, w, b, scale, offset = _conv_case(dev, (2, 119, 177), cin, cout, 3, 5)
-    out = torch.empty(2, 119, 177, cout, device=dev)
-    GC._launch_wgmma(x, GC.pack_kxk_bf16(w, tile_n), b, scale, offset,
-                     None, out, 3, 1, True, stages=stages, nwg=nwg)
-    want = GC.gated_conv_kxk_plain(x, w, b, scale, offset, relu=True,
-                                   bf16=True)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(out, want, **F32)
-
-
 def test_gated_conv_kxk_wgmma_refused_launch_raises(dev):
-    """A tiling the kernel refuses (9 stages > 8; 256 columns with two
-    consumer warpgroups; 8 stages of 256 columns, 320 KB of shared
-    memory) surfaces as the wrapper's error."""
+    """A packed weight the kernel refuses (256-column N tiles; a tile
+    count that does not cover Cout) surfaces as the wrapper's error."""
     x, w, b, scale, offset = _conv_case(dev, (1, 8, 8), 32, 128, 3, 1)
     out = torch.empty(1, 8, 8, 128, device=dev)
-    for stages, nwg in ((9, 0), (4, 2), (8, 1)):
+    good = GC.pack_kxk_bf16(w)
+    assert tuple(good.shape) == (2, 5, 128, 64)
+    for packed in (good.reshape(1, 5, 256, 64), good[:1].contiguous()):
         with pytest.raises(RuntimeError, match="CUDA launch failed"):
-            GC._launch_wgmma(x, GC.pack_kxk_bf16(w, 256), b, scale, offset,
-                             None, out, 3, 1, True, stages=stages, nwg=nwg)
+            GC._launch_wgmma(x, packed, b, scale, offset, None, out, 3, 1,
+                             True)
+    with pytest.raises(ValueError, match="packed weight"):
+        GC.gated_conv_kxk(x, w, b, scale, offset, bf16=True,
+                          packed=good[:1].contiguous())
 
 
 @pytest.mark.parametrize("cin,cout", [(16, 32), (32, 56), (128, 248)])

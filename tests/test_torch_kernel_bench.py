@@ -63,8 +63,7 @@ def test_rows_run_and_compare_at_a_tiny_size(monkeypatch):
     assert by == {"zbuffer": 3, "zbuffer_exact": 3, "zbuffer_keys": 3,
                   "gated_conv_kxk": 4, "gated_conv3x3_r2": 4,
                   "gated_conv_1x1": 4, "gated_conv1x1_r2": 4,
-                  "gated_conv_probe": 12, "gated_conv_1x1_cat": 4,
-                  "gated_conv_kxk_wgmma": 14}
+                  "gated_conv_probe": 12, "gated_conv_1x1_cat": 4}
     assert all(v == 0 for v in launches.values())   # twins on the CPU
     assert all(r["max_abs_err"] == 0.0 for r in rows
                if r["group"] == "zbuffer")
