@@ -8,14 +8,18 @@ without a device it exits non-zero at once. It
 
 1. builds the port's CUDA kernels from ``read_tpu_torch/csrc``;
 2. holds each kernel against its plain PyTorch twin at the shapes of the
-   full-width serving path (K1 bit-equal; K2/K3 within the f32
+   full-width serving path (K1 bit-equal; K2/K3/K4 within the f32
    tolerance of ``tests/test_unet_pallas.py``, with bf16 operands
-   too, since kernel and twin round the same operands and sum in f32)
-   and times both with CUDA events;
+   too, since kernel and twin round the same operands and sum in f32;
+   the 9 K3/K4 calls of a frame on the 1x1 wgmma loop in both operand
+   modes, f32 as three TF32 products, each also with a residual) and
+   times both with CUDA events;
 3. serves 4 requests through ``read_tpu_torch.render.NeuralRenderer``
    from a random-weight full-width checkpoint written in ``read_tpu``'s
    format, over a 1M-point scene at 1216x368, and checks every kernel
-   ran on that path (launch counters); then serves 2 of those requests
+   ran on that path (launch counters) and the 1x1 wgmma loop exactly as
+   often as ``ops.gated_conv.conv1x1_route`` predicts (9 calls a
+   request, in every serving phase); then serves 2 of those requests
    with ``dtype='bfloat16'``, which must run K2's bf16 wgmma loop as
    often as ``ops.gated_conv.kxk_route`` predicts (79 calls a frame) and
    match the all-twin request;
@@ -27,7 +31,9 @@ without a device it exits non-zero at once. It
    pyramids and the same loss and gradients within 1e-6 relative; then
    10 steps at the bench operating point (256x256 crops, B=8, 1M
    points, VGG on, the default config) are timed (2 warm-up, 5 timed)
-   and must lower the loss on their fixed batch;
+   and must lower the loss on their fixed batch; 7 more are timed the
+   same way with TF32 forced on around the step (the port runs it with
+   TF32 off);
 6. saves the trained state as a ``read_tpu`` checkpoint with the
    default config (``sort``) and serves 2 requests from it at 1216x368,
    through K5, K2 and K3;
@@ -35,7 +41,7 @@ without a device it exits non-zero at once. It
    and f32 operands, and compares one B=1 frame (f32 and bf16 operands)
    with the same frame with every kernel swapped for its twin; a bf16
    frame that runs the wgmma loop fewer times than the route predicts
-   fails;
+   fails, and so does any frame that runs the 1x1 loop fewer times;
 8. runs the kernel bench (``read_tpu_torch.kernel_bench``) in-process:
    K1, K5 and K6 (bit-equal, ties included) at 1M points, 1216x368, B=1
    and 2; K7 beside K2 and K3, and K8's four modes, at the four level
@@ -46,15 +52,19 @@ without a device it exits non-zero at once. It
 
 The serving phases also require K4 (``gated_conv_1x1_cat``): 3 launches
 per request, the SCMs' ``BasicConv_4``. TF32 is off throughout, so the
-twins' convolutions and matmuls are full float32. Any failed check
+twins' convolutions and matmuls are full float32 (but for the TF32-on
+train timing). Any failed check
 raises and the script exits non-zero. The last stdout line is ``{"ok":
 true, "device": {...}}``; the line before it lists each kernel's
 launches (counted on the run of the path it serves: K1-K4 on the
 serving path, K2's wgmma loop on the bf16 serving requests, K5 on the
 training steps, K6-K8 on the kernel bench's first pass), error, its
 time, its twin's, the library call's and its bound (``shape`` says what
-they were measured on); K2's entry adds its bf16 per-frame times
-(``bf16_ms``, ``bf16_plain_ms``, ``bf16_library_ms``, ``bf16_bound_ms``).
+they were measured on); the K2, K3, K4 and 1x1-loop entries add their
+bf16 per-frame times (``bf16_ms``, ``bf16_plain_ms``,
+``bf16_library_ms``, ``bf16_bound_ms``), and the f32 entries of K3, K4
+and the loop the bound at the TF32 peak of three products
+(``tf32x3_bound_ms``) beside ``bound_ms`` at the f32 FMA peak.
 """
 
 import contextlib
@@ -87,6 +97,8 @@ KERNELS = {
                       "read_tpu/ops/rasterize_pallas.py:40"),
     "gated_conv_1x1_cat": ("read_tpu_torch/csrc/gated_conv.cu",
                            "read_tpu/ops/gated_conv_pack.py:509"),
+    "gated_conv_1x1_wgmma": ("read_tpu_torch/csrc/gated_conv_1x1_wgmma.cuh",
+                             "read_tpu/ops/gated_conv_pack.py:509"),
     "zbuffer_keys": ("read_tpu_torch/csrc/zbuffer.cu",
                      "read_tpu/ops/rasterize_pallas.py:234"),
     "gated_conv3x3_r2": ("read_tpu_torch/csrc/gated_conv_r2.cu",
@@ -348,6 +360,57 @@ def phase_train(report, ctx):
           f"{losses[0]:.6g} -> {losses[-1]:.6g} over {TRAIN_STEPS} steps; "
           f"launches {counts}")
     ctx["trained"] = state
+    # the same step with TF32 forced on around it, from the trained state
+    with tf32_on():
+        on_s, on_losses, _ = timed_steps(step, state, xyz, batch)
+    if not all(np.isfinite([float(x) for x in on_losses])):
+        raise SmokeFailure("train: TF32-on losses not finite")
+    print(f"[train] TF32 on (forced around the step): {on_s * 1e3:.2f} "
+          f"ms/step; TF32 off (the port's default): {seconds * 1e3:.2f} "
+          f"ms/step (mean of {TIMED} after {WARMUP} warm-up)")
+
+
+@contextlib.contextmanager
+def tf32_on():
+    """Inside: the port's ``full_f32`` blocks (training step, eval step,
+    VGG loss) turn TF32 on for cuDNN and cuBLAS instead of off, so the
+    training step can be timed with TF32 (the package has no switch)."""
+    import torch
+    from read_tpu_torch.utils import fp32
+
+    @contextlib.contextmanager
+    def forced_on():
+        saved = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            yield
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = saved
+
+    real = fp32.full_f32
+    fp32.full_f32 = forced_on
+    try:
+        yield
+    finally:
+        fp32.full_f32 = real
+
+
+def timed_steps(step, state, xyz, batch):
+    """``WARMUP`` steps, then the mean seconds of ``TIMED`` more, from
+    ``state``: ``(seconds, losses, last state)``."""
+    import torch
+    losses = []
+    for i in range(WARMUP + TIMED):
+        if i == WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, metrics = step(state, xyz, batch)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / TIMED, losses, state
 
 
 def phase_serve_sort(ctx, dev, workdir):
@@ -391,6 +454,7 @@ def phase_serve_sort(ctx, dev, workdir):
     if counts["gated_conv_1x1_cat"] != 3 * len(imgs):
         raise SmokeFailure("serve_sort: K4 did not launch 3 times per "
                            "request")
+    conv1x1_ran(ctx, "serve_sort", counts, len(imgs))
     print(f"[serve_sort] trained checkpoint, default config (sort): "
           f"{len(imgs)} requests at {w}x{h}, "
           f"{seconds * 1e3 / len(imgs):.2f} ms/request (first included); "
@@ -398,78 +462,147 @@ def phase_serve_sort(ctx, dev, workdir):
 
 
 def record_conv_shapes(dev, operands="bf16"):
-    """Run one full-width B=1 frame with recording shims around K2/K3:
-    ``{(name, x shape, w shape, stride, relu, has_res, route): calls}``,
-    ``route`` being K2's ``kxk_route`` (``'1x1'`` for K3)."""
+    """Run one full-width B=1 frame with recording shims around K2, K3
+    and K4: ``{(name, input shapes, w shape, stride, relu, has_res,
+    route): calls}``, ``route`` being ``kxk_route`` for K2 and
+    ``conv1x1_route`` for K3 and K4 (``'wgmma'``: the loop)."""
     from read_tpu_torch.frame import make_frame
     from read_tpu_torch.ops import gated_conv as GC
     counts = {}
 
-    def shim(name, real):
-        def fn(x, w, b, scale, offset, res=None, **kw):
-            route = (GC.kxk_route(x, w, kw["bf16"])
-                     if name == "gated_conv_kxk" else "1x1")
-            key = (name, tuple(x.shape), tuple(w.shape),
-                   kw.get("stride", 1), kw["relu"], res is not None, route)
-            counts[key] = counts.get(key, 0) + 1
-            return real(x, w, b, scale, offset, res, **kw)
-        return fn
+    def record(name, xs, w, res, kw, route):
+        key = (name, tuple(tuple(x.shape) for x in xs), tuple(w.shape),
+               kw.get("stride", 1), kw["relu"], res is not None, route)
+        counts[key] = counts.get(key, 0) + 1
+
+    def kxk(x, w, b, scale, offset, res=None, **kw):
+        record("gated_conv_kxk", [x], w, res, kw,
+               GC.kxk_route(x, w, kw["bf16"]))
+        return saved[0](x, w, b, scale, offset, res, **kw)
+
+    def k3(x, w, b, scale, offset, res=None, **kw):
+        record("gated_conv_1x1", [x], w, res, kw,
+               GC.conv1x1_route([x], w.shape[-1] // 2))
+        return saved[1](x, w, b, scale, offset, res, **kw)
+
+    def k4(xs, w, b, scale, offset, res=None, **kw):
+        assert kw.get("gated", True)
+        record("gated_conv_1x1_cat", xs, w, res, kw,
+               GC.conv1x1_route(xs, w.shape[-1] // 2))
+        return saved[2](xs, w, b, scale, offset, res, **kw)
 
     frame_fn, args = make_frame(1, operands, device=dev)
-    saved = (GC.gated_conv_kxk, GC.gated_conv_1x1)
-    GC.gated_conv_kxk = shim("gated_conv_kxk", saved[0])
-    GC.gated_conv_1x1 = shim("gated_conv_1x1", saved[1])
+    saved = (GC.gated_conv_kxk, GC.gated_conv_1x1, GC.gated_conv_1x1_cat)
+    GC.gated_conv_kxk, GC.gated_conv_1x1, GC.gated_conv_1x1_cat = (
+        kxk, k3, k4)
     try:
         frame_fn(*args)
     finally:
-        GC.gated_conv_kxk, GC.gated_conv_1x1 = saved
+        GC.gated_conv_kxk, GC.gated_conv_1x1, GC.gated_conv_1x1_cat = saved
     return counts
 
 
+def _conv_operands(gen, dev, xs, ws):
+    """Random inputs ``xs`` (shapes), weight ``ws`` (HWIO shape) and
+    epilogue of one gated conv, on ``dev``."""
+    import torch
+    cin, c2 = ws[-2], ws[-1]
+    x = [torch.randn(s, generator=gen, device=dev) for s in xs]
+    w = torch.randn(ws, generator=gen, device=dev) * (
+        1.0 / (cin * (ws[0] * ws[1] if len(ws) == 4 else 1)) ** 0.5)
+    b = torch.randn(c2, generator=gen, device=dev) * 0.1
+    scale = torch.rand(c2 // 2, generator=gen, device=dev) + 0.5
+    offset = torch.randn(c2 // 2, generator=gen, device=dev) * 0.1
+    return x, w, b, scale, offset
+
+
+def _per_frame_line(name, ops, a):
+    b_ms = a["operations"] + a["bytes"]
+    extra = (f", TF32 x3 bound {a['tf32x3_bound_ms']:.4f}"
+             if a.get("tf32x3_bound_ms") else "")
+    if a.get("graph_ms"):
+        extra += (f"; in a CUDA graph (no host path): kernel "
+                  f"{a['graph_ms']:.4f}, library "
+                  f"{a['library_graph_ms']:.4f}")
+    print(f"[convs] {name} per B=1 frame ({ops} operands): kernel "
+          f"{a['ms']:.4f} ms, twin {a['plain_ms']:.4f}, library "
+          f"{a['library_ms']:.4f}, bound {b_ms:.4f} (operations "
+          f"{a['operations']:.4f}, bytes {a['bytes']:.4f}){extra}, "
+          f"kernel/bound {a['ms'] / b_ms:.1f}, kernel/library "
+          f"{a['ms'] / a['library_ms']:.2f}")
+
+
+def _report_per_frame(report, name, per_frame, err, shape):
+    """The kernels line's entry of ``name`` from its per-frame sums: f32
+    as its main numbers, bf16 under ``bf16_*`` (where it ran)."""
+    a = per_frame["f32"]
+    row = report[name]
+    if a["ms"] > 0:
+        row.update(max_abs_err=err, ms=a["ms"], plain_ms=a["plain_ms"],
+                   library_ms=a["library_ms"],
+                   bound_ms=a["operations"] + a["bytes"],
+                   bound_by=max(("operations", "bytes"), key=a.get),
+                   shape=shape)
+        for key in ("tf32x3_bound_ms", "graph_ms", "library_graph_ms"):
+            if a.get(key):
+                row[key] = a[key]
+    a = per_frame["bf16"]
+    row.update(bf16_ms=a["ms"], bf16_plain_ms=a["plain_ms"],
+               bf16_library_ms=a["library_ms"],
+               bf16_bound_ms=a["operations"] + a["bytes"])
+    for key in ("graph_ms", "library_graph_ms"):
+        if a.get(key):
+            row["bf16_" + key] = a[key]
+
+
+def _new_sums():
+    return {ops: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                  "operations": 0.0, "bytes": 0.0, "tf32x3_bound_ms": 0.0,
+                  "graph_ms": 0.0, "library_graph_ms": 0.0}
+            for ops in ("f32", "bf16")}
+
+
 def phase_convs(report, ctx, dev):
-    """Every gated-conv shape of one full-width frame, f32 and bf16
-    operands, kernel against twin; sums per B=1 frame. The bf16 K2 calls
-    that ``kxk_route`` sends to the wgmma loop also sum into its own
-    entry, and their count per frame goes to ``ctx['wgmma_per_frame']``
-    for the frame and serving phases."""
+    """Every K2 shape of one full-width frame, f32 and bf16 operands,
+    kernel against twin; sums per B=1 frame. The bf16 calls that
+    ``kxk_route`` sends to the wgmma loop also sum into its own entry.
+    The frame's recorded K2/K3/K4 calls and the loops' calls per frame
+    (``ctx['wgmma_per_frame']``, ``ctx['conv1x1_per_frame']``) go to
+    ``ctx`` for the 1x1, frame and serving phases."""
     import torch
     from read_tpu_torch.kernel_bench import (bound, conv_cost, event_ms,
                                              library_conv, max_err)
     from read_tpu_torch.ops import gated_conv as GC
     counts = record_conv_shapes(dev)
     torch.cuda.synchronize()
-    ctx["wgmma_per_frame"] = sum(n for key, n in counts.items()
-                                 if key[-1] == "wgmma")
+    ctx["conv_calls"] = counts
+    ctx["wgmma_per_frame"] = sum(
+        n for key, n in counts.items()
+        if key[0] == "gated_conv_kxk" and key[-1] == "wgmma")
+    ctx["conv1x1_per_frame"] = sum(
+        n for key, n in counts.items()
+        if key[0] != "gated_conv_kxk" and key[-1] == "wgmma")
     gen = torch.Generator(device=dev).manual_seed(0)
     # per B=1 frame and operand type: kernel, twin and library ms, and
     # the bound's ms by limiting resource
-    per_frame = {n: {ops: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                           "operations": 0.0, "bytes": 0.0}
-                     for ops in ("f32", "bf16")}
-                 for n in ("gated_conv_kxk", "gated_conv_1x1",
-                           "gated_conv_kxk_wgmma")}
+    per_frame = {n: _new_sums()
+                 for n in ("gated_conv_kxk", "gated_conv_kxk_wgmma")}
     errs = {n: 0.0 for n in per_frame}
     print(f"[convs] {len(counts)} distinct gated-conv shapes in one "
-          "full-width frame")
-    for (name, xs, ws, stride, relu, has_res, route), n in sorted(
-            counts.items()):
-        kernel = getattr(GC, name)
-        twin = getattr(GC, name + "_plain")
-        cin, c2 = ws[-2], ws[-1]
-        x = torch.randn(xs, generator=gen, device=dev)
-        w = torch.randn(ws, generator=gen, device=dev) * (
-            1.0 / (cin * (ws[0] * ws[1] if len(ws) == 4 else 1)) ** 0.5)
-        b = torch.randn(c2, generator=gen, device=dev) * 0.1
-        scale = torch.rand(c2 // 2, generator=gen, device=dev) + 0.5
-        offset = torch.randn(c2 // 2, generator=gen, device=dev) * 0.1
-        kw = dict(relu=relu)
-        if name == "gated_conv_kxk":
-            kw["stride"] = stride
+          f"full-width frame ({ctx['wgmma_per_frame']} K2 calls on the "
+          f"wgmma loop, {ctx['conv1x1_per_frame']} K3/K4 calls on the 1x1 "
+          "wgmma loop)")
+    name = "gated_conv_kxk"
+    kernel, twin = GC.gated_conv_kxk, GC.gated_conv_kxk_plain
+    for (_, (xs,), ws, stride, relu, has_res, route), n in sorted(
+            (k, v) for k, v in counts.items() if k[0] == name):
+        (x,), w, b, scale, offset = _conv_operands(gen, dev, [xs], ws)
+        kw = dict(relu=relu, stride=stride)
         out_shape = kernel(x, w, b, scale, offset, None, **kw).shape
         res = (torch.randn(out_shape, generator=gen, device=dev)
                if has_res else None)
-        k = ws[0] if len(ws) == 4 else 1
-        flops, nbytes = conv_cost(xs, k, stride, c2, c2 // 2, res=has_res)
+        flops, nbytes = conv_cost(xs, ws[0], stride, ws[-1], ws[-1] // 2,
+                                  res=has_res)
         line = []
         # bf16: the bf16 bound, then the f32 bound too, because the
         # kernel and its twin round the same operands and sum in f32
@@ -491,14 +624,10 @@ def phase_convs(report, ctx, dev):
                           tols)
             errs[name] = max(errs[name], err)
             xl, wl = (x.bfloat16(), w.bfloat16()) if kw["bf16"] else (x, w)
-            if name == "gated_conv_kxk":
-                library = (lambda: library_conv(xl, wl, stride))
-            else:
-                library = (lambda: torch.matmul(xl, wl.reshape(cin, c2)))
             t_k = event_ms(lambda: kernel(x, w, b, scale, offset, res,
                                           **kw))
             t_p = event_ms(lambda: twin(x, w, b, scale, offset, res, **kw))
-            t_l = event_ms(library)
+            t_l = event_ms(lambda: library_conv(xl, wl, stride))
             b_ms, by = bound(flops, nbytes, kw["bf16"])
             for acc in [per_frame[name][ops]] + (
                     [per_frame["gated_conv_kxk_wgmma"][ops]] if wgmma
@@ -517,31 +646,118 @@ def phase_convs(report, ctx, dev):
         print(f"[convs] {name} x{list(xs)} w{list(ws)} s{stride} "
               f"relu={relu} res={has_res} (x{n}/frame) | "
               + " | ".join(line))
-    for name, by_ops in per_frame.items():
+    for key, by_ops in per_frame.items():
         for ops, a in by_ops.items():
-            b_ms = a["operations"] + a["bytes"]
-            if b_ms == 0:   # the wgmma loop takes no f32 call
-                continue
-            print(f"[convs] {name} per B=1 frame ({ops} operands): kernel "
-                  f"{a['ms']:.3f} ms, twin {a['plain_ms']:.3f}, library "
-                  f"{a['library_ms']:.3f}, bound {b_ms:.3f} (operations "
-                  f"{a['operations']:.3f}, bytes {a['bytes']:.3f}), "
-                  f"kernel/bound {a['ms'] / b_ms:.1f}")
-        ops = "bf16" if name == "gated_conv_kxk_wgmma" else "f32"
-        a = by_ops[ops]
-        report[name].update(
-            max_abs_err=errs[name], ms=a["ms"], plain_ms=a["plain_ms"],
-            library_ms=a["library_ms"],
-            bound_ms=a["operations"] + a["bytes"],
-            bound_by=max(("operations", "bytes"), key=a.get),
-            shape=f"the shapes of one full-width B=1 frame, {ops}, summed"
-                  + (f" ({ctx['wgmma_per_frame']} calls)"
-                     if ops == "bf16" else ""))
-    a = per_frame["gated_conv_kxk"]["bf16"]
-    report["gated_conv_kxk"].update(
-        bf16_ms=a["ms"], bf16_plain_ms=a["plain_ms"],
-        bf16_library_ms=a["library_ms"],
-        bf16_bound_ms=a["operations"] + a["bytes"])
+            if a["ms"] > 0:   # the wgmma loop takes no f32 call
+                _per_frame_line(key, ops, a)
+    _report_per_frame(report, name, per_frame[name], errs[name],
+                      "the K2 shapes of one full-width B=1 frame, f32, "
+                      "summed (bf16_*: bf16 operands)")
+    a = per_frame["gated_conv_kxk_wgmma"]["bf16"]
+    report["gated_conv_kxk_wgmma"].update(
+        max_abs_err=errs["gated_conv_kxk_wgmma"], ms=a["ms"],
+        plain_ms=a["plain_ms"], library_ms=a["library_ms"],
+        bound_ms=a["operations"] + a["bytes"],
+        bound_by=max(("operations", "bytes"), key=a.get),
+        shape=f"the {ctx['wgmma_per_frame']} routed K2 calls of one "
+              "full-width B=1 frame, bf16, summed")
+
+
+def phase_conv1x1(report, ctx, dev):
+    """Every K3 and K4 shape of one full-width frame (the 9 calls
+    ``conv1x1_route`` sends to the 1x1 wgmma loop), f32 and bf16
+    operands, weights packed once as ``BasicConv`` caches them: the
+    kernel held against its twin (f32 bound; bf16 also the bf16 bound),
+    once more with a residual, then kernel, twin, library
+    (``torch.matmul`` on the concatenated input) and bound timed, the
+    kernel and the library also inside a CUDA graph (device time with no
+    host launch path: these calls are short enough for the host's path to
+    show in ``event_ms``); sums per B=1 frame for K3, K4 and the loop."""
+    import torch
+    from read_tpu_torch.kernel_bench import (bound, conv_cost, event_ms,
+                                             graph_ms, max_err)
+    from read_tpu_torch.ops import gated_conv as GC
+    gen = torch.Generator(device=dev).manual_seed(1)
+    names = ("gated_conv_1x1", "gated_conv_1x1_cat", "gated_conv_1x1_wgmma")
+    per_frame = {n: _new_sums() for n in names}
+    errs = {n: 0.0 for n in names}
+    calls = sorted((k, v) for k, v in ctx["conv_calls"].items()
+                   if k[0] in names)
+    for (name, xs_shapes, ws, _, relu, has_res, route), n in calls:
+        if route != "wgmma":
+            raise SmokeFailure(f"{name} {xs_shapes}: not on the 1x1 loop")
+        xs, w, b, scale, offset = _conv_operands(gen, dev, xs_shapes, ws)
+        cout, k = ws[-1] // 2, ws[-2]
+        if name == "gated_conv_1x1":
+            kernel = lambda *a, **kw: GC.gated_conv_1x1(xs[0], *a, **kw)
+            twin = lambda *a, **kw: GC.gated_conv_1x1_plain(xs[0], *a, **kw)
+        else:
+            kernel = lambda *a, **kw: GC.gated_conv_1x1_cat(xs, *a, **kw)
+            twin = lambda *a, **kw: GC.gated_conv_1x1_cat_plain(xs, *a,
+                                                                **kw)
+        lead = xs_shapes[0][:-1]
+        res = torch.randn(*lead, cout, generator=gen, device=dev)
+        xcat, w2 = torch.cat(xs, -1), w.reshape(k, 2 * cout)
+        flops, nbytes = conv_cost(xcat.shape, 1, 1, 2 * cout, cout,
+                                  res=has_res)
+        line = []
+        for ops, tols in (("f32", (F32_TOL,)),
+                          ("bf16", (BF16_TOL, F32_TOL))):
+            bf16 = ops == "bf16"
+            kw = dict(relu=relu, bf16=bf16,
+                      packed=GC.pack_1x1_bf16(w) if bf16
+                      else GC.pack_1x1_tf32(w))
+            err = 0.0
+            for r in ((res if has_res else None), None if has_res else res):
+                before = GC.launches["gated_conv_1x1_wgmma"]
+                got = kernel(w, b, scale, offset, r, **kw)
+                if GC.launches["gated_conv_1x1_wgmma"] != before + 1:
+                    raise SmokeFailure(f"{name} {xs_shapes} {ops}: the 1x1 "
+                                       "loop did not run")
+                want = twin(w, b, scale, offset, r, **kw)
+                torch.cuda.synchronize()
+                err = max(err, max_err(
+                    f"{name} {xs_shapes} {ops} res={r is not None}", got,
+                    want, tols))
+            for key in (name, "gated_conv_1x1_wgmma"):
+                errs[key] = max(errs[key], err)
+            r = res if has_res else None
+            xl, wl = (xcat.bfloat16(), w2.bfloat16()) if bf16 else (xcat,
+                                                                    w2)
+            t_k = event_ms(lambda: kernel(w, b, scale, offset, r, **kw))
+            t_p = event_ms(lambda: twin(w, b, scale, offset, r, **kw))
+            t_l = event_ms(lambda: torch.matmul(xl, wl))
+            # the same calls with no host launch path: device time alone
+            g_k = graph_ms(lambda: kernel(w, b, scale, offset, r, **kw))
+            g_l = graph_ms(lambda: torch.matmul(xl, wl))
+            b_ms, by = bound(flops, nbytes, bf16)
+            tf32_ms = 0.0 if bf16 else bound(flops, nbytes, tf32x3=True)[0]
+            for key in (name, "gated_conv_1x1_wgmma"):
+                acc = per_frame[key][ops]
+                for item, t in (("ms", t_k), ("plain_ms", t_p),
+                                ("library_ms", t_l), (by, b_ms),
+                                ("tf32x3_bound_ms", tf32_ms),
+                                ("graph_ms", g_k),
+                                ("library_graph_ms", g_l)):
+                    acc[item] += n * t
+            line.append(f"{ops}: err {err:.2e} kernel {t_k:.4f} ms twin "
+                        f"{t_p:.4f} library {t_l:.4f} bound {b_ms:.4f} "
+                        f"({by})" + ("" if bf16 else
+                                     f" TF32x3 bound {tf32_ms:.4f}")
+                        + f"; in a CUDA graph: kernel {g_k:.4f} library "
+                        f"{g_l:.4f}")
+        print(f"[conv1x1] {name} x{[list(s) for s in xs_shapes]} "
+              f"w{list(ws)} relu={relu} res={has_res} (x{n}/frame) | "
+              + " | ".join(line))
+    for key in names:
+        for ops, a in per_frame[key].items():
+            _per_frame_line(key, ops, a)
+        count = sum(n for (name, *_), n in calls
+                    if key in (name, "gated_conv_1x1_wgmma"))
+        _report_per_frame(report, key, per_frame[key], errs[key],
+                          f"the {count} calls of one full-width B=1 frame, "
+                          "f32 operands as three TF32 products, summed "
+                          "(bf16_*: bf16 operands)")
 
 
 def phase_serve(report, ctx, dev, workdir):
@@ -589,6 +805,9 @@ def phase_serve(report, ctx, dev, workdir):
             raise SmokeFailure(f"request {i}: bad frame {img.shape}")
     if counts["gated_conv_kxk_wgmma"] != 0:
         raise SmokeFailure("serve: float32 requests ran the bf16 loop")
+    conv1x1_ran(ctx, "serve", counts, len(imgs))
+    report["gated_conv_1x1_wgmma"]["launches"] = counts[
+        "gated_conv_1x1_wgmma"]
     if not any(float(np.abs(a - b).max()) > 0
                for a, b in zip(imgs, imgs[1:])):
         raise SmokeFailure("the 4 requests rendered identical frames")
@@ -636,6 +855,7 @@ def phase_serve_bf16(report, ctx, dev):
                            f"route predicts {want}")
     report["gated_conv_kxk_wgmma"]["launches"] = counts[
         "gated_conv_kxk_wgmma"]
+    conv1x1_ran(ctx, "serve_bf16", counts, len(imgs))
     with Twins():
         twin = r.infer(poses[0])
     err = max_err("serve_bf16 request 0 vs twins", torch.from_numpy(imgs[0]),
@@ -646,16 +866,31 @@ def phase_serve_bf16(report, ctx, dev):
           f"launches {counts}")
 
 
-def wgmma_ran(ctx, what, fn):
-    """Run ``fn()``; fail unless the wgmma loop ran at least as often as
-    the route predicts for one bf16 frame call."""
+def conv1x1_ran(ctx, what, counts, requests):
+    """Fail unless the 1x1 wgmma loop ran exactly as often as
+    ``conv1x1_route`` predicts for ``requests`` frames (9 a frame)."""
+    want = requests * ctx["conv1x1_per_frame"]
+    if counts["gated_conv_1x1_wgmma"] != want:
+        raise SmokeFailure(f"{what}: the 1x1 wgmma loop ran "
+                           f"{counts['gated_conv_1x1_wgmma']} times, the "
+                           f"route predicts {want}")
+
+
+def loops_ran(ctx, what, fn, ops):
+    """Run ``fn()``; fail unless the 1x1 wgmma loop and (bf16 operands)
+    K2's wgmma loop ran at least as often as their routes predict for
+    one frame call."""
     from read_tpu_torch.ops import gated_conv as GC
-    before = GC.launches["gated_conv_kxk_wgmma"]
+    loops = [("gated_conv_1x1_wgmma", ctx["conv1x1_per_frame"])]
+    if ops == "bf16":
+        loops.append(("gated_conv_kxk_wgmma", ctx["wgmma_per_frame"]))
+    before = dict(GC.launches)
     out = fn()
-    ran = GC.launches["gated_conv_kxk_wgmma"] - before
-    if ran < ctx["wgmma_per_frame"]:
-        raise SmokeFailure(f"{what}: the wgmma loop ran {ran} times, the "
-                           f"route predicts {ctx['wgmma_per_frame']}")
+    for name, want in loops:
+        ran = GC.launches[name] - before[name]
+        if ran < want:
+            raise SmokeFailure(f"{what}: {name} ran {ran} times, the "
+                               f"route predicts {want}")
     return out
 
 
@@ -665,8 +900,8 @@ def phase_frames(ctx, dev):
     for ops in ("bf16", "f32"):
         for b in (1, 4):
             frame_fn, args = make_frame(b, ops, device=dev)
-            out = (wgmma_ran(ctx, f"frame B={b}", lambda: frame_fn(*args))
-                   if ops == "bf16" else frame_fn(*args))
+            out = loops_ran(ctx, f"frame B={b} {ops}",
+                            lambda: frame_fn(*args), ops)
             torch.cuda.synchronize()
             if tuple(out.shape) != (b, *HW, 3) or \
                     not bool(torch.isfinite(out).all()):
@@ -689,8 +924,8 @@ def phase_frame_vs_twin(ctx, dev):
     for ops, tols in (("f32", (FRAME_TOL,)),
                       ("bf16", (BF16_TOL, FRAME_TOL))):
         frame_fn, args = make_frame(1, ops, device=dev)
-        got = (wgmma_ran(ctx, "frame_vs_twin", lambda: frame_fn(*args))
-               if ops == "bf16" else frame_fn(*args))
+        got = loops_ran(ctx, f"frame_vs_twin {ops}", lambda: frame_fn(*args),
+                        ops)
         with Twins():
             want = frame_fn(*args)
         torch.cuda.synchronize()
@@ -727,9 +962,6 @@ def phase_kernel_bench(report, dev):
         if counts[name] == 0:
             raise SmokeFailure(f"kernel_bench: {name} never ran")
         report[name]["launches"] = counts[name]
-    fill("gated_conv_1x1_cat",
-         lambda l: l.startswith("SCM") and l.endswith("f32"),
-         "the 3 SCM sites of one full-width B=1 frame, f32, summed")
     fill("zbuffer_keys", lambda l: l == "B=1",
          f"B=1 N={N_POINTS} {HW[1]}x{HW[0]}, the frame's packed keys")
     for name in ("gated_conv3x3_r2", "gated_conv1x1_r2"):
@@ -789,6 +1021,7 @@ def main() -> int:
               ("zbuffer", lambda: phase_zbuffer(report, dev)),
               ("zbuffer_exact", lambda: phase_zbuffer_exact(report, dev)),
               ("convs", lambda: phase_convs(report, ctx, dev)),
+              ("conv1x1", lambda: phase_conv1x1(report, ctx, dev)),
               ("serve", lambda: phase_serve(report, ctx, dev, workdir)),
               ("serve_bf16", lambda: phase_serve_bf16(report, ctx, dev)),
               ("train_setup", lambda: ctx.update(train=train_setup(dev))),

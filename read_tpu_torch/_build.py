@@ -27,7 +27,10 @@ import subprocess
 import time
 from typing import Dict
 
-__all__ = ["load", "build", "build_seconds", "CSRC", "BUILD_DIR"]
+import torch
+
+__all__ = ["load", "build", "build_seconds", "function", "call", "check",
+           "CSRC", "BUILD_DIR"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -122,3 +125,21 @@ def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error "
                            f"code {err}")
+
+
+def call(fn, device: torch.device, what: str, *args) -> None:
+    """Launch through C entry point ``fn(*args, stream)`` on CUDA
+    ``device`` with its current stream, ``device`` being the CUDA
+    runtime's current device during the call (the entry launches there
+    and asks it for its limits): a ``torch.cuda.device`` guard makes it
+    so where another device is current. Raise if the entry reports an
+    error. The raw stream, and the guard only where it is needed, keep
+    the host's launch path short (PERF.md, PR 6)."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    check(err, what)

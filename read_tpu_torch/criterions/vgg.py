@@ -25,6 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from read_tpu_torch.utils import fp32
+
 __all__ = ["VGG_CHANNELS", "random_vgg_params", "load_vgg_params",
            "partial_conv2d", "vgg19_features", "vgg_loss", "vgg_loss_mix"]
 
@@ -141,19 +143,23 @@ def vgg_loss(params: VggParams, pred: torch.Tensor, target: torch.Tensor,
     features of ``pred`` and ``target`` (``[B, H, W, 3]``); the target
     side runs without gradient. ``partialconv`` masks both sides' first
     conv with ``target.sum(channels) > 1e-9``. ``per_item=True`` returns
-    a ``[B]`` vector."""
-    mask = None
-    if partialconv:
-        mask = (target.sum(dim=-1, keepdim=True) > 1e-9).to(pred.dtype)
-    fp = vgg19_features(params, pred, backend, mask=mask)
-    with torch.no_grad():
-        ft = vgg19_features(params, target, backend, mask=mask)
-    loss = 0.0
-    for a, b in zip(fp, ft):
-        d = torch.abs(a - b)
-        loss = loss + (d.reshape(d.shape[0], -1).mean(dim=1) if per_item
-                       else d.mean())
-    return loss
+    a ``[B]`` vector. The convolutions run in full float32
+    (:func:`read_tpu_torch.utils.fp32.full_f32`), whatever the caller's
+    TF32 flags; a backward pass the caller runs later follows the flags
+    in force then (the training step runs its own inside ``full_f32``)."""
+    with fp32.full_f32():
+        mask = None
+        if partialconv:
+            mask = (target.sum(dim=-1, keepdim=True) > 1e-9).to(pred.dtype)
+        fp = vgg19_features(params, pred, backend, mask=mask)
+        with torch.no_grad():
+            ft = vgg19_features(params, target, backend, mask=mask)
+        loss = 0.0
+        for a, b in zip(fp, ft):
+            d = torch.abs(a - b)
+            loss = loss + (d.reshape(d.shape[0], -1).mean(dim=1)
+                           if per_item else d.mean())
+        return loss
 
 
 def vgg_loss_mix(params_pytorch: VggParams, params_caffe: VggParams,
@@ -161,7 +167,8 @@ def vgg_loss_mix(params_pytorch: VggParams, params_caffe: VggParams,
                  weight: float = 0.5,
                  per_item: bool = False) -> torch.Tensor:
     """``weight`` x the 'pytorch'-normalized loss + ``1 - weight`` x the
-    'caffe'-normalized one (``VGGLossMix``)."""
+    'caffe'-normalized one (``VGGLossMix``); full float32, as
+    :func:`vgg_loss`."""
     return (vgg_loss(params_pytorch, pred, target, "pytorch",
                      per_item=per_item) * weight
             + vgg_loss(params_caffe, pred, target, "caffe",

@@ -26,11 +26,14 @@
 // 3x3 conv (K = 9*Cin, N = 2*Cout) against a few hundred MB of
 // activations, far above the card's bytes-per-FLOP line; K4 at its SCM
 // shapes (K = 72..256) too. With f32 operands the CUDA cores' FMA rate
-// bounds them (exact f32 has no tensor core path; TF32 would change the
-// numbers); with bf16 operands the tensor cores do: K2's bf16 calls with
+// bounds them on the tile loops here (exact f32 has no tensor core path);
+// with bf16 operands the tensor cores do: K2's bf16 calls with
 // Cin % 32 == 0 and Cout % 8 == 0 run the warp-specialized wgmma loop of
 // gated_conv_wgmma.cuh (`gated_conv_kxk_wgmma`, its own note), the rest
-// mma.sync through WMMA here.
+// mma.sync through WMMA here. K3 and the gated K4 with every C_j % 8 == 0
+// and Cout % 8 == 0 run the 1x1 wgmma loop of gated_conv_1x1_wgmma.cuh
+// (`gated_conv_1x1_wgmma`) in both operand modes: bf16 as K2's loop, f32
+// as three TF32 products held to the f32 bound (its own note).
 //
 // Design: an implicit GEMM, M = output pixels, N = output channels, K =
 // k*k*Cin, with no im2col buffer in device memory; the TPU kernels' lane
@@ -45,6 +48,7 @@
 // loop with the A loads walking the inputs' pointers (CatSrc): a K slice
 // may straddle two inputs, each element finds its own.
 
+#include "gated_conv_1x1_wgmma.cuh"
 #include "gated_conv_tile.cuh"
 #include "gated_conv_wgmma.cuh"
 
@@ -151,6 +155,21 @@ extern "C" int gated_conv_1x1(const float* x, const float* w,
   return dispatch<true>(a, gc::PlainSrc(), aligned16(x), stream);
 }
 
+// The inputs x_j [n, c_j] of a K4 call (j < nx <= 4) as a CatSrc; false
+// unless every c_j % mult == 0 and x_j is 16-byte aligned.
+static bool cat_src(const float* const* xs, const int* cs, int nx,
+                    int mult, gc::CatSrc* src) {
+  bool ok = true;
+  src->n = nx;
+  src->off[0] = 0;
+  for (int j = 0; j < gc::kMaxCat; ++j) {
+    src->x[j] = j < nx ? xs[j] : xs[0];
+    src->off[j + 1] = src->off[j] + (j < nx ? cs[j] : 0);
+    if (j < nx) ok = ok && cs[j] % mult == 0 && aligned16(xs[j]);
+  }
+  return ok;
+}
+
 // K4: 1x1 conv over n pixels of the channel concat of nx <= 4 inputs
 // x_j [n, c_j] (unused pointers may be null); w [sum c_j, C2].
 extern "C" int gated_conv_1x1_cat(const float* x0, const float* x1,
@@ -162,20 +181,49 @@ extern "C" int gated_conv_1x1_cat(const float* x0, const float* x1,
                                   int Cout, int relu, int gated, int bf16,
                                   void* stream) {
   if (nx < 1 || nx > gc::kMaxCat) return (int)cudaErrorInvalidValue;
-  gc::CatSrc src;
   const float* xs[gc::kMaxCat] = {x0, x1, x2, x3};
   const int cs[gc::kMaxCat] = {c0, c1, c2, c3};
-  bool vec4 = true;
-  src.n = nx;
-  src.off[0] = 0;
-  for (int j = 0; j < gc::kMaxCat; ++j) {
-    src.x[j] = j < nx ? xs[j] : xs[0];
-    src.off[j + 1] = src.off[j] + (j < nx ? cs[j] : 0);
-    if (j < nx) vec4 = vec4 && cs[j] % 4 == 0 && aligned16(xs[j]);
-  }
+  gc::CatSrc src;
+  const bool vec4 = cat_src(xs, cs, nx, 4, &src);
   ConvArgs a{nullptr, w, bias, scale, offset, res, out,
              1, 1, n, src.off[gc::kMaxCat], 1, n, Cout, 1, 1, 0, relu,
              bf16};
   return gated ? dispatch<true>(a, src, vec4, stream)
                : dispatch<false>(a, src, vec4, stream);
+}
+
+// K3 and the gated K4 on the 1x1 wgmma loop (gated_conv_1x1_wgmma.cuh):
+// the concat of nx <= 4 inputs x_j [n, c_j] (K3: nx = 1), every c_j % 8
+// == 0 and x_j 16-byte aligned, Cout % 8 == 0. wp is the packed weight of
+// ops/gated_conv.py: `pack_1x1_bf16` (bf16 = 1; per N tile ceil(K / 64)
+// blocks [64, 64] bf16) or `pack_1x1_tf32` (bf16 = 0,
+// f32 operands as three TF32 products; ceil(K / 32) blocks [2, 64, 32]
+// f32), ntiles = ceil(Cout / 32) N tiles of 64 columns. Returns the error
+// of setting the shared-memory size, of the occupancy query or of the
+// launch (cudaErrorInvalidValue for arguments the loop does not take).
+extern "C" int gated_conv_1x1_wgmma(const float* x0, const float* x1,
+                                    const float* x2, const float* x3,
+                                    int c0, int c1, int c2, int c3, int nx,
+                                    const void* wp, const float* bias,
+                                    const float* scale, const float* offset,
+                                    const float* res, float* out, int n,
+                                    int Cout, int relu, int bf16,
+                                    int ntiles, void* stream) {
+  if (nx < 1 || nx > gc::kMaxCat) return (int)cudaErrorInvalidValue;
+  const float* xs[gc::kMaxCat] = {x0, x1, x2, x3};
+  const int cs[gc::kMaxCat] = {c0, c1, c2, c3};
+  gc::CatSrc src;
+  const bool ok = cat_src(xs, cs, nx, 8, &src);
+  const int K = src.off[gc::kMaxCat];
+  const int ks = bf16 ? 64 : 32;  // channels a K slice
+  if (!ok || K == 0 || Cout % 8 != 0 || !aligned16(wp) ||
+      ntiles != (Cout + gc1::TILE_N / 2 - 1) / (gc1::TILE_N / 2))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaGetLastError();
+  gc1::Args a{gcw::Args{nullptr, static_cast<const uint8_t*>(wp), bias,
+                        scale, offset, res, out, 1, 1, n, K, 1, n, Cout,
+                        1, 1, 0, relu, K, (K + ks - 1) / ks, ntiles},
+              src};
+  cudaStream_t s = (cudaStream_t)stream;
+  return bf16 ? gc1::launch<false>(a, s) : gc1::launch<true>(a, s);
 }

@@ -400,36 +400,55 @@ constexpr size_t smem_bytes() {
   return (size_t)STAGES * (BM + TILE_N) * ROW_BYTES + 16 * STAGES + 1024;
 }
 
-// Launch as many blocks as fit on the card at once (at most one a tile).
-// The shared-memory limit is raised to the card's maximum and the blocks
-// per SM are asked once, for each TILE_N.
-template <int TILE_N>
-int launch(const Args& a, cudaStream_t stream) {
-  static int sms = 0, per_sm = 0;
-  auto kern = wgmma_kernel<TILE_N>;
-  constexpr size_t smem = smem_bytes<TILE_N>();
-  cudaError_t e = cudaSuccess;
-  if (per_sm == 0) {
-    int optin = 0;
+// How many blocks of `kern` (256 threads, `smem` bytes of dynamic shared
+// memory) fit on the current device at once, in *blocks. The first call
+// for a device raises the kernel's shared-memory limit to the device's
+// maximum and asks for its SM count and occupancy; cache[device] keeps
+// the answer (0: not asked yet), so each device is asked once.
+constexpr int MAX_DEVICES = 64;
+
+inline int resident_blocks(const void* kern, size_t smem, int* cache,
+                           int* blocks) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && (dev < 0 || dev >= MAX_DEVICES))
+    e = cudaErrorInvalidDevice;
+  if (e == cudaSuccess && cache[dev] == 0) {
+    int optin = 0, sms = 0, per_sm = 0;
     e = cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, 0);
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(
           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0);
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, 256,
                                                         smem);
-    if (e != cudaSuccess || per_sm == 0) {
-      per_sm = 0;
-      cudaGetLastError();  // clear it, or the next launch would report it
-      return e != cudaSuccess ? (int)e : (int)cudaErrorInvalidValue;
-    }
+    if (e == cudaSuccess && per_sm == 0) e = cudaErrorInvalidValue;
+    if (e == cudaSuccess) cache[dev] = per_sm * sms;
   }
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // clear it, or the next launch would report it
+    return (int)e;
+  }
+  *blocks = cache[dev];
+  return 0;
+}
+
+// Launch as many blocks as fit on the device at once (at most one a
+// tile), for each TILE_N.
+template <int TILE_N>
+int launch(const Args& a, cudaStream_t stream) {
+  static int cache[MAX_DEVICES];
+  auto kern = wgmma_kernel<TILE_N>;
+  constexpr size_t smem = smem_bytes<TILE_N>();
+  int most = 0;
+  const int e = resident_blocks(reinterpret_cast<const void*>(kern), smem,
+                                cache, &most);
+  if (e != 0) return e;
   const int npix = a.B * a.Ho * a.Wo;
   const int tiles = (npix + BM - 1) / BM * a.ntiles;
-  const int most = per_sm * sms;
   kern<<<tiles < most ? tiles : most, 256, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }

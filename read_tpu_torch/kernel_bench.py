@@ -19,6 +19,10 @@ The counterpart of the JAX package's kernel benches, one group each:
   SCM sites of the serving frame and at ``cat11_convs2`` (32+32->32) and
   ``cat11_aff0`` (32+64+128+256->32), 1216x368, f32 and bf16.
 
+K3 and K4 run the 1x1 wgmma loop at every bench shape (f32 operands as
+three TF32 products), with their weights packed once per row, as
+``BasicConv`` caches them.
+
 Each row gives the kernel's device time (:func:`event_ms`: CUDA events
 around back-to-back calls), the twin's, the
 library call's where one PyTorch call computes the function or its main
@@ -55,7 +59,7 @@ from read_tpu_torch.ops import gated_conv_probe as GP
 from read_tpu_torch.ops import gated_conv_r2 as R2
 from read_tpu_torch.ops import rasterize_kernels as RK
 
-__all__ = ["bound", "conv_cost", "library_conv",
+__all__ = ["bound", "conv_cost", "event_ms", "graph_ms", "library_conv",
            "zbuffer_yardsticks", "run", "main"]
 
 F32_TOL = dict(atol=2e-5, rtol=1e-4)     # tests/test_unet_pallas.py
@@ -63,9 +67,9 @@ BF16_TOL = dict(atol=0.35, rtol=0.05)    # same file, bf16 operands
 # a bf16 output: one ulp is at most 2**-7 of the value (< rtol), atol for
 # values near 0
 BF16_OUT_TOL = dict(atol=1e-3, rtol=1e-2)
-# NVIDIA H100 SXM data sheet, dense: f32 off the tensor cores, bf16 on
-# them, HBM3 bandwidth
-PEAK_F32, PEAK_BF16, HBM_BYTES_S = 67e12, 989e12, 3.35e12
+# NVIDIA H100 SXM data sheet, dense: f32 off the tensor cores, bf16 and
+# TF32 on them, HBM3 bandwidth
+PEAK_F32, PEAK_BF16, PEAK_TF32, HBM_BYTES_S = 67e12, 989e12, 495e12, 3.35e12
 # flops of one point's projection in one view (4 row dots of 3 mul + 3
 # add, 3 divides, depth and pixel mapping ~9)
 PROJECT_FLOPS = 4 * 6 + 3 + 9
@@ -83,11 +87,18 @@ class BenchFailure(RuntimeError):
     pass
 
 
-def bound(flops: float, nbytes: float, bf16: bool = False):
+def bound(flops: float, nbytes: float, bf16: bool = False,
+          tf32x3: bool = False):
     """``(ms, 'operations' | 'bytes')``: the least time the card could
     take, the larger of ``flops`` at the f32 (or bf16 tensor-core) peak
-    and ``nbytes`` at the HBM rate, and which of the two it is."""
-    t_ops = flops / (PEAK_BF16 if bf16 else PEAK_F32) * 1e3
+    and ``nbytes`` at the HBM rate, and which of the two it is.
+    ``tf32x3``: f32 operands as three TF32 tensor-core products (the 1x1
+    wgmma loop's f32 mode), ``3 * flops`` at the TF32 peak."""
+    if tf32x3:
+        flops, peak = 3 * flops, PEAK_TF32
+    else:
+        peak = PEAK_BF16 if bf16 else PEAK_F32
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -133,6 +144,39 @@ def event_ms(fn: Callable, iters: int = 10, warmup: int = 2,
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def graph_ms(fn: Callable, iters: int = 20, reps: int = 5) -> float:
+    """Device time of one ``fn()`` in ms with no host launch path:
+    ``iters`` calls captured in one CUDA graph, the graph replayed
+    between two CUDA events, divided by ``iters``; the median of
+    ``reps`` replays. Where a call runs shorter on the device than its
+    launch takes on the host, :func:`event_ms` reads the host's path and
+    this reads the device's."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # warm up off the default stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
     return statistics.median(times)
 
 
@@ -298,10 +342,13 @@ def conv_rows(dev) -> List[Row]:
                 else:
                     lib = (lambda xl=xl, wl=wl.reshape(c, 2 * c):
                            torch.matmul(xl, wl))
+                    packed = (GC.pack_1x1_bf16(wk) if bf16
+                              else GC.pack_1x1_tf32(wk))
                     rows.append(Row(
                         "convs", "gated_conv_1x1", tag,
-                        lambda x=x, a=(wk, b, scale, offset), bf=bf16:
-                            GC.gated_conv_1x1(x, *a, bf16=bf),
+                        lambda x=x, a=(wk, b, scale, offset), bf=bf16,
+                        pk=packed: GC.gated_conv_1x1(x, *a, bf16=bf,
+                                                     packed=pk),
                         lambda x=x, a=(wk, b, scale, offset), bf=bf16:
                             GC.gated_conv_1x1_plain(x, *a, bf16=bf),
                         lib, (BF16_TOL, F32_TOL) if bf16 else (F32_TOL,),
@@ -372,10 +419,11 @@ def cat_rows(dev) -> List[Row]:
             tag = (f"{name} {h}x{w} {'+'.join(map(str, cins))}->{cout} "
                    f"{'bf16' if bf16 else 'f32'}")
             args = (xs, wk, b, scale, offset)
+            packed = GC.pack_1x1_bf16(wk) if bf16 else GC.pack_1x1_tf32(wk)
             rows.append(Row(
                 "cat", "gated_conv_1x1_cat", tag,
-                lambda a=args, r=relu, bf=bf16:
-                    GC.gated_conv_1x1_cat(*a, relu=r, bf16=bf),
+                lambda a=args, r=relu, bf=bf16, pk=packed:
+                    GC.gated_conv_1x1_cat(*a, relu=r, bf16=bf, packed=pk),
                 lambda a=args, r=relu, bf=bf16:
                     GC.gated_conv_1x1_cat_plain(*a, relu=r, bf16=bf),
                 lambda xl=xcat.to(dt), wl=w2.to(dt): torch.matmul(xl, wl),

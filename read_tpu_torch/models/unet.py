@@ -7,7 +7,8 @@ inference, under ``torch.no_grad()``: BatchNorm folded into each gated
 conv's affine
 (``_fold_bn`` :43-49), every 3x3 and strided conv on K2, the SCM 1x1
 convs on K3, the SCM ``BasicConv_4`` over its concat of two
-same-resolution maps on K4 (the concat never written), and the 1x1 convs
+same-resolution maps on K4 (the concat never written; K3 and K4 on the
+1x1 wgmma loop, with their packed weight cached), and the 1x1 convs
 over concatenations of resampled maps (AFF ``BasicConv_0``, ``Convs*``)
 as ``conv1x1_comb`` (:228-276): ``conv1x1(concat(up(x_j))) == sum_j
 up(x_j @ W_j)``, low-resolution matmuls, the resample, and a PyTorch
@@ -161,7 +162,7 @@ class BasicConv(nn.Module):
         self.conv_fm = _Conv(kernel_size, cin, 2 * cout)
         self.norm = _Norm(cout)
         self._folded = None  # (BN tensor versions, (scale, offset))
-        self._packed = None  # (kernel version, pack_kxk_bf16(kernel))
+        self._packed = {}  # pack function -> (kernel version, packed)
 
     def folded_bn(self):
         """``scale = gamma * rsqrt(var + eps)``, ``offset = beta -
@@ -177,16 +178,29 @@ class BasicConv(nn.Module):
             self._folded = (key, (scale, n.bias - n.mean * scale))
         return self._folded[1]
 
-    def packed_kxk_bf16(self) -> torch.Tensor:
-        """``GC.pack_kxk_bf16`` of the conv kernel (K2's wgmma loop),
-        packed once and reused until the kernel is replaced or written
-        to, as :meth:`folded_bn`."""
+    def _packed_with(self, pack) -> torch.Tensor:
+        """``pack(kernel)``, packed once and reused until the kernel is
+        replaced or written to (its storage or version counter changes),
+        as :meth:`folded_bn`."""
         w = self.conv_fm.kernel
         key = (w.data_ptr(), w._version)
-        if self._packed is None or self._packed[0] != key:
+        hit = self._packed.get(pack)
+        if hit is None or hit[0] != key:
             with torch.no_grad():
-                self._packed = (key, GC.pack_kxk_bf16(w))
-        return self._packed[1]
+                hit = self._packed[pack] = (key, pack(w))
+        return hit[1]
+
+    def packed_kxk_bf16(self) -> torch.Tensor:
+        """``GC.pack_kxk_bf16`` of the conv kernel (K2's wgmma loop),
+        cached (:meth:`_packed_with`)."""
+        return self._packed_with(GC.pack_kxk_bf16)
+
+    def packed_1x1(self, bf16: bool) -> torch.Tensor:
+        """``GC.pack_1x1_bf16`` (``bf16``) or ``GC.pack_1x1_tf32`` of the
+        1x1 conv kernel (the 1x1 wgmma loop of K3 and K4), cached
+        (:meth:`_packed_with`)."""
+        return self._packed_with(GC.pack_1x1_bf16 if bf16
+                                 else GC.pack_1x1_tf32)
 
     def forward(self, x: torch.Tensor, bf16: bool = False,
                 train: Optional[bool] = None,
@@ -196,8 +210,13 @@ class BasicConv(nn.Module):
         scale, offset = self.folded_bn()
         w, b = self.conv_fm.kernel, self.conv_fm.bias
         if self.k == 1 and self.stride == 1:
+            packed = None
+            if x.is_cuda and GC.conv1x1_route(
+                    [x], w.shape[-1] // 2) == "wgmma":
+                packed = self.packed_1x1(bf16)
             return GC.gated_conv_1x1(x, w, b, scale, offset, res,
-                                     relu=self.relu, bf16=bf16)
+                                     relu=self.relu, bf16=bf16,
+                                     packed=packed)
         packed = None
         if x.is_cuda and GC.kxk_route(x, w, bf16) == "wgmma":
             packed = self.packed_kxk_bf16()
@@ -233,10 +252,15 @@ class BasicConv(nn.Module):
         if len(parts) <= GC.MAX_CAT and all(mode == "id"
                                             for _, mode, _ in parts):
             scale, offset = self.folded_bn()
-            return GC.gated_conv_1x1_cat([x for x, _, _ in parts],
-                                         self.conv_fm.kernel,
+            xs = [x for x, _, _ in parts]
+            packed = None
+            if xs[0].is_cuda and GC.conv1x1_route(
+                    xs, self.conv_fm.kernel.shape[-1] // 2) == "wgmma":
+                packed = self.packed_1x1(bf16)
+            return GC.gated_conv_1x1_cat(xs, self.conv_fm.kernel,
                                          self.conv_fm.bias, scale, offset,
-                                         relu=self.relu, bf16=bf16)
+                                         relu=self.relu, bf16=bf16,
+                                         packed=packed)
         w = self.conv_fm.kernel
         w2 = w.reshape(w.shape[2], w.shape[3])
         acc, coff = None, 0

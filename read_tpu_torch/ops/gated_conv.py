@@ -25,14 +25,27 @@ to bfloat16 and accumulates in float32 (JAX's ``bf16_mxu``).
 Each wrapper sends a CPU tensor to its plain twin and a CUDA tensor to
 its kernel (anything else raises). ``launches[<wrapper name>]`` counts
 each wrapper's kernel launches; ``launches['gated_conv_kxk_wgmma']``
-counts the K2 launches :func:`kxk_route` sent to the wgmma loop (they
-count in ``launches['gated_conv_kxk']`` too).
+counts the K2 launches :func:`kxk_route` sent to the wgmma loop, and
+``launches['gated_conv_1x1_wgmma']`` the K3 and K4 launches
+:func:`conv1x1_route` sent to the 1x1 wgmma loop (they count under their
+wrapper's name too).
 
 K2 has two loops on CUDA, chosen by :func:`kxk_route`: bf16 operands with
 ``Cin % 32 == 0``, ``Cout % 8 == 0`` and a 16-byte aligned ``x`` take the
 warp-specialized wgmma loop (``csrc/gated_conv_wgmma.cuh``), whose weight
 :func:`pack_kxk_bf16` packs once (``models.unet.BasicConv`` caches it);
 the rest take the tile loops of ``csrc/gated_conv_tile.cuh``.
+
+K3 and K4 have two loops on CUDA too, chosen by :func:`conv1x1_route`: a
+gated call whose inputs all have ``C % 8 == 0`` and 16-byte aligned
+data, with ``Cout % 8 == 0``, takes the 1x1 wgmma loop
+(``csrc/gated_conv_1x1_wgmma.cuh``) in either operand mode, with the
+weight of :func:`pack_1x1_bf16` or :func:`pack_1x1_tf32`; the rest take
+the tile loops. With bf16 operands the loop is K2's arithmetic. With f32
+operands it is **not exact f32 FMA**: each operand is split into TF32
+parts (:func:`tf32_split`) and three TF32 tensor-core products ``hi*hi +
+hi*lo + lo*hi`` are summed in f32, which holds the f32 bound ``atol 2e-5,
+rtol 1e-4`` against the twins; the twins stay exact f32.
 """
 
 from __future__ import annotations
@@ -46,20 +59,39 @@ import torch.nn.functional as F
 from read_tpu_torch import _build
 
 __all__ = ["gated_epilogue", "gated_conv_kxk", "gated_conv_kxk_plain",
-           "kxk_route", "wgmma_tile_n", "pack_kxk_bf16", "gated_conv_1x1",
-           "gated_conv_1x1_plain", "gated_conv_1x1_cat",
+           "kxk_route", "wgmma_tile_n", "pack_kxk_bf16", "conv1x1_route",
+           "pack_1x1_bf16", "pack_1x1_tf32", "tf32_split",
+           "gated_conv_1x1", "gated_conv_1x1_plain", "gated_conv_1x1_cat",
            "gated_conv_1x1_cat_plain", "round_bf16", "launches"]
 
 # kernel launches per wrapper (a CPU call runs the twin and counts nothing)
 launches = {"gated_conv_kxk": 0, "gated_conv_kxk_wgmma": 0,
-            "gated_conv_1x1": 0, "gated_conv_1x1_cat": 0}
+            "gated_conv_1x1": 0, "gated_conv_1x1_cat": 0,
+            "gated_conv_1x1_wgmma": 0}
 MAX_CAT = 4  # inputs K4 takes in one launch
-WGMMA_K = 64  # K slice of the wgmma loop: one 128-byte bf16 row
+WGMMA_K = 64  # K slice of the wgmma loops: one 128-byte bf16 row
+TF32_K = 32  # K slice of the 1x1 loop's f32 mode: one 128-byte f32 row
+CONV1X1_TILE_N = 64  # f|m columns of a 1x1-loop N tile (PERF.md, PR 6)
 
 
 def round_bf16(t: torch.Tensor) -> torch.Tensor:
     """Round float32 values to bfloat16 (nearest even), kept as float32."""
     return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _rna_tf32(t: torch.Tensor) -> torch.Tensor:
+    """Round float32 values to TF32 (10 mantissa bits) to nearest, ties
+    away from zero, as ``cvt.rna.tf32.f32``: the low 13 bits cleared."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(t: torch.Tensor):
+    """``(hi, lo)``: ``hi = rna_tf32(t)``, ``lo = rna_tf32(t - hi)``, the
+    two TF32 parts the 1x1 loop's f32 mode multiplies (``t - hi`` is
+    exact, so ``hi + lo`` is ``t`` to within ~2^-22 of ``|t|``)."""
+    hi = _rna_tf32(t)
+    return hi, _rna_tf32(t - hi)
 
 
 def gated_epilogue(fm: torch.Tensor, b: torch.Tensor, scale: torch.Tensor,
@@ -159,42 +191,49 @@ def wgmma_tile_n(cout: int) -> int:
     return 64 if cout <= 32 else 128
 
 
-def pack_kxk_bf16(w: torch.Tensor) -> torch.Tensor:
-    """The wgmma loop's weight: HWIO ``w [k, k, Cin, 2*Cout]`` (f32) as
-    bf16 (round to nearest even) ``[ntiles, slices, tile_n, 64]``, one
-    contiguous block per (N tile, K slice) for one bulk copy a stage;
-    ``tile_n`` is :func:`wgmma_tile_n` of ``Cout``.
+def _pack_blocks(wm: torch.Tensor, row: int, tile_n: int) -> torch.Tensor:
+    """``wm [K, 2*Cout]`` (f32, the f|m columns) as the wgmma loops' blocks
+    ``[ntiles, slices, tile_n, row]`` (f32), one per (N tile, K slice) of
+    ``tile_n`` columns; a slice is ``row`` K values (one 128-byte row of
+    the operand type), the last zero-padded.
 
-    K = k*k*Cin (tap-major, as ``w.reshape``) is cut into ``slices`` of 64,
-    the last zero-padded. Column ``n`` of tile ``t`` holds, by group ``g =
-    n // 8``, channel ``c = t*tile_n/2 + 8*(g // 2) + n % 8`` of f (``g``
-    even) or m (``g`` odd), zero where ``c >= Cout``: f and m interleave
-    in groups of 8. Each row (``n``) stores its 64 K values as eight
-    16-byte chunks, chunk ``j`` at position ``j ^ (n % 8)``: the 128-byte
-    swizzle the kernel's wgmma descriptors read."""
-    k, _, cin, c2 = w.shape
+    Column ``n`` of tile ``t`` holds, by group ``g = n // 8``, channel ``c
+    = t*tile_n/2 + 8*(g // 2) + n % 8`` of f (``g`` even) or m (``g``
+    odd), zero where ``c >= Cout``: f and m interleave in groups of 8. Each
+    row (``n``) stores its ``row`` K values as eight 16-byte chunks, chunk
+    ``j`` at position ``j ^ (n % 8)``: the 128-byte swizzle the kernels'
+    wgmma descriptors read."""
+    kk, c2 = wm.shape
     cout = c2 // 2
-    tile_n = wgmma_tile_n(cout)
     half = tile_n // 2
     ntiles = -(-cout // half)
-    kk = k * k * cin
-    slices = -(-kk // WGMMA_K)
-    dev = w.device
+    slices = -(-kk // row)
+    dev = wm.device
     n = torch.arange(ntiles * tile_n, device=dev)
     g = (n % tile_n) // 8
     ch = (n // tile_n) * half + 8 * (g // 2) + n % 8
     col = torch.where(ch < cout, ch + cout * (g % 2),
                       torch.full_like(ch, c2))  # c2: a zero column
-    wm = torch.zeros(slices * WGMMA_K, c2 + 1, dtype=torch.float32,
-                     device=dev)
-    wm[:kk, :c2] = w.reshape(kk, c2)
-    b = wm[:, col].reshape(slices, WGMMA_K, ntiles, tile_n)
-    b = b.permute(2, 0, 3, 1).reshape(ntiles, slices, tile_n, 8, 8)
+    wz = torch.zeros(slices * row, c2 + 1, dtype=torch.float32, device=dev)
+    wz[:kk, :c2] = wm
+    b = wz[:, col].reshape(slices, row, ntiles, tile_n)
+    b = b.permute(2, 0, 3, 1).reshape(ntiles, slices, tile_n, 8, row // 8)
     swz = torch.arange(8, device=dev)[None, :] ^ (
         torch.arange(tile_n, device=dev)[:, None] % 8)  # [tile_n, 8]
     b = torch.gather(b, 3, swz[None, None, :, :, None].expand_as(b))
-    return b.reshape(ntiles, slices, tile_n, WGMMA_K).to(
-        torch.bfloat16).contiguous()
+    return b.reshape(ntiles, slices, tile_n, row)
+
+
+def pack_kxk_bf16(w: torch.Tensor) -> torch.Tensor:
+    """The wgmma loop's weight: HWIO ``w [k, k, Cin, 2*Cout]`` (f32) as
+    bf16 (round to nearest even) ``[ntiles, slices, tile_n, 64]``, one
+    contiguous block per (N tile, K slice) for one bulk copy a stage:
+    :func:`_pack_blocks` of ``w`` as ``[k*k*Cin, 2*Cout]`` (tap-major K,
+    as ``w.reshape``) in 64-deep slices, ``tile_n`` the
+    :func:`wgmma_tile_n` of ``Cout``."""
+    k, _, cin, c2 = w.shape
+    return _pack_blocks(w.reshape(k * k * cin, c2), WGMMA_K,
+                        wgmma_tile_n(c2 // 2)).to(torch.bfloat16).contiguous()
 
 
 def _launch_wgmma(x, packed, b, scale, offset, res, out, k, stride, relu):
@@ -204,11 +243,10 @@ def _launch_wgmma(x, packed, b, scale, offset, res, out, k, stride, relu):
     ntiles, _, tile_n, _ = packed.shape
     fn = _build.function("gated_conv", "gated_conv_kxk_wgmma",
                          _WGMMA_ARGTYPES)
-    err = fn(x.data_ptr(), packed.data_ptr(), b.data_ptr(),
-             scale.data_ptr(), offset.data_ptr(), _ptr(res), out.data_ptr(),
-             bsz, h, wd, cin, cout, k, stride, int(relu), tile_n, ntiles,
-             torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "gated_conv_kxk (wgmma)")
+    _build.call(fn, x.device, "gated_conv_kxk (wgmma)", x.data_ptr(),
+                packed.data_ptr(), b.data_ptr(), scale.data_ptr(),
+                offset.data_ptr(), _ptr(res), out.data_ptr(), bsz, h, wd,
+                cin, cout, k, stride, int(relu), tile_n, ntiles)
 
 
 def gated_conv_kxk(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -254,11 +292,10 @@ def gated_conv_kxk(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         launches["gated_conv_kxk_wgmma"] += 1
         return out
     fn = _build.function("gated_conv", "gated_conv_kxk", _KXK_ARGTYPES)
-    err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), scale.data_ptr(),
-             offset.data_ptr(), _ptr(res), out.data_ptr(), bsz, h, wd, cin,
-             cout, k, stride, int(relu), int(bf16),
-             torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "gated_conv_kxk")
+    _build.call(fn, x.device, "gated_conv_kxk", x.data_ptr(), w.data_ptr(),
+                b.data_ptr(), scale.data_ptr(), offset.data_ptr(),
+                _ptr(res), out.data_ptr(), bsz, h, wd, cin, cout, k, stride,
+                int(relu), int(bf16))
     launches["gated_conv_kxk"] += 1
     return out
 
@@ -273,13 +310,91 @@ def _weight_2d(name: str, w: torch.Tensor) -> torch.Tensor:
 
 
 def gated_conv_1x1_plain(x, w, b, scale, offset, res=None, *, relu=True,
-                         bf16=False):
-    """Plain PyTorch twin of :func:`gated_conv_1x1` (``torch.matmul``)."""
+                         bf16=False, packed=None):
+    """Plain PyTorch twin of :func:`gated_conv_1x1` (``torch.matmul``);
+    ``packed`` is accepted and ignored (it is the same weight)."""
     w2 = w.reshape(w.shape[-2], w.shape[-1])
     if bf16:
         x, w2 = round_bf16(x), round_bf16(w2)
     return gated_epilogue(torch.matmul(x, w2), b, scale, offset, res,
                           relu).contiguous()
+
+
+def conv1x1_route(xs, cout: int, gated: bool = True) -> str:
+    """Which CUDA loop K3 (``xs = [x]``) or K4 runs for inputs ``xs``
+    (``[..., C_j]``) and ``cout`` output channels: ``'wgmma'`` for a
+    ``gated`` call whose inputs all have ``C_j % 8 == 0`` and 16-byte
+    aligned data, with ``Cout % 8 == 0`` (the 1x1 wgmma loop, either
+    operand type); ``'tile'`` otherwise (``gated=False``, other widths,
+    misaligned views)."""
+    if gated and cout % 8 == 0 and all(
+            x.shape[-1] % 8 == 0 and x.data_ptr() % 16 == 0 for x in xs):
+        return "wgmma"
+    return "tile"
+
+
+def pack_1x1_bf16(w: torch.Tensor) -> torch.Tensor:
+    """The 1x1 loop's bf16 weight: ``w [1, 1, K, 2*Cout]`` or ``[K,
+    2*Cout]`` (K the concatenated input channels) as bf16 (round to
+    nearest even) ``[ceil(Cout / 32), ceil(K / 64), 64, 64]``:
+    :func:`_pack_blocks` in 64-deep slices and 64-column N tiles."""
+    w2 = _weight_2d("pack_1x1_bf16", w)
+    return _pack_blocks(w2, WGMMA_K, CONV1X1_TILE_N).to(
+        torch.bfloat16).contiguous()
+
+
+def pack_1x1_tf32(w: torch.Tensor) -> torch.Tensor:
+    """The 1x1 loop's f32-mode weight: ``w [1, 1, K, 2*Cout]`` or ``[K,
+    2*Cout]`` as ``[ceil(Cout / 32), ceil(K / 32), 2, 64, 32]`` float32:
+    per (N tile, K slice) the :func:`tf32_split` ``hi`` block, then the
+    ``lo`` block, each in :func:`_pack_blocks`' layout with 32-deep
+    slices (one 128-byte f32 row) and 64-column N tiles."""
+    w2 = _weight_2d("pack_1x1_tf32", w)
+    hi, lo = tf32_split(_pack_blocks(w2, TF32_K, CONV1X1_TILE_N))
+    return torch.stack([hi, lo], 2).contiguous()
+
+
+def _packed_1x1_shape(k: int, cout: int, bf16: bool):
+    tn = CONV1X1_TILE_N
+    ntiles = -(-cout // (tn // 2))
+    if bf16:
+        return (ntiles, -(-k // WGMMA_K), tn, WGMMA_K)
+    return (ntiles, -(-k // TF32_K), 2, tn, TF32_K)
+
+
+_1X1_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+
+
+def _launch_1x1_wgmma(name, xs, w2, packed, b, scale, offset, res, out,
+                      relu, bf16):
+    """Launch ``gated_conv_1x1_wgmma`` over inputs ``xs`` into ``out``;
+    ``packed`` is :func:`pack_1x1_bf16` or :func:`pack_1x1_tf32` of
+    ``w2`` (packed here when not given)."""
+    cins = [x.shape[-1] for x in xs]
+    cout = out.shape[-1]
+    if packed is None:
+        packed = pack_1x1_bf16(w2) if bf16 else pack_1x1_tf32(w2)
+    want = _packed_1x1_shape(sum(cins), cout, bf16)
+    if packed.dtype != (torch.bfloat16 if bf16 else torch.float32) \
+            or packed.device != out.device \
+            or not packed.is_contiguous() or tuple(packed.shape) != want:
+        raise ValueError(f"{name}: packed weight {tuple(packed.shape)} "
+                         f"{packed.dtype} does not fit w "
+                         f"{tuple(w2.shape)} ({'bf16' if bf16 else 'f32'}"
+                         " operands)")
+    pad = MAX_CAT - len(xs)
+    fn = _build.function("gated_conv", "gated_conv_1x1_wgmma",
+                         _1X1_WGMMA_ARGTYPES)
+    _build.call(fn, out.device, f"{name} (wgmma)",
+                *[x.data_ptr() for x in xs], *[None] * pad, *cins,
+                *[0] * pad, len(xs), packed.data_ptr(), b.data_ptr(),
+                scale.data_ptr(), offset.data_ptr(), _ptr(res),
+                out.data_ptr(), out.numel() // max(cout, 1), cout,
+                int(relu), int(bf16), want[0])
+    launches[name] += 1
+    launches["gated_conv_1x1_wgmma"] += 1
 
 
 _1X1_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
@@ -289,10 +404,13 @@ _1X1_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
 def gated_conv_1x1(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                    scale: torch.Tensor, offset: torch.Tensor,
                    res: Optional[torch.Tensor] = None, *,
-                   relu: bool = True, bf16: bool = False) -> torch.Tensor:
+                   relu: bool = True, bf16: bool = False,
+                   packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K3: gated 1x1 conv, ``[..., Cin] @ [Cin, 2*Cout]`` + epilogue.
     ``w`` is ``[1, 1, Cin, 2*Cout]`` or ``[Cin, 2*Cout]``; returns
-    ``[..., Cout]``."""
+    ``[..., Cout]``. ``packed`` is :func:`pack_1x1_bf16` (``bf16``) or
+    :func:`pack_1x1_tf32` of ``w`` for the 1x1 wgmma loop (packed here
+    when it is needed and not given; ignored by the twin)."""
     w = _weight_2d("gated_conv_1x1", w)
     cout = w.shape[-1] // 2
     out_shape = tuple(x.shape[:-1]) + (cout,)
@@ -303,20 +421,25 @@ def gated_conv_1x1(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     cin = x.shape[-1]
     n = x.numel() // max(cin, 1)
     out = torch.empty(out_shape, dtype=torch.float32, device=x.device)
+    if conv1x1_route([x], cout) == "wgmma":
+        _launch_1x1_wgmma("gated_conv_1x1", [x], w, packed, b, scale,
+                          offset, res, out, relu, bf16)
+        return out
     fn = _build.function("gated_conv", "gated_conv_1x1", _1X1_ARGTYPES)
-    err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), scale.data_ptr(),
-             offset.data_ptr(), _ptr(res), out.data_ptr(), n, cin, cout,
-             int(relu), int(bf16),
-             torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "gated_conv_1x1")
+    _build.call(fn, x.device, "gated_conv_1x1", x.data_ptr(), w.data_ptr(),
+                b.data_ptr(), scale.data_ptr(), offset.data_ptr(),
+                _ptr(res), out.data_ptr(), n, cin, cout, int(relu),
+                int(bf16))
     launches["gated_conv_1x1"] += 1
     return out
 
 
 def gated_conv_1x1_cat_plain(xs, w, b, scale, offset, res=None, *,
-                             relu=True, gated=True, bf16=False):
+                             relu=True, gated=True, bf16=False,
+                             packed=None):
     """Plain PyTorch twin of :func:`gated_conv_1x1_cat`: one
-    ``torch.matmul`` per input against its rows of ``w``, summed."""
+    ``torch.matmul`` per input against its rows of ``w``, summed;
+    ``packed`` is accepted and ignored."""
     w2 = _weight_2d("gated_conv_1x1_cat", w)
     acc, off = None, 0
     for x in xs:
@@ -343,12 +466,15 @@ def gated_conv_1x1_cat(xs, w: torch.Tensor, b: torch.Tensor,
                        scale: torch.Tensor, offset: torch.Tensor,
                        res: Optional[torch.Tensor] = None, *,
                        relu: bool = True, gated: bool = True,
-                       bf16: bool = False) -> torch.Tensor:
+                       bf16: bool = False,
+                       packed: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """K4: gated 1x1 conv over the channel concat of ``xs`` (1 to 4
     tensors ``[..., C_j]`` with the same leading shape), never
     materialized: ``sum_j x_j @ w[rows of j]`` + epilogue. ``w`` is
     ``[1, 1, sum C_j, C2]`` or ``[sum C_j, C2]`` with ``C2 = 2*Cout``
-    (``Cout`` when not ``gated``); returns ``[..., Cout]``."""
+    (``Cout`` when not ``gated``); returns ``[..., Cout]``. ``packed``
+    is the 1x1 wgmma loop's weight, as for :func:`gated_conv_1x1`."""
     name = "gated_conv_1x1_cat"
     xs = list(xs)
     if not 1 <= len(xs) <= MAX_CAT:
@@ -373,13 +499,16 @@ def gated_conv_1x1_cat(xs, w: torch.Tensor, b: torch.Tensor,
                                         relu=relu, gated=gated, bf16=bf16)
     n = xs[0].numel() // max(cins[0], 1)
     out = torch.empty(out_shape, dtype=torch.float32, device=w.device)
+    if conv1x1_route(xs, cout, gated) == "wgmma":
+        _launch_1x1_wgmma(name, xs, w, packed, b, scale, offset, res, out,
+                          relu, bf16)
+        return out
     pad = MAX_CAT - len(xs)
-    ptrs = [x.data_ptr() for x in xs] + [None] * pad
     fn = _build.function("gated_conv", name, _CAT_ARGTYPES)
-    err = fn(*ptrs, *cins, *([0] * pad), len(xs), w.data_ptr(),
-             b.data_ptr(), scale.data_ptr(), offset.data_ptr(), _ptr(res),
-             out.data_ptr(), n, cout, int(relu), int(gated), int(bf16),
-             torch.cuda.current_stream(w.device).cuda_stream)
-    _build.check(err, name)
+    _build.call(fn, w.device, name, *[x.data_ptr() for x in xs],
+                *[None] * pad, *cins, *[0] * pad, len(xs), w.data_ptr(),
+                b.data_ptr(), scale.data_ptr(), offset.data_ptr(),
+                _ptr(res), out.data_ptr(), n, cout, int(relu), int(gated),
+                int(bf16))
     launches[name] += 1
     return out

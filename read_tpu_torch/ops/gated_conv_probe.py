@@ -107,9 +107,8 @@ def gated_conv_probe(x: torch.Tensor, w: torch.Tensor, *,
     out = alloc((bsz, h, wd, 2 * cout), dtype=torch.float32,
                 device=x.device)
     fn = _build.function("gated_conv_probe", name, _ARGTYPES)
-    err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), bsz, h, wd, cin,
-             cout, MODES.index(mode), int(bf16),
-             torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, name)
+    _build.call(fn, x.device, name, x.data_ptr(), w.data_ptr(),
+                out.data_ptr(), bsz, h, wd, cin, cout, MODES.index(mode),
+                int(bf16))
     launches[name] += 1
     return out

@@ -89,11 +89,10 @@ def _run(name, k, x, w, b, scale, offset, relu, gated):
     w = w.to(x.dtype).contiguous()
     out = torch.empty((h, wd, cout), dtype=x.dtype, device=x.device)
     fn = _build.function("gated_conv_r2", "gated_conv_r2", _ARGTYPES)
-    err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), scale.data_ptr(),
-             offset.data_ptr(), out.data_ptr(), h, wd, cin, cout, k,
-             int(relu), int(gated), int(x.dtype == torch.bfloat16),
-             torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, name)
+    _build.call(fn, x.device, name, x.data_ptr(), w.data_ptr(),
+                b.data_ptr(), scale.data_ptr(), offset.data_ptr(),
+                out.data_ptr(), h, wd, cin, cout, k, int(relu), int(gated),
+                int(x.dtype == torch.bfloat16))
     launches[name] += 1
     return out
 

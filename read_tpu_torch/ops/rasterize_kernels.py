@@ -182,10 +182,9 @@ def zbuffer(xyz: torch.Tensor, total_m: torch.Tensor, h: int, w: int):
                      device=xyz.device)
     depth0 = torch.empty((b, n), dtype=torch.float32, device=xyz.device)
     fn = _build.function("zbuffer", "zbuffer_project", _ARGTYPES)
-    err = fn(xyz.data_ptr(), total_m.data_ptr(), n, b, h, w, idb, qmax,
-             buf.data_ptr(), depth0.data_ptr(),
-             torch.cuda.current_stream(xyz.device).cuda_stream)
-    _build.check(err, "zbuffer")
+    _build.call(fn, xyz.device, "zbuffer", xyz.data_ptr(),
+                total_m.data_ptr(), n, b, h, w, idb, qmax, buf.data_ptr(),
+                depth0.data_ptr())
     launches["zbuffer"] += 1
     return buf, depth0
 
@@ -210,10 +209,9 @@ def zbuffer_exact(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
     depth = torch.empty((b, h * w), dtype=torch.float32, device=dev)
     fn = _build.function("zbuffer", "zbuffer_exact_project",
                          _EXACT_ARGTYPES)
-    err = fn(xyz.data_ptr(), total_m.data_ptr(), n, b, h, w,
-             keys.data_ptr(), index.data_ptr(), depth.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "zbuffer_exact")
+    _build.call(fn, dev, "zbuffer_exact", xyz.data_ptr(),
+                total_m.data_ptr(), n, b, h, w, keys.data_ptr(),
+                index.data_ptr(), depth.data_ptr())
     launches["zbuffer_exact"] += 1
     return index, depth
 
@@ -255,8 +253,7 @@ def zbuffer_keys(pix: torch.Tensor, key: torch.Tensor,
     buf = torch.full((b, n_pixels), INT32_MAX, dtype=torch.int32,
                      device=pix.device)
     fn = _build.function("zbuffer", "zbuffer_keys", _KEYS_ARGTYPES)
-    err = fn(pix.data_ptr(), key.data_ptr(), n, b, n_pixels, buf.data_ptr(),
-             torch.cuda.current_stream(pix.device).cuda_stream)
-    _build.check(err, "zbuffer_keys")
+    _build.call(fn, pix.device, "zbuffer_keys", pix.data_ptr(),
+                key.data_ptr(), n, b, n_pixels, buf.data_ptr())
     launches["zbuffer_keys"] += 1
     return buf if pix.dim() == 2 else buf[0]

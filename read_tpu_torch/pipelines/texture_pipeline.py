@@ -48,6 +48,7 @@ from read_tpu_torch.models import texture as T
 from read_tpu_torch.models.unet import UNet
 from read_tpu_torch.ops import rasterize as R
 from read_tpu_torch.utils import convert as CV
+from read_tpu_torch.utils import fp32
 
 __all__ = ["PipelineConfig", "parse_format_geometry", "config_from_dict",
            "build_pyramid", "ParamLayout", "TrainState", "AdamState",
@@ -547,10 +548,17 @@ def make_train_step(net: UNet, cfg: PipelineConfig, vgg_params,
     'mix' backend) or None. ``freeze_net`` fits the texture alone with
     the net in eval mode (running BatchNorm statistics, unchanged).
     The guard (NaN -> 0, +-inf and beyond -> +-``grad_clip``) runs
-    before both optimizers; both step by ``lr * lr_scale``."""
+    before both optimizers; both step by ``lr * lr_scale``. The step,
+    forward and backward, runs in full float32 (TF32 off,
+    :func:`read_tpu_torch.utils.fp32.full_f32`) whatever the caller's
+    flags, and restores them."""
     _check_trainable(cfg)
 
     def train_step(state: TrainState, xyz: torch.Tensor, batch: dict):
+        with fp32.full_f32():
+            return _train_step(state, xyz, batch)
+
+    def _train_step(state: TrainState, xyz: torch.Tensor, batch: dict):
         metrics, new_bs, im, g_net, g_tex = _loss_and_grads(
             net, cfg, vgg_params, state, xyz, batch, freeze_net)
         with torch.no_grad():
@@ -578,21 +586,24 @@ def make_train_step(net: UNet, cfg: PipelineConfig, vgg_params,
 def make_eval_step(net: UNet, cfg: PipelineConfig, vgg_params):
     """``eval_step(state, xyz, batch) -> (im_out, metrics)``: the eval-
     mode forward at the target's size and per-item ``[B]`` metrics
-    (losses, PSNR, SSIM of the clipped image)."""
+    (losses, PSNR, SSIM of the clipped image), in full float32 as the
+    training step."""
     _check_trainable(cfg)
 
     @torch.no_grad()
     def eval_step(state: TrainState, xyz: torch.Tensor, batch: dict):
-        shape = tuple(batch["target"].shape[1:3])
-        out, _, _ = _forward(net, cfg, state.params, state.batch_stats,
-                             state.texture, xyz, batch["total_m"],
-                             train=False, shape=shape,
-                             point_sizes=batch.get("point_sizes"))
-        loss, metrics = _losses(cfg, vgg_params, out, batch, per_item=True)
-        metrics["loss"] = loss
-        metrics["ssim"] = L.ssim(torch.clamp(out["im_out"], 0, 1),
-                                 batch["target"], per_item=True)
-        return out["im_out"], metrics
+        with fp32.full_f32():
+            shape = tuple(batch["target"].shape[1:3])
+            out, _, _ = _forward(net, cfg, state.params, state.batch_stats,
+                                 state.texture, xyz, batch["total_m"],
+                                 train=False, shape=shape,
+                                 point_sizes=batch.get("point_sizes"))
+            loss, metrics = _losses(cfg, vgg_params, out, batch,
+                                    per_item=True)
+            metrics["loss"] = loss
+            metrics["ssim"] = L.ssim(torch.clamp(out["im_out"], 0, 1),
+                                     batch["target"], per_item=True)
+            return out["im_out"], metrics
 
     return eval_step
 

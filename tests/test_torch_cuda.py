@@ -12,9 +12,12 @@ within ``atol 0.35, rtol 0.05`` (bf16 operands; also within the f32
 bound: the same rounded operands, f32 sums), the bounds of
 ``tests/test_unet_pallas.py``; K7's bf16 output within ``atol 1e-3,
 rtol 1e-2`` (one f32 sum rounded to bf16 once: at most one bf16 ulp
-apart). One training step on the GPU
+apart). K3 and K4 on the 1x1 wgmma loop are held to the f32 bound in
+both operand modes (f32 operands as three TF32 products; bf16 also
+within the bf16 bound). One training step on the GPU
 (K5, cuDNN) is held against the same step on the CPU (the twins) from
-the same state: losses rtol 1e-3, running statistics atol 1e-5.
+the same state: losses rtol 1e-3, running statistics atol 1e-5. The
+device-guard test needs two cards and skips on one.
 """
 
 import numpy as np
@@ -23,7 +26,7 @@ import torch
 
 from read_tpu_torch.criterions import vgg as V
 from read_tpu_torch.frame import frame_inputs, make_frame
-from read_tpu_torch.models.unet import UNet
+from read_tpu_torch.models.unet import BasicConv, UNet
 from read_tpu_torch.ops import gated_conv as GC
 from read_tpu_torch.ops import gated_conv_probe as GP
 from read_tpu_torch.ops import gated_conv_r2 as R2
@@ -210,6 +213,89 @@ def test_gated_conv_kxk_wgmma_refused_launch_raises(dev):
                           packed=good[:1].contiguous())
 
 
+@pytest.mark.parametrize("cins,cout", [
+    ((16,), 32), ((32,), 56), ((64,), 120), ((128,), 248), ((8, 56), 64),
+    ((8, 248), 256), ((32, 64, 128, 256), 24), ((8, 8, 16), 40)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_gated_conv_1x1_wgmma_matches_twin(dev, cins, cout, bf16):
+    """The 1x1 wgmma loop (K3 for one input, K4 for more) on 2x13x29
+    pixels (a ragged last 64-pixel tile), relu on and off, with and
+    without a residual: within the f32 bound of the twin in both modes
+    (f32 operands as three TF32 products), bf16 also within the bf16
+    bound; the route counters show the loop ran."""
+    gen = torch.Generator(device=dev).manual_seed(sum(cins) + cout)
+    xs = [torch.randn(2, 13, 29, c, generator=gen, device=dev)
+          for c in cins]
+    k = sum(cins)
+    w = torch.randn(1, 1, k, 2 * cout, generator=gen, device=dev) / k ** 0.5
+    b = torch.randn(2 * cout, generator=gen, device=dev) * 0.1
+    scale = torch.rand(cout, generator=gen, device=dev) + 0.5
+    offset = torch.randn(cout, generator=gen, device=dev) * 0.1
+    assert GC.conv1x1_route(xs, cout) == "wgmma"
+    packed = GC.pack_1x1_bf16(w) if bf16 else GC.pack_1x1_tf32(w)
+    name = "gated_conv_1x1" if len(cins) == 1 else "gated_conv_1x1_cat"
+    for relu, res in ((True, None),
+                      (False, torch.randn(2, 13, 29, cout, device=dev))):
+        before = dict(GC.launches)
+        if len(cins) == 1:
+            got = GC.gated_conv_1x1(xs[0], w, b, scale, offset, res,
+                                    relu=relu, bf16=bf16, packed=packed)
+            want = GC.gated_conv_1x1_plain(xs[0], w, b, scale, offset, res,
+                                           relu=relu, bf16=bf16)
+        else:
+            got = GC.gated_conv_1x1_cat(xs, w, b, scale, offset, res,
+                                        relu=relu, bf16=bf16, packed=packed)
+            want = GC.gated_conv_1x1_cat_plain(xs, w, b, scale, offset, res,
+                                               relu=relu, bf16=bf16)
+        assert GC.launches[name] == before[name] + 1
+        assert GC.launches["gated_conv_1x1_wgmma"] == \
+            before["gated_conv_1x1_wgmma"] + 1
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **F32)
+        if bf16:
+            torch.testing.assert_close(got, want, **BF16)
+
+
+def test_gated_conv_1x1_wgmma_refused_launch_raises(dev):
+    """A packed weight that does not fit raises in the wrapper; inputs
+    the C entry refuses (C % 8 != 0) surface as the wrapper's error."""
+    x, w, b, scale, offset = _conv_case(dev, (1, 8, 8), 32, 64, 1, 3)
+    out = torch.empty(1, 8, 8, 64, device=dev)
+    with pytest.raises(ValueError, match="packed weight"):
+        GC.gated_conv_1x1(x, w, b, scale, offset,
+                          packed=GC.pack_1x1_bf16(w))
+    x12 = torch.randn(1, 8, 8, 12, device=dev)
+    w12 = torch.randn(12, 128, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        GC._launch_1x1_wgmma("gated_conv_1x1", [x12], w12, None, b, scale,
+                             offset, None, out, True, False)
+
+
+def test_basic_conv_passes_its_cached_1x1_packs(dev):
+    """``BasicConv.forward`` (K3) and ``comb`` (K4) hand the loop the
+    module's cached pack, for each operand type."""
+    seen = []
+    real = GC._launch_1x1_wgmma
+
+    def spy(name, xs, w2, packed, *args):
+        seen.append(packed)
+        return real(name, xs, w2, packed, *args)
+
+    conv = BasicConv(64, 64, 1).to(dev)
+    with torch.no_grad():
+        conv.conv_fm.kernel.normal_()
+    x = torch.randn(1, 5, 7, 64, device=dev)
+    GC._launch_1x1_wgmma = spy
+    try:
+        for bf16 in (False, True):
+            conv(x, bf16)
+            conv.comb([(x[..., :8].contiguous(), "id", 1),
+                       (x[..., 8:].contiguous(), "id", 1)], bf16)
+            assert seen[-2] is seen[-1] is conv.packed_1x1(bf16)
+    finally:
+        GC._launch_1x1_wgmma = real
+
+
 @pytest.mark.parametrize("cin,cout", [(16, 32), (32, 56), (128, 248)])
 @pytest.mark.parametrize("bf16", [False, True])
 def test_gated_conv_1x1_kernel_matches_twin(dev, cin, cout, bf16):
@@ -218,6 +304,23 @@ def test_gated_conv_1x1_kernel_matches_twin(dev, cin, cout, bf16):
     before = GC.launches["gated_conv_1x1"]
     got = GC.gated_conv_1x1(x, w, b, scale, offset, res, bf16=bf16)
     assert GC.launches["gated_conv_1x1"] == before + 1
+    want = GC.gated_conv_1x1_plain(x, w, b, scale, offset, res, bf16=bf16)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **F32)
+
+
+@pytest.mark.parametrize("cin,cout", [(12, 32), (32, 20)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_gated_conv_1x1_tile_loop_matches_twin(dev, cin, cout, bf16):
+    """Widths the 1x1 wgmma loop does not take (C % 8 != 0, Cout % 8 !=
+    0) keep the tile loop."""
+    x, w, b, scale, offset = _conv_case(dev, (2, 13, 29), cin, cout, 1, 7)
+    res = torch.randn(2, 13, 29, cout, device=dev)
+    before = dict(GC.launches)
+    got = GC.gated_conv_1x1(x, w, b, scale, offset, res, bf16=bf16)
+    assert GC.launches["gated_conv_1x1"] == before["gated_conv_1x1"] + 1
+    assert GC.launches["gated_conv_1x1_wgmma"] == \
+        before["gated_conv_1x1_wgmma"]
     want = GC.gated_conv_1x1_plain(x, w, b, scale, offset, res, bf16=bf16)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **F32)
@@ -357,3 +460,31 @@ def test_gated_conv_probe_kernel_matches_twin(dev, cin, cout, h, w, bf16):
     torch.cuda.synchronize()
     assert out.shape == (2, h, w, 2 * cout)
     assert GP.launches["gated_conv_probe"] == before + 1
+
+
+def test_wrappers_launch_on_their_tensors_device(dev):
+    """Tensors on ``cuda:1`` while ``cuda:0`` is current: each wrapper
+    launches on ``cuda:1`` (device guard; the C entries ask that device
+    for its limits) and matches its twin. Needs two devices."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    d1 = torch.device("cuda:1")
+    torch.cuda.set_device(0)
+    xyz, ms = frame_inputs(1, 5000, (24, 40), focal=24.0)
+    xyz, ms = torch.from_numpy(xyz).to(d1), torch.from_numpy(ms).to(d1)
+    assert torch.equal(RK.zbuffer(xyz, ms, 24, 40)[0],
+                       RK.zbuffer_plain(xyz, ms, 24, 40)[0])
+    for k, cin, bf16 in ((3, 32, True), (3, 8, False), (1, 64, False),
+                         (1, 64, True)):
+        x, w, b, scale, offset = _conv_case(d1, (1, 9, 70), cin, 64, k, 5)
+        if k == 3:
+            got = GC.gated_conv_kxk(x, w, b, scale, offset, bf16=bf16)
+            want = GC.gated_conv_kxk_plain(x, w, b, scale, offset,
+                                           bf16=bf16)
+        else:
+            got = GC.gated_conv_1x1(x, w, b, scale, offset, bf16=bf16)
+            want = GC.gated_conv_1x1_plain(x, w, b, scale, offset,
+                                           bf16=bf16)
+        torch.cuda.synchronize(d1)
+        assert got.device == d1 and torch.cuda.current_device() == 0
+        torch.testing.assert_close(got, want, **F32)
