@@ -14,7 +14,8 @@ without a device it exits non-zero at once. It
    the 9 K3/K4 calls of a frame on the 1x1 wgmma loop in both operand
    modes, f32 as three TF32 products, each also with a residual) and
    times both with CUDA events;
-3. serves 4 requests through ``read_tpu_torch.render.NeuralRenderer``
+3. serves 4 requests (each timed) through
+   ``read_tpu_torch.render.NeuralRenderer``
    from a random-weight full-width checkpoint written in ``read_tpu``'s
    format, over a 1M-point scene at 1216x368, and checks every kernel
    ran on that path (launch counters) and the 1x1 wgmma loop exactly as
@@ -62,9 +63,11 @@ training steps, K6-K8 on the kernel bench's first pass), error, its
 time, its twin's, the library call's and its bound (``shape`` says what
 they were measured on); the K2, K3, K4 and 1x1-loop entries add their
 bf16 per-frame times (``bf16_ms``, ``bf16_plain_ms``,
-``bf16_library_ms``, ``bf16_bound_ms``), and the f32 entries of K3, K4
-and the loop the bound at the TF32 peak of three products
-(``tf32x3_bound_ms``) beside ``bound_ms`` at the f32 FMA peak.
+``bf16_library_ms``, ``bf16_bound_ms``). The f32 entries of K3, K4 and
+the loop, which run three TF32 tensor-core products, take as
+``bound_ms`` the bound of that arithmetic (``3 * flops`` at the TF32
+peak, or the bytes) and give the f32 FMA peak's looser bound beside it
+(``f32_fma_bound_ms``).
 """
 
 import contextlib
@@ -482,13 +485,15 @@ def record_conv_shapes(dev, operands="bf16"):
 
     def k3(x, w, b, scale, offset, res=None, **kw):
         record("gated_conv_1x1", [x], w, res, kw,
-               GC.conv1x1_route([x], w.shape[-1] // 2))
+               GC.conv1x1_route([x], w.shape[-1] // 2,
+                                epilogue=(b, scale, offset, res)))
         return saved[1](x, w, b, scale, offset, res, **kw)
 
     def k4(xs, w, b, scale, offset, res=None, **kw):
         assert kw.get("gated", True)
         record("gated_conv_1x1_cat", xs, w, res, kw,
-               GC.conv1x1_route(xs, w.shape[-1] // 2))
+               GC.conv1x1_route(xs, w.shape[-1] // 2,
+                                epilogue=(b, scale, offset, res)))
         return saved[2](xs, w, b, scale, offset, res, **kw)
 
     frame_fn, args = make_frame(1, operands, device=dev)
@@ -518,8 +523,8 @@ def _conv_operands(gen, dev, xs, ws):
 
 def _per_frame_line(name, ops, a):
     b_ms = a["operations"] + a["bytes"]
-    extra = (f", TF32 x3 bound {a['tf32x3_bound_ms']:.4f}"
-             if a.get("tf32x3_bound_ms") else "")
+    extra = (f", f32 FMA bound {a['f32_fma_bound_ms']:.4f}"
+             if a.get("f32_fma_bound_ms") else "")
     if a.get("graph_ms"):
         extra += (f"; in a CUDA graph (no host path): kernel "
                   f"{a['graph_ms']:.4f}, library "
@@ -543,7 +548,7 @@ def _report_per_frame(report, name, per_frame, err, shape):
                    bound_ms=a["operations"] + a["bytes"],
                    bound_by=max(("operations", "bytes"), key=a.get),
                    shape=shape)
-        for key in ("tf32x3_bound_ms", "graph_ms", "library_graph_ms"):
+        for key in ("f32_fma_bound_ms", "graph_ms", "library_graph_ms"):
             if a.get(key):
                 row[key] = a[key]
     a = per_frame["bf16"]
@@ -557,7 +562,7 @@ def _report_per_frame(report, name, per_frame, err, shape):
 
 def _new_sums():
     return {ops: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                  "operations": 0.0, "bytes": 0.0, "tf32x3_bound_ms": 0.0,
+                  "operations": 0.0, "bytes": 0.0, "f32_fma_bound_ms": 0.0,
                   "graph_ms": 0.0, "library_graph_ms": 0.0}
             for ops in ("f32", "bf16")}
 
@@ -672,7 +677,9 @@ def phase_conv1x1(report, ctx, dev):
     (``torch.matmul`` on the concatenated input) and bound timed, the
     kernel and the library also inside a CUDA graph (device time with no
     host launch path: these calls are short enough for the host's path to
-    show in ``event_ms``); sums per B=1 frame for K3, K4 and the loop."""
+    show in ``event_ms``); sums per B=1 frame for K3, K4 and the loop. The
+    f32 bound is that of three TF32 products (what the loop computes),
+    the f32 FMA peak's beside it."""
     import torch
     from read_tpu_torch.kernel_bench import (bound, conv_cost, event_ms,
                                              graph_ms, max_err)
@@ -730,20 +737,20 @@ def phase_conv1x1(report, ctx, dev):
             # the same calls with no host launch path: device time alone
             g_k = graph_ms(lambda: kernel(w, b, scale, offset, r, **kw))
             g_l = graph_ms(lambda: torch.matmul(xl, wl))
-            b_ms, by = bound(flops, nbytes, bf16)
-            tf32_ms = 0.0 if bf16 else bound(flops, nbytes, tf32x3=True)[0]
+            b_ms, by = bound(flops, nbytes, bf16, tf32x3=not bf16)
+            fma_ms = 0.0 if bf16 else bound(flops, nbytes)[0]
             for key in (name, "gated_conv_1x1_wgmma"):
                 acc = per_frame[key][ops]
                 for item, t in (("ms", t_k), ("plain_ms", t_p),
                                 ("library_ms", t_l), (by, b_ms),
-                                ("tf32x3_bound_ms", tf32_ms),
+                                ("f32_fma_bound_ms", fma_ms),
                                 ("graph_ms", g_k),
                                 ("library_graph_ms", g_l)):
                     acc[item] += n * t
             line.append(f"{ops}: err {err:.2e} kernel {t_k:.4f} ms twin "
                         f"{t_p:.4f} library {t_l:.4f} bound {b_ms:.4f} "
                         f"({by})" + ("" if bf16 else
-                                     f" TF32x3 bound {tf32_ms:.4f}")
+                                     f" f32 FMA bound {fma_ms:.4f}")
                         + f"; in a CUDA graph: kernel {g_k:.4f} library "
                         f"{g_l:.4f}")
         print(f"[conv1x1] {name} x{[list(s) for s in xs_shapes]} "
@@ -756,8 +763,9 @@ def phase_conv1x1(report, ctx, dev):
                     if key in (name, "gated_conv_1x1_wgmma"))
         _report_per_frame(report, key, per_frame[key], errs[key],
                           f"the {count} calls of one full-width B=1 frame, "
-                          "f32 operands as three TF32 products, summed "
-                          "(bf16_*: bf16 operands)")
+                          "f32 operands as three TF32 products (bound: "
+                          "their TF32 peak), summed (bf16_*: bf16 "
+                          "operands)")
 
 
 def phase_serve(report, ctx, dev, workdir):
@@ -796,9 +804,11 @@ def phase_serve(report, ctx, dev, workdir):
     r = NeuralRenderer(scene, ckpt, device=dev)
     torch.cuda.synchronize()
     reset_launches()
-    t0 = time.perf_counter()
-    imgs = [r.infer(p) for p in poses]
-    seconds = time.perf_counter() - t0
+    imgs, each = [], []
+    for p in poses:   # infer ends in a host copy: the frame is done
+        t0 = time.perf_counter()
+        imgs.append(r.infer(p))
+        each.append((time.perf_counter() - t0) * 1e3)
     counts = launches()
     for i, img in enumerate(imgs):
         if img.shape != (h, w, 3) or not np.isfinite(img).all():
@@ -812,8 +822,9 @@ def phase_serve(report, ctx, dev, workdir):
                for a, b in zip(imgs, imgs[1:])):
         raise SmokeFailure("the 4 requests rendered identical frames")
     print(f"[serve] NeuralRenderer: {len(imgs)} requests at {w}x{h}, "
-          f"{N_POINTS} points, {seconds * 1e3 / len(imgs):.2f} ms/request"
-          f" (first included); launches {counts}")
+          f"{N_POINTS} points, {sum(each) / len(each):.2f} ms/request "
+          f"(first included); each request "
+          f"{', '.join(f'{t:.2f}' for t in each)} ms; launches {counts}")
     for name in ("zbuffer", "gated_conv_kxk", "gated_conv_1x1",
                  "gated_conv_1x1_cat"):
         if counts[name] == 0:

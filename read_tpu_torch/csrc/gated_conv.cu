@@ -99,6 +99,18 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// The wgmma loops' epilogue (gcw::epilogue) reads bias, scale, offset and
+// the residual, and writes the output, as channel pairs (float2): each
+// must be 8-byte aligned (res may be null).
+bool epilogue_aligned(const float* bias, const float* scale,
+                      const float* offset, const float* res,
+                      const float* out) {
+  const float* ps[] = {bias, scale, offset, res, out};
+  for (const float* p : ps)
+    if (reinterpret_cast<uintptr_t>(p) % 8 != 0) return false;
+  return true;
+}
+
 }  // namespace
 
 // K2: k x k conv, stride `stride`, zero pad (k-1)/2 on each side.
@@ -121,7 +133,7 @@ extern "C" int gated_conv_kxk(const float* x, const float* w,
 // tile_n columns (64 or 128), each ceil(k*k*Cin / 64) blocks of
 // [tile_n, 64] bf16. Returns the error of setting the shared-memory size,
 // of the occupancy query or of the launch (cudaErrorInvalidValue for
-// arguments the loop does not take).
+// arguments the loop does not take, misaligned epilogue pointers too).
 extern "C" int gated_conv_kxk_wgmma(const float* x, const void* wp,
                                     const float* bias, const float* scale,
                                     const float* offset, const float* res,
@@ -136,6 +148,7 @@ extern "C" int gated_conv_kxk_wgmma(const float* x, const void* wp,
               Cout, k, stride, pad, relu, k * k * Cin,
               (k * k * Cin + gcw::BK - 1) / gcw::BK, ntiles};
   if (Cin % 32 != 0 || Cout % 8 != 0 || !aligned16(x) || !aligned16(wp) ||
+      !epilogue_aligned(bias, scale, offset, res, out) ||
       (tile_n != 64 && tile_n != 128) ||
       ntiles != (Cout + tile_n / 2 - 1) / (tile_n / 2))
     return (int)cudaErrorInvalidValue;
@@ -194,13 +207,14 @@ extern "C" int gated_conv_1x1_cat(const float* x0, const float* x1,
 
 // K3 and the gated K4 on the 1x1 wgmma loop (gated_conv_1x1_wgmma.cuh):
 // the concat of nx <= 4 inputs x_j [n, c_j] (K3: nx = 1), every c_j % 8
-// == 0 and x_j 16-byte aligned, Cout % 8 == 0. wp is the packed weight of
-// ops/gated_conv.py: `pack_1x1_bf16` (bf16 = 1; per N tile ceil(K / 64)
-// blocks [64, 64] bf16) or `pack_1x1_tf32` (bf16 = 0,
-// f32 operands as three TF32 products; ceil(K / 32) blocks [2, 64, 32]
-// f32), ntiles = ceil(Cout / 32) N tiles of 64 columns. Returns the error
-// of setting the shared-memory size, of the occupancy query or of the
-// launch (cudaErrorInvalidValue for arguments the loop does not take).
+// == 0 and x_j 16-byte aligned, Cout % 8 == 0, the epilogue's pointers
+// 8-byte aligned. wp is the packed weight of ops/gated_conv.py:
+// `pack_1x1_bf16` (bf16 = 1; per N tile ceil(K / 64) blocks [64, 64]
+// bf16) or `pack_1x1_tf32` (bf16 = 0, f32 operands as three TF32
+// products; ceil(K / 32) blocks [2, 64, 32] f32), ceil(Cout / 32) N tiles
+// of gc1::TILE_N = 64 columns. Returns the error of setting the
+// shared-memory size, of the occupancy query or of the launch
+// (cudaErrorInvalidValue for arguments the loop does not take).
 extern "C" int gated_conv_1x1_wgmma(const float* x0, const float* x1,
                                     const float* x2, const float* x3,
                                     int c0, int c1, int c2, int c3, int nx,
@@ -208,7 +222,7 @@ extern "C" int gated_conv_1x1_wgmma(const float* x0, const float* x1,
                                     const float* scale, const float* offset,
                                     const float* res, float* out, int n,
                                     int Cout, int relu, int bf16,
-                                    int ntiles, void* stream) {
+                                    void* stream) {
   if (nx < 1 || nx > gc::kMaxCat) return (int)cudaErrorInvalidValue;
   const float* xs[gc::kMaxCat] = {x0, x1, x2, x3};
   const int cs[gc::kMaxCat] = {c0, c1, c2, c3};
@@ -217,8 +231,9 @@ extern "C" int gated_conv_1x1_wgmma(const float* x0, const float* x1,
   const int K = src.off[gc::kMaxCat];
   const int ks = bf16 ? 64 : 32;  // channels a K slice
   if (!ok || K == 0 || Cout % 8 != 0 || !aligned16(wp) ||
-      ntiles != (Cout + gc1::TILE_N / 2 - 1) / (gc1::TILE_N / 2))
+      !epilogue_aligned(bias, scale, offset, res, out))
     return (int)cudaErrorInvalidValue;
+  const int ntiles = (Cout + gc1::TILE_N / 2 - 1) / (gc1::TILE_N / 2);
   if (n == 0) return (int)cudaGetLastError();
   gc1::Args a{gcw::Args{nullptr, static_cast<const uint8_t*>(wp), bias,
                         scale, offset, res, out, 1, 1, n, K, 1, n, Cout,

@@ -5,8 +5,10 @@
 // Replaces read_tpu/ops/gated_conv_pack.py `_conv1x1_chw_kernel` (:421,
 // pallas_call :491; K3, one input) and `_conv1x1_cat_kernel` (:509,
 // pallas_call :599; K4, the concat never written). It takes the gated
-// calls whose inputs all have C_j % 8 == 0 and 16-byte aligned data, and
-// Cout % 8 == 0: all 9 K3/K4 calls of a full-width frame. The rest (K4
+// calls whose inputs all have C_j % 8 == 0 and 16-byte aligned data, with
+// Cout % 8 == 0 and 8-byte aligned bias, scale, offset and residual (the
+// epilogue reads channel pairs): all 9 K3/K4 calls of a full-width
+// frame. The rest (K4
 // with gated = 0, other widths, misaligned views) keep the tile loops of
 // gated_conv_tile.cuh. Python routes (ops/gated_conv.py `conv1x1_route`).
 //

@@ -21,7 +21,9 @@ The counterpart of the JAX package's kernel benches, one group each:
 
 K3 and K4 run the 1x1 wgmma loop at every bench shape (f32 operands as
 three TF32 products), with their weights packed once per row, as
-``BasicConv`` caches them.
+``BasicConv`` caches them; their f32 rows take the bound of that
+arithmetic (``tf32x3``) and carry the f32 FMA peak's as
+``f32_fma_bound_ms``.
 
 Each row gives the kernel's device time (:func:`event_ms`: CUDA events
 around back-to-back calls), the twin's, the
@@ -208,13 +210,15 @@ def max_err(name: str, got, want, tols) -> float:
 
 class Row:
     """One bench row: a kernel call, its twin, an optional library call,
-    the comparison and the cost the bound is computed from."""
+    the comparison and the cost the bound is computed from (``tf32x3``:
+    f32 operands as three TF32 products, see :func:`bound`)."""
 
     def __init__(self, group, kernel, label, fn, twin, library, tols,
-                 flops, nbytes, bf16):
+                 flops, nbytes, bf16, tf32x3=False):
         self.group, self.kernel, self.label = group, kernel, label
         self.fn, self.twin, self.library, self.tols = fn, twin, library, tols
         self.flops, self.nbytes, self.bf16 = flops, nbytes, bf16
+        self.tf32x3 = tf32x3
         self.out = None
 
     def measure(self) -> Dict:
@@ -230,12 +234,15 @@ class Row:
         t_p = (event_ms(self.twin, iters=5, warmup=1)
                if self.twin is not None else None)
         t_l = event_ms(self.library) if self.library is not None else None
-        b_ms, by = bound(self.flops, self.nbytes, self.bf16)
-        return {"group": self.group, "kernel": self.kernel,
-                "label": self.label, "ms": t_k, "plain_ms": t_p,
-                "library_ms": t_l, "bound_ms": b_ms, "bound_by": by,
-                "kernel_over_bound": t_k / b_ms, "max_abs_err": err,
-                "flops": self.flops, "bytes": self.nbytes}
+        b_ms, by = bound(self.flops, self.nbytes, self.bf16, self.tf32x3)
+        row = {"group": self.group, "kernel": self.kernel,
+               "label": self.label, "ms": t_k, "plain_ms": t_p,
+               "library_ms": t_l, "bound_ms": b_ms, "bound_by": by,
+               "kernel_over_bound": t_k / b_ms, "max_abs_err": err,
+               "flops": self.flops, "bytes": self.nbytes}
+        if self.tf32x3:
+            row["f32_fma_bound_ms"] = bound(self.flops, self.nbytes)[0]
+        return row
 
 
 def _weights(gen, dev, k, cin, c2, cout):
@@ -352,7 +359,8 @@ def conv_rows(dev) -> List[Row]:
                         lambda x=x, a=(wk, b, scale, offset), bf=bf16:
                             GC.gated_conv_1x1_plain(x, *a, bf16=bf),
                         lib, (BF16_TOL, F32_TOL) if bf16 else (F32_TOL,),
-                        *conv_cost(x.shape, 1, 1, 2 * c, c), bf16))
+                        *conv_cost(x.shape, 1, 1, 2 * c, c), bf16,
+                        tf32x3=not bf16))
                     kern, twin = R2.gated_conv1x1_r2, R2.gated_conv1x1_r2_plain
                     kname = "gated_conv1x1_r2"
                 nb = 2 if bf16 else 4
@@ -428,7 +436,8 @@ def cat_rows(dev) -> List[Row]:
                     GC.gated_conv_1x1_cat_plain(*a, relu=r, bf16=bf),
                 lambda xl=xcat.to(dt), wl=w2.to(dt): torch.matmul(xl, wl),
                 (BF16_TOL, F32_TOL) if bf16 else (F32_TOL,),
-                *conv_cost(xcat.shape, 1, 1, 2 * cout, cout), bf16))
+                *conv_cost(xcat.shape, 1, 1, 2 * cout, cout), bf16,
+                tf32x3=not bf16))
     return rows
 
 

@@ -202,6 +202,17 @@ class BasicConv(nn.Module):
         return self._packed_with(GC.pack_1x1_bf16 if bf16
                                  else GC.pack_1x1_tf32)
 
+    def prepare(self, bf16: bool) -> None:
+        """Fill the caches now: the folded BN, and the weight a wgmma
+        loop takes for ``bf16`` operands (the 1x1 loop's for a 1x1 conv,
+        K2's for a bf16 k x k conv). A renderer calls it at load, so no
+        request folds or packs."""
+        self.folded_bn()
+        if self.k == 1 and self.stride == 1:
+            self.packed_1x1(bf16)
+        elif bf16:
+            self.packed_kxk_bf16()
+
     def forward(self, x: torch.Tensor, bf16: bool = False,
                 train: Optional[bool] = None,
                 res: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -209,20 +220,14 @@ class BasicConv(nn.Module):
             return self._differentiable(x, train, res)
         scale, offset = self.folded_bn()
         w, b = self.conv_fm.kernel, self.conv_fm.bias
+        # the wrappers call the cache's getter only on a wgmma route
         if self.k == 1 and self.stride == 1:
-            packed = None
-            if x.is_cuda and GC.conv1x1_route(
-                    [x], w.shape[-1] // 2) == "wgmma":
-                packed = self.packed_1x1(bf16)
             return GC.gated_conv_1x1(x, w, b, scale, offset, res,
                                      relu=self.relu, bf16=bf16,
-                                     packed=packed)
-        packed = None
-        if x.is_cuda and GC.kxk_route(x, w, bf16) == "wgmma":
-            packed = self.packed_kxk_bf16()
+                                     packed=lambda: self.packed_1x1(bf16))
         return GC.gated_conv_kxk(x, w, b, scale, offset, res,
                                  stride=self.stride, relu=self.relu,
-                                 bf16=bf16, packed=packed)
+                                 bf16=bf16, packed=self.packed_kxk_bf16)
 
     def _differentiable(self, x: torch.Tensor, train: bool,
                         res: Optional[torch.Tensor]) -> torch.Tensor:
@@ -252,15 +257,10 @@ class BasicConv(nn.Module):
         if len(parts) <= GC.MAX_CAT and all(mode == "id"
                                             for _, mode, _ in parts):
             scale, offset = self.folded_bn()
-            xs = [x for x, _, _ in parts]
-            packed = None
-            if xs[0].is_cuda and GC.conv1x1_route(
-                    xs, self.conv_fm.kernel.shape[-1] // 2) == "wgmma":
-                packed = self.packed_1x1(bf16)
-            return GC.gated_conv_1x1_cat(xs, self.conv_fm.kernel,
-                                         self.conv_fm.bias, scale, offset,
-                                         relu=self.relu, bf16=bf16,
-                                         packed=packed)
+            return GC.gated_conv_1x1_cat(
+                [x for x, _, _ in parts], self.conv_fm.kernel,
+                self.conv_fm.bias, scale, offset, relu=self.relu,
+                bf16=bf16, packed=lambda: self.packed_1x1(bf16))
         w = self.conv_fm.kernel
         w2 = w.reshape(w.shape[2], w.shape[3])
         acc, coff = None, 0
@@ -402,6 +402,17 @@ class UNet(nn.Module):
                     nn.init.trunc_normal_(mod.kernel, std=std, a=-2 * std,
                                           b=2 * std, generator=generator)
                     mod.bias.zero_()
+        return self
+
+    def prepare(self, operands: str = "f32") -> "UNet":
+        """Fold every BasicConv's BN and pack its wgmma weight for
+        ``operands`` now (:meth:`BasicConv.prepare`), so the first frame
+        does not."""
+        if operands not in _OPERANDS:
+            raise ValueError(f"operands must be one of {_OPERANDS}")
+        for mod in self.modules():
+            if isinstance(mod, BasicConv):
+                mod.prepare(operands == "bf16")
         return self
 
     def forward(self, x, x_2, x_4, x_8, train: Optional[bool] = None,

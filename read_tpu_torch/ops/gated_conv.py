@@ -38,10 +38,13 @@ the rest take the tile loops of ``csrc/gated_conv_tile.cuh``.
 
 K3 and K4 have two loops on CUDA too, chosen by :func:`conv1x1_route`: a
 gated call whose inputs all have ``C % 8 == 0`` and 16-byte aligned
-data, with ``Cout % 8 == 0``, takes the 1x1 wgmma loop
-(``csrc/gated_conv_1x1_wgmma.cuh``) in either operand mode, with the
-weight of :func:`pack_1x1_bf16` or :func:`pack_1x1_tf32`; the rest take
-the tile loops. With bf16 operands the loop is K2's arithmetic. With f32
+data, with ``Cout % 8 == 0`` and 8-byte aligned bias, scale, offset and
+residual, takes the 1x1 wgmma loop (``csrc/gated_conv_1x1_wgmma.cuh``)
+in either operand mode, with the weight of :func:`pack_1x1_bf16` or
+:func:`pack_1x1_tf32`; the rest take the tile loops. A wrapper's
+``packed`` is the packed weight or a function that returns it, called
+only when the wgmma route runs (``models.unet.BasicConv`` passes its
+cache's getter). With bf16 operands the loop is K2's arithmetic. With f32
 operands it is **not exact f32 FMA**: each operand is split into TF32
 parts (:func:`tf32_split`) and three TF32 tensor-core products ``hi*hi +
 hi*lo + lo*hi`` are summed in f32, which holds the f32 bound ``atol 2e-5,
@@ -191,6 +194,21 @@ def wgmma_tile_n(cout: int) -> int:
     return 64 if cout <= 32 else 128
 
 
+def _blocks_shape(kk: int, cout: int, row: int, tile_n: int):
+    """Shape ``[ntiles, slices, tile_n, row]`` of :func:`_pack_blocks`'
+    output for a ``[kk, 2*cout]`` weight."""
+    return (-(-cout // (tile_n // 2)), -(-kk // row), tile_n, row)
+
+
+def _resolve_packed(packed, pack, w):
+    """The packed weight a wgmma route launches with: ``packed``, or
+    ``packed()`` where it is a function, or ``pack(w)`` where it is
+    None."""
+    if packed is None:
+        return pack(w)
+    return packed() if callable(packed) else packed
+
+
 def _pack_blocks(wm: torch.Tensor, row: int, tile_n: int) -> torch.Tensor:
     """``wm [K, 2*Cout]`` (f32, the f|m columns) as the wgmma loops' blocks
     ``[ntiles, slices, tile_n, row]`` (f32), one per (N tile, K slice) of
@@ -206,8 +224,7 @@ def _pack_blocks(wm: torch.Tensor, row: int, tile_n: int) -> torch.Tensor:
     kk, c2 = wm.shape
     cout = c2 // 2
     half = tile_n // 2
-    ntiles = -(-cout // half)
-    slices = -(-kk // row)
+    ntiles, slices, _, _ = _blocks_shape(kk, cout, row, tile_n)
     dev = wm.device
     n = torch.arange(ntiles * tile_n, device=dev)
     g = (n % tile_n) // 8
@@ -257,7 +274,8 @@ def gated_conv_kxk(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """K2: gated k x k conv (k in {3, 4}, stride in {1, 2}, zero pad
     ``(k-1)//2``) of ``x [B, H, W, Cin]`` with ``w [k, k, Cin, 2*Cout]``;
     returns ``[B, Ho, Wo, Cout]``. ``packed`` is ``pack_kxk_bf16(w)``
-    for the wgmma loop (packed here when it is needed and not given)."""
+    for the wgmma loop, or a function that returns it (packed here when
+    it is needed and not given)."""
     k = w.shape[0]
     if w.dim() != 4 or w.shape[1] != k or k not in (3, 4) \
             or stride not in (1, 2) or x.dim() != 4:
@@ -275,11 +293,8 @@ def gated_conv_kxk(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     out = torch.empty((bsz, ho, wo, cout), dtype=torch.float32,
                       device=x.device)
     if kxk_route(x, w, bf16) == "wgmma":
-        if packed is None:
-            packed = pack_kxk_bf16(w)
-        tile_n = wgmma_tile_n(cout)
-        want = (-(-cout // (tile_n // 2)), -(-k * k * cin // WGMMA_K),
-                tile_n, WGMMA_K)
+        packed = _resolve_packed(packed, pack_kxk_bf16, w)
+        want = _blocks_shape(k * k * cin, cout, WGMMA_K, wgmma_tile_n(cout))
         if packed.dtype != torch.bfloat16 or packed.device != x.device \
                 or not packed.is_contiguous() \
                 or tuple(packed.shape) != want:
@@ -320,15 +335,19 @@ def gated_conv_1x1_plain(x, w, b, scale, offset, res=None, *, relu=True,
                           relu).contiguous()
 
 
-def conv1x1_route(xs, cout: int, gated: bool = True) -> str:
+def conv1x1_route(xs, cout: int, gated: bool = True, epilogue=()) -> str:
     """Which CUDA loop K3 (``xs = [x]``) or K4 runs for inputs ``xs``
-    (``[..., C_j]``) and ``cout`` output channels: ``'wgmma'`` for a
-    ``gated`` call whose inputs all have ``C_j % 8 == 0`` and 16-byte
-    aligned data, with ``Cout % 8 == 0`` (the 1x1 wgmma loop, either
-    operand type); ``'tile'`` otherwise (``gated=False``, other widths,
-    misaligned views)."""
+    (``[..., C_j]``), ``cout`` output channels and the ``epilogue``
+    tensors (bias, scale, offset, residual; None skipped): ``'wgmma'``
+    for a ``gated`` call whose inputs all have ``C_j % 8 == 0`` and
+    16-byte aligned data, with ``Cout % 8 == 0`` and 8-byte aligned
+    epilogue tensors (the 1x1 wgmma loop, either operand type; its
+    epilogue reads channel pairs); ``'tile'`` otherwise (``gated=False``,
+    other widths, misaligned views)."""
     if gated and cout % 8 == 0 and all(
-            x.shape[-1] % 8 == 0 and x.data_ptr() % 16 == 0 for x in xs):
+            x.shape[-1] % 8 == 0 and x.data_ptr() % 16 == 0 for x in xs) \
+            and all(t.data_ptr() % 8 == 0 for t in epilogue
+                    if t is not None):
         return "wgmma"
     return "tile"
 
@@ -354,16 +373,8 @@ def pack_1x1_tf32(w: torch.Tensor) -> torch.Tensor:
     return torch.stack([hi, lo], 2).contiguous()
 
 
-def _packed_1x1_shape(k: int, cout: int, bf16: bool):
-    tn = CONV1X1_TILE_N
-    ntiles = -(-cout // (tn // 2))
-    if bf16:
-        return (ntiles, -(-k // WGMMA_K), tn, WGMMA_K)
-    return (ntiles, -(-k // TF32_K), 2, tn, TF32_K)
-
-
 _1X1_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
 
 
@@ -371,15 +382,20 @@ def _launch_1x1_wgmma(name, xs, w2, packed, b, scale, offset, res, out,
                       relu, bf16):
     """Launch ``gated_conv_1x1_wgmma`` over inputs ``xs`` into ``out``;
     ``packed`` is :func:`pack_1x1_bf16` or :func:`pack_1x1_tf32` of
-    ``w2`` (packed here when not given)."""
+    ``w2``, or a function that returns it (packed here when not
+    given)."""
     cins = [x.shape[-1] for x in xs]
     cout = out.shape[-1]
-    if packed is None:
-        packed = pack_1x1_bf16(w2) if bf16 else pack_1x1_tf32(w2)
-    want = _packed_1x1_shape(sum(cins), cout, bf16)
+    packed = _resolve_packed(packed, pack_1x1_bf16 if bf16
+                             else pack_1x1_tf32, w2)
+    want = list(_blocks_shape(sum(cins), cout, WGMMA_K if bf16 else TF32_K,
+                              CONV1X1_TILE_N))
+    if not bf16:
+        want.insert(2, 2)   # the hi and the lo block
     if packed.dtype != (torch.bfloat16 if bf16 else torch.float32) \
             or packed.device != out.device \
-            or not packed.is_contiguous() or tuple(packed.shape) != want:
+            or not packed.is_contiguous() \
+            or list(packed.shape) != want:
         raise ValueError(f"{name}: packed weight {tuple(packed.shape)} "
                          f"{packed.dtype} does not fit w "
                          f"{tuple(w2.shape)} ({'bf16' if bf16 else 'f32'}"
@@ -392,7 +408,7 @@ def _launch_1x1_wgmma(name, xs, w2, packed, b, scale, offset, res, out,
                 *[0] * pad, len(xs), packed.data_ptr(), b.data_ptr(),
                 scale.data_ptr(), offset.data_ptr(), _ptr(res),
                 out.data_ptr(), out.numel() // max(cout, 1), cout,
-                int(relu), int(bf16), want[0])
+                int(relu), int(bf16))
     launches[name] += 1
     launches["gated_conv_1x1_wgmma"] += 1
 
@@ -409,8 +425,9 @@ def gated_conv_1x1(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """K3: gated 1x1 conv, ``[..., Cin] @ [Cin, 2*Cout]`` + epilogue.
     ``w`` is ``[1, 1, Cin, 2*Cout]`` or ``[Cin, 2*Cout]``; returns
     ``[..., Cout]``. ``packed`` is :func:`pack_1x1_bf16` (``bf16``) or
-    :func:`pack_1x1_tf32` of ``w`` for the 1x1 wgmma loop (packed here
-    when it is needed and not given; ignored by the twin)."""
+    :func:`pack_1x1_tf32` of ``w`` for the 1x1 wgmma loop, or a function
+    that returns it (packed here when it is needed and not given;
+    ignored by the twin)."""
     w = _weight_2d("gated_conv_1x1", w)
     cout = w.shape[-1] // 2
     out_shape = tuple(x.shape[:-1]) + (cout,)
@@ -421,7 +438,8 @@ def gated_conv_1x1(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     cin = x.shape[-1]
     n = x.numel() // max(cin, 1)
     out = torch.empty(out_shape, dtype=torch.float32, device=x.device)
-    if conv1x1_route([x], cout) == "wgmma":
+    if conv1x1_route([x], cout, epilogue=(b, scale, offset, res)) \
+            == "wgmma":
         _launch_1x1_wgmma("gated_conv_1x1", [x], w, packed, b, scale,
                           offset, res, out, relu, bf16)
         return out
@@ -499,7 +517,8 @@ def gated_conv_1x1_cat(xs, w: torch.Tensor, b: torch.Tensor,
                                         relu=relu, gated=gated, bf16=bf16)
     n = xs[0].numel() // max(cins[0], 1)
     out = torch.empty(out_shape, dtype=torch.float32, device=w.device)
-    if conv1x1_route(xs, cout, gated) == "wgmma":
+    if conv1x1_route(xs, cout, gated, (b, scale, offset, res)) \
+            == "wgmma":
         _launch_1x1_wgmma(name, xs, w, packed, b, scale, offset, res, out,
                           relu, bf16)
         return out

@@ -95,6 +95,8 @@ class NeuralRenderer:
                              f"{xyz.shape[0]}")
         self.texture = texture.to(self.device)
         self.net = unet_from_state(state).to(self.device)
+        if self.device.type == "cuda":   # fold BNs and pack weights now
+            self.net.prepare(self.cfg.operands)
 
     def total_matrix(self, view_matrix: np.ndarray,
                      K: Optional[np.ndarray] = None) -> np.ndarray:

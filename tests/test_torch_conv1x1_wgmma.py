@@ -214,18 +214,23 @@ def test_loop_arithmetic_matches_twin_and_pallas(cins, cout, bf16):
 
 def _record_1x1_calls(monkeypatch, net, operands):
     """Run ``net``'s serving route on the CPU at a tiny image with shims
-    around K3 and K4: ``[(name, xs, cout, gated)]`` of every call."""
+    around K3 and K4: ``[(name, xs, cout, gated, epilogue)]`` of every
+    call (``epilogue``: bias, scale, offset and residual)."""
     calls = []
     real = (GC.gated_conv_1x1, GC.gated_conv_1x1_cat)
 
+    def epilogue(args, kw):
+        return tuple(args) + ((kw["res"],) if "res" in kw else ())
+
     def k3(x, w, *args, **kw):
-        calls.append(("k3", [x], w.shape[-1] // 2, True))
+        calls.append(("k3", [x], w.shape[-1] // 2, True,
+                      epilogue(args, kw)))
         return real[0](x, w, *args, **kw)
 
     def k4(xs, w, *args, **kw):
         gated = kw.get("gated", True)
         calls.append(("k4", list(xs), w.shape[-1] // (2 if gated else 1),
-                      gated))
+                      gated, epilogue(args, kw)))
         return real[1](xs, w, *args, **kw)
 
     monkeypatch.setattr(GC, "gated_conv_1x1", k3)
@@ -245,10 +250,11 @@ def test_route_sends_the_frame_1x1_calls_to_the_loop(monkeypatch,
     net = UNet().init_weights(torch.Generator().manual_seed(0)).eval()
     calls = _record_1x1_calls(monkeypatch, net, operands)
     got = sorted((tuple(x.shape[-1] for x in xs), cout)
-                 for _, xs, cout, _ in calls)
+                 for _, xs, cout, _, _ in calls)
     assert got == sorted(SCM_1X1)
-    routes = [GC.conv1x1_route(xs, cout, gated)
-              for _, xs, cout, gated in calls]
+    assert all(len(ep) >= 3 for *_, ep in calls)
+    routes = [GC.conv1x1_route(xs, cout, gated, ep)
+              for _, xs, cout, gated, ep in calls]
     assert routes.count("wgmma") == 9 == len(calls)
 
 
@@ -264,6 +270,94 @@ def test_route_keeps_the_rest_on_the_tile_loop():
     view = flat[1:].view(30, 8)                               # 4-byte off
     assert view.is_contiguous() and view.data_ptr() % 16 != 0
     assert GC.conv1x1_route([view], 8) == "tile"
+
+
+def test_route_keeps_misaligned_epilogue_views_on_the_tile_loop():
+    """The loop's epilogue reads bias, scale, offset and the residual as
+    channel pairs: a view of any of them at a 4-byte offset keeps the
+    tile loop."""
+    x = torch.zeros(2, 3, 5, 64)
+    flat = torch.zeros(2 * 3 * 5 * 32 + 1)
+    res = flat[:-1].view(2, 3, 5, 32)
+    off = flat[1:].view(2, 3, 5, 32)                          # 4-byte off
+    assert off.is_contiguous() and off.data_ptr() % 8 == 4
+    vec = torch.zeros(65)
+    b, scale, offset = vec[:64], vec[:32], vec[32:64]
+    good = (b, scale, offset, res)
+    assert GC.conv1x1_route([x], 32, epilogue=good) == "wgmma"
+    assert GC.conv1x1_route([x], 32, epilogue=good[:3] + (None,)) == "wgmma"
+    assert GC.conv1x1_route([x], 32, epilogue=good[:3] + (off,)) == "tile"
+    for i in range(3):
+        bad = list(good)
+        bad[i] = vec[1:1 + good[i].numel()]
+        assert GC.conv1x1_route([x], 32, epilogue=bad) == "tile"
+        assert GC.conv1x1_route([x[..., :8], x[..., 8:]], 32, True,
+                                bad) == "tile"
+
+
+def test_unet_prepare_fills_the_caches_the_wrappers_read():
+    """``UNet.prepare`` (a renderer calls it at load) folds every BN and
+    packs every 1x1 BasicConv's loop weight for the operand type and,
+    for bf16, every k x k conv's K2 weight; the getters then return the
+    cached packs without packing again."""
+    net = UNet(base_channel=8, num_res=1).init_weights(
+        torch.Generator().manual_seed(0)).eval()
+    convs = [m for m in net.modules() if isinstance(m, BasicConv)]
+    net.prepare("f32")
+    for m in convs:
+        keys = set(m._packed)
+        assert keys == ({GC.pack_1x1_tf32} if m.k == 1 else set())
+        assert m._folded is not None
+        assert m.folded_bn() is m._folded[1]
+    net.prepare("bf16")
+    cached = {id(m): {f: hit[1] for f, hit in m._packed.items()}
+              for m in convs}
+    for m in convs:
+        if m.k == 1:
+            assert m.packed_1x1(True) is cached[id(m)][GC.pack_1x1_bf16]
+            assert m.packed_1x1(False) is cached[id(m)][GC.pack_1x1_tf32]
+            assert torch.equal(m.packed_1x1(True),
+                               GC.pack_1x1_bf16(m.conv_fm.kernel))
+        else:
+            assert m.packed_kxk_bf16() is cached[id(m)][GC.pack_kxk_bf16]
+    with pytest.raises(ValueError):
+        net.prepare("f16")
+
+
+def test_wrappers_call_the_packed_getter_only_on_the_wgmma_route():
+    """``packed`` may be a function returning the packed weight: the CPU
+    twins never call it (nor does a tile-loop call); ``_resolve_packed``
+    calls it, packs when it is None and passes a tensor through."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(1, 4, 6, 64)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(1, 1, 64, 64)).astype(np.float32))
+    w3 = torch.from_numpy(rng.normal(size=(3, 3, 64, 64)).astype(
+        np.float32))
+    b, scale, offset = (torch.from_numpy(rng.normal(size=s).astype(
+        np.float32)) for s in (64, 32, 32))
+
+    def never():
+        raise AssertionError("the getter ran on the CPU")
+
+    for bf16 in (False, True):
+        got = GC.gated_conv_1x1(x, w, b, scale, offset, bf16=bf16,
+                                packed=never)
+        assert torch.equal(got, GC.gated_conv_1x1_plain(
+            x, w, b, scale, offset, bf16=bf16))
+        got = GC.gated_conv_1x1_cat([x[..., :8].contiguous(),
+                                     x[..., 8:].contiguous()], w, b, scale,
+                                    offset, bf16=bf16, packed=never)
+        torch.testing.assert_close(got, GC.gated_conv_1x1_plain(
+            x, w, b, scale, offset, bf16=bf16), **F32)
+        got = GC.gated_conv_kxk(x, w3, b, scale, offset, bf16=bf16,
+                                packed=never)
+        assert torch.equal(got, GC.gated_conv_kxk_plain(
+            x, w3, b, scale, offset, bf16=bf16))
+    packed = GC.pack_1x1_tf32(w)
+    assert GC._resolve_packed(packed, never, w) is packed
+    assert GC._resolve_packed(lambda: packed, never, w) is packed
+    assert torch.equal(GC._resolve_packed(None, GC.pack_1x1_tf32, w),
+                       packed)
 
 
 def test_1x1_pack_caches_are_reused_and_rebuilt_after_a_write():

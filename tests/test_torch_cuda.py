@@ -271,14 +271,57 @@ def test_gated_conv_1x1_wgmma_refused_launch_raises(dev):
                              offset, None, out, True, False)
 
 
+@pytest.mark.parametrize("bf16", [False, True])
+def test_misaligned_epilogue_views_keep_the_tile_loop(dev, bf16):
+    """A residual view (or a bias view) at a 4-byte offset sends K3 and K4
+    to the tile loop, which matches the twin; the 1x1 and K2 wgmma C
+    entries refuse such pointers with an error the wrapper raises, and
+    the context stays usable (no misaligned-address fault)."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(1, 7, 19, 64, generator=gen, device=dev)
+    w = torch.randn(1, 1, 64, 64, generator=gen, device=dev) / 8.0
+    vec = torch.randn(65, generator=gen, device=dev)
+    b, scale, offset = vec[:64], vec[:32].abs() + 0.5, vec[32:64]
+    flat = torch.randn(7 * 19 * 32 + 1, generator=gen, device=dev)
+    res = flat[1:].view(1, 7, 19, 32)
+    assert res.is_contiguous() and res.data_ptr() % 8 == 4
+    xs = [x[..., :8].contiguous(), x[..., 8:].contiguous()]
+    for bias, r in ((b, res), (vec[1:65], None)):
+        before = dict(GC.launches)
+        got = GC.gated_conv_1x1(x, w, bias, scale, offset, r, bf16=bf16)
+        got4 = GC.gated_conv_1x1_cat(xs, w, bias, scale, offset, r,
+                                     bf16=bf16)
+        assert GC.launches["gated_conv_1x1_wgmma"] == \
+            before["gated_conv_1x1_wgmma"]
+        want = GC.gated_conv_1x1_plain(x, w, bias, scale, offset, r,
+                                       bf16=bf16)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **F32)
+        torch.testing.assert_close(got4, want, **F32)
+    out = torch.empty(1, 7, 19, 32, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        GC._launch_1x1_wgmma("gated_conv_1x1", [x], w, None, b, scale,
+                             offset, res, out, True, bf16)
+    if bf16:
+        w3 = torch.randn(3, 3, 64, 64, generator=gen, device=dev) / 24.0
+        with pytest.raises(RuntimeError, match="CUDA launch failed"):
+            GC._launch_wgmma(x, GC.pack_kxk_bf16(w3), b, scale, offset,
+                             res, out, 3, 1, True)
+    got = GC.gated_conv_1x1(x, w, b, scale, offset, res.clone(), bf16=bf16)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, GC.gated_conv_1x1_plain(
+        x, w, b, scale, offset, res, bf16=bf16), **F32)
+
+
 def test_basic_conv_passes_its_cached_1x1_packs(dev):
     """``BasicConv.forward`` (K3) and ``comb`` (K4) hand the loop the
-    module's cached pack, for each operand type."""
+    module's cached pack (through the cache's getter), for each operand
+    type."""
     seen = []
     real = GC._launch_1x1_wgmma
 
     def spy(name, xs, w2, packed, *args):
-        seen.append(packed)
+        seen.append(packed() if callable(packed) else packed)
         return real(name, xs, w2, packed, *args)
 
     conv = BasicConv(64, 64, 1).to(dev)
