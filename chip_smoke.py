@@ -11,19 +11,20 @@ without a device it exits non-zero at once. It
    full-width serving path (K1 bit-equal; K2/K3/K4 within the f32
    tolerance of ``tests/test_unet_pallas.py``, with bf16 operands
    too, since kernel and twin round the same operands and sum in f32;
-   the 9 K3/K4 calls of a frame on the 1x1 wgmma loop in both operand
-   modes, f32 as three TF32 products, each also with a residual) and
-   times both with CUDA events;
+   the 79 K2 calls of a frame on K2's wgmma loop and the 9 K3/K4 calls
+   on the 1x1 wgmma loop in both operand modes, f32 as three TF32
+   products, K2's at K up to 9 x 256 = 2304; the K3/K4 calls each also
+   with a residual) and times both with CUDA events;
 3. serves 4 requests (each timed) through
    ``read_tpu_torch.render.NeuralRenderer``
    from a random-weight full-width checkpoint written in ``read_tpu``'s
    format, over a 1M-point scene at 1216x368, and checks every kernel
-   ran on that path (launch counters) and the 1x1 wgmma loop exactly as
-   often as ``ops.gated_conv.conv1x1_route`` predicts (9 calls a
-   request, in every serving phase); then serves 2 of those requests
-   with ``dtype='bfloat16'``, which must run K2's bf16 wgmma loop as
-   often as ``ops.gated_conv.kxk_route`` predicts (79 calls a frame) and
-   match the all-twin request;
+   ran on that path (launch counters) and the two wgmma loops exactly as
+   often as their routes predict (``ops.gated_conv.kxk_route``: 79 K2
+   calls a request; ``conv1x1_route``: 9 K3/K4 calls), in every serving
+   phase; then serves 2 of those requests with ``dtype='bfloat16'``,
+   which must run the loops as often too and match the all-twin
+   request;
 4. holds K5, the exact z-buffer, bit-equal against its twin at 1M
    points (1216x368 at B=1 and 2, with heavy ties, and 256x256 at B=8)
    and times both;
@@ -40,16 +41,16 @@ without a device it exits non-zero at once. It
    through K5, K2 and K3;
 7. times ``read_tpu_torch.frame.make_frame`` at B=1 and B=4 with bf16
    and f32 operands, and compares one B=1 frame (f32 and bf16 operands)
-   with the same frame with every kernel swapped for its twin; a bf16
-   frame that runs the wgmma loop fewer times than the route predicts
-   fails, and so does any frame that runs the 1x1 loop fewer times;
+   with the same frame with every kernel swapped for its twin; a frame
+   that runs either wgmma loop fewer times than its route predicts
+   fails;
 8. runs the kernel bench (``read_tpu_torch.kernel_bench``) in-process:
    K1, K5 and K6 (bit-equal, ties included) at 1M points, 1216x368, B=1
    and 2; K7 beside K2 and K3, and K8's four modes, at the four level
    shapes; K4 at the frame's SCM sites and the two concat probes; f32
    and bf16; each against its twin, with its library yardstick and
-   bound; K2's bf16 rows (the wgmma loop) are printed beside K8 ``full``
-   bf16 (the old loop) of the same run.
+   bound; K2's rows (the wgmma loop) are printed beside K8 ``full`` (the
+   old tile loop) of the same run, in both operand modes.
 
 The serving phases also require K4 (``gated_conv_1x1_cat``): 3 launches
 per request, the SCMs' ``BasicConv_4``. TF32 is off throughout, so the
@@ -57,20 +58,22 @@ twins' convolutions and matmuls are full float32 (but for the TF32-on
 train timing). Any failed check
 raises and the script exits non-zero. The last stdout line is ``{"ok":
 true, "device": {...}}``; the line before it lists each kernel's
-launches (counted on the run of the path it serves: K1-K4 on the
-serving path, K2's wgmma loop on the bf16 serving requests, K5 on the
-training steps, K6-K8 on the kernel bench's first pass), error, its
-time, its twin's, the library call's and its bound (``shape`` says what
-they were measured on); the K2, K3, K4 and 1x1-loop entries add their
-bf16 per-frame times (``bf16_ms``, ``bf16_plain_ms``,
-``bf16_library_ms``, ``bf16_bound_ms``). The f32 entries of K3, K4 and
-the loop, which run three TF32 tensor-core products, take as
-``bound_ms`` the bound of that arithmetic (``3 * flops`` at the TF32
-peak, or the bytes) and give the f32 FMA peak's looser bound beside it
+launches (counted on the run of the path it serves: K1-K4 and both
+wgmma loops on the f32 serving path, K5 on the training steps, K6-K8 on
+the kernel bench's first pass; K2's loop also on the bf16 requests,
+``bf16_launches``), error, its time, its twin's, the library call's and
+its bound (``shape`` says what they were measured on); the K2, K3, K4
+and wgmma-loop entries add their bf16 per-frame times (``bf16_ms``,
+``bf16_plain_ms``, ``bf16_library_ms``, ``bf16_bound_ms``). The f32
+entries of K2, K3, K4 and the loops, whose wgmma calls run three TF32
+tensor-core products, take as ``bound_ms`` the bound of that arithmetic
+(``3 * flops`` at the TF32 peak, or the bytes; K2's 5 tile-loop calls at
+the f32 FMA peak) and give the f32 FMA peak's looser bound beside it
 (``f32_fma_bound_ms``).
 """
 
 import contextlib
+import itertools
 import json
 import os
 import statistics
@@ -457,7 +460,7 @@ def phase_serve_sort(ctx, dev, workdir):
     if counts["gated_conv_1x1_cat"] != 3 * len(imgs):
         raise SmokeFailure("serve_sort: K4 did not launch 3 times per "
                            "request")
-    conv1x1_ran(ctx, "serve_sort", counts, len(imgs))
+    routed_loops_ran(ctx, "serve_sort", counts, len(imgs))
     print(f"[serve_sort] trained checkpoint, default config (sort): "
           f"{len(imgs)} requests at {w}x{h}, "
           f"{seconds * 1e3 / len(imgs):.2f} ms/request (first included); "
@@ -480,7 +483,7 @@ def record_conv_shapes(dev, operands="bf16"):
 
     def kxk(x, w, b, scale, offset, res=None, **kw):
         record("gated_conv_kxk", [x], w, res, kw,
-               GC.kxk_route(x, w, kw["bf16"]))
+               GC.kxk_route(x, w, (b, scale, offset, res)))
         return saved[0](x, w, b, scale, offset, res, **kw)
 
     def k3(x, w, b, scale, offset, res=None, **kw):
@@ -519,6 +522,16 @@ def _conv_operands(gen, dev, xs, ws):
     scale = torch.rand(c2 // 2, generator=gen, device=dev) + 0.5
     offset = torch.randn(c2 // 2, generator=gen, device=dev) * 0.1
     return x, w, b, scale, offset
+
+
+def _sum_into(acc, n, ms, plain_ms, library_ms, bound_ms, by, fma_ms=0.0,
+              graph_ms=0.0, library_graph_ms=0.0):
+    """Add ``n`` calls of one shape to the per-frame sums ``acc``."""
+    for key, t in (("ms", ms), ("plain_ms", plain_ms),
+                   ("library_ms", library_ms), (by, bound_ms),
+                   ("f32_fma_bound_ms", fma_ms), ("graph_ms", graph_ms),
+                   ("library_graph_ms", library_graph_ms)):
+        acc[key] += n * t
 
 
 def _per_frame_line(name, ops, a):
@@ -569,9 +582,12 @@ def _new_sums():
 
 def phase_convs(report, ctx, dev):
     """Every K2 shape of one full-width frame, f32 and bf16 operands,
-    kernel against twin; sums per B=1 frame. The bf16 calls that
-    ``kxk_route`` sends to the wgmma loop also sum into its own entry.
-    The frame's recorded K2/K3/K4 calls and the loops' calls per frame
+    kernel against twin; sums per B=1 frame. The calls that
+    ``kxk_route`` sends to the wgmma loop (in both operand modes, f32 as
+    three TF32 products, weights packed once as ``BasicConv`` caches
+    them) also sum into its own entry; their f32 bound is that of three
+    TF32 products, the f32 FMA peak's beside it. The frame's recorded
+    K2/K3/K4 calls and the loops' calls per frame
     (``ctx['wgmma_per_frame']``, ``ctx['conv1x1_per_frame']``) go to
     ``ctx`` for the 1x1, frame and serving phases."""
     import torch
@@ -608,15 +624,16 @@ def phase_convs(report, ctx, dev):
                if has_res else None)
         flops, nbytes = conv_cost(xs, ws[0], stride, ws[-1], ws[-1] // 2,
                                   res=has_res)
+        wgmma = route == "wgmma"
         line = []
         # bf16: the bf16 bound, then the f32 bound too, because the
         # kernel and its twin round the same operands and sum in f32
         for ops, tols in (("f32", (F32_TOL,)),
                           ("bf16", (BF16_TOL, F32_TOL))):
-            kw["bf16"] = ops == "bf16"
-            wgmma = kw["bf16"] and route == "wgmma"
+            bf16 = kw["bf16"] = ops == "bf16"
             if wgmma:   # packed once, as BasicConv caches it
-                kw["packed"] = GC.pack_kxk_bf16(w)
+                kw["packed"] = (GC.pack_kxk_bf16(w) if bf16
+                                else GC.pack_kxk_tf32(w))
             before = GC.launches["gated_conv_kxk_wgmma"]
             got = kernel(x, w, b, scale, offset, res, **kw)
             ran = GC.launches["gated_conv_kxk_wgmma"] - before
@@ -628,18 +645,16 @@ def phase_convs(report, ctx, dev):
             err = max_err(f"{name} {xs} {ws} s{stride} {ops}", got, want,
                           tols)
             errs[name] = max(errs[name], err)
-            xl, wl = (x.bfloat16(), w.bfloat16()) if kw["bf16"] else (x, w)
+            xl, wl = (x.bfloat16(), w.bfloat16()) if bf16 else (x, w)
             t_k = event_ms(lambda: kernel(x, w, b, scale, offset, res,
                                           **kw))
             t_p = event_ms(lambda: twin(x, w, b, scale, offset, res, **kw))
             t_l = event_ms(lambda: library_conv(xl, wl, stride))
-            b_ms, by = bound(flops, nbytes, kw["bf16"])
-            for acc in [per_frame[name][ops]] + (
-                    [per_frame["gated_conv_kxk_wgmma"][ops]] if wgmma
-                    else []):
-                for key, t in (("ms", t_k), ("plain_ms", t_p),
-                               ("library_ms", t_l), (by, b_ms)):
-                    acc[key] += n * t
+            b_ms, by = bound(flops, nbytes, bf16, tf32x3=wgmma and not bf16)
+            fma_ms = 0.0 if bf16 else bound(flops, nbytes)[0]
+            for key in [name] + (["gated_conv_kxk_wgmma"] if wgmma else []):
+                _sum_into(per_frame[key][ops], n, t_k, t_p, t_l, b_ms, by,
+                          fma_ms)
             if wgmma:
                 errs["gated_conv_kxk_wgmma"] = max(
                     errs["gated_conv_kxk_wgmma"], err)
@@ -647,25 +662,25 @@ def phase_convs(report, ctx, dev):
             line.append(f"{ops}{' wgmma' if wgmma else ''}: err "
                         f"{err:.2e} kernel {t_k:.4f} ms twin "
                         f"{t_p:.4f} library {t_l:.4f} bound {b_ms:.4f} "
-                        f"({by})")
+                        f"({by})" + ("" if bf16 else
+                                     f" f32 FMA bound {fma_ms:.4f}"))
         print(f"[convs] {name} x{list(xs)} w{list(ws)} s{stride} "
               f"relu={relu} res={has_res} (x{n}/frame) | "
               + " | ".join(line))
     for key, by_ops in per_frame.items():
         for ops, a in by_ops.items():
-            if a["ms"] > 0:   # the wgmma loop takes no f32 call
-                _per_frame_line(key, ops, a)
+            _per_frame_line(key, ops, a)
     _report_per_frame(report, name, per_frame[name], errs[name],
-                      "the K2 shapes of one full-width B=1 frame, f32, "
-                      "summed (bf16_*: bf16 operands)")
-    a = per_frame["gated_conv_kxk_wgmma"]["bf16"]
-    report["gated_conv_kxk_wgmma"].update(
-        max_abs_err=errs["gated_conv_kxk_wgmma"], ms=a["ms"],
-        plain_ms=a["plain_ms"], library_ms=a["library_ms"],
-        bound_ms=a["operations"] + a["bytes"],
-        bound_by=max(("operations", "bytes"), key=a.get),
-        shape=f"the {ctx['wgmma_per_frame']} routed K2 calls of one "
-              "full-width B=1 frame, bf16, summed")
+                      "the K2 shapes of one full-width B=1 frame, f32 (the "
+                      "wgmma loop's calls as three TF32 products), summed "
+                      "(bf16_*: bf16 operands)")
+    _report_per_frame(report, "gated_conv_kxk_wgmma",
+                      per_frame["gated_conv_kxk_wgmma"],
+                      errs["gated_conv_kxk_wgmma"],
+                      f"the {ctx['wgmma_per_frame']} routed K2 calls of "
+                      "one full-width B=1 frame, f32 operands as three "
+                      "TF32 products (bound: their TF32 peak), summed "
+                      "(bf16_*: bf16 operands)")
 
 
 def phase_conv1x1(report, ctx, dev):
@@ -740,13 +755,8 @@ def phase_conv1x1(report, ctx, dev):
             b_ms, by = bound(flops, nbytes, bf16, tf32x3=not bf16)
             fma_ms = 0.0 if bf16 else bound(flops, nbytes)[0]
             for key in (name, "gated_conv_1x1_wgmma"):
-                acc = per_frame[key][ops]
-                for item, t in (("ms", t_k), ("plain_ms", t_p),
-                                ("library_ms", t_l), (by, b_ms),
-                                ("f32_fma_bound_ms", fma_ms),
-                                ("graph_ms", g_k),
-                                ("library_graph_ms", g_l)):
-                    acc[item] += n * t
+                _sum_into(per_frame[key][ops], n, t_k, t_p, t_l, b_ms, by,
+                          fma_ms, g_k, g_l)
             line.append(f"{ops}: err {err:.2e} kernel {t_k:.4f} ms twin "
                         f"{t_p:.4f} library {t_l:.4f} bound {b_ms:.4f} "
                         f"({by})" + ("" if bf16 else
@@ -770,7 +780,8 @@ def phase_conv1x1(report, ctx, dev):
 
 def phase_serve(report, ctx, dev, workdir):
     """The serving path: the checkpoint-driven renderer answers 4
-    requests with the packed-key z-buffer (K1), K2 and K3. The scene,
+    requests with the packed-key z-buffer (K1), K2 (on its wgmma loop
+    where routed), K3 and K4. The scene,
     poses and checkpoint go to ``ctx['serve']`` for ``serve_bf16``."""
     import torch
     from read_tpu_torch.frame import frame_inputs
@@ -813,11 +824,9 @@ def phase_serve(report, ctx, dev, workdir):
     for i, img in enumerate(imgs):
         if img.shape != (h, w, 3) or not np.isfinite(img).all():
             raise SmokeFailure(f"request {i}: bad frame {img.shape}")
-    if counts["gated_conv_kxk_wgmma"] != 0:
-        raise SmokeFailure("serve: float32 requests ran the bf16 loop")
-    conv1x1_ran(ctx, "serve", counts, len(imgs))
-    report["gated_conv_1x1_wgmma"]["launches"] = counts[
-        "gated_conv_1x1_wgmma"]
+    routed_loops_ran(ctx, "serve", counts, len(imgs))
+    for name in ("gated_conv_kxk_wgmma", "gated_conv_1x1_wgmma"):
+        report[name]["launches"] = counts[name]
     if not any(float(np.abs(a - b).max()) > 0
                for a, b in zip(imgs, imgs[1:])):
         raise SmokeFailure("the 4 requests rendered identical frames")
@@ -837,9 +846,10 @@ def phase_serve(report, ctx, dev, workdir):
 
 def phase_serve_bf16(report, ctx, dev):
     """The renderer with ``dtype='bfloat16'`` (bf16 conv operands) answers
-    2 of ``serve``'s requests from the same checkpoint: every K2 call the
-    route sends to the wgmma loop must run it, and the first frame must
-    match the same request with every kernel swapped for its twin."""
+    2 of ``serve``'s requests from the same checkpoint: every call the
+    routes send to the wgmma loops must run them, and the first frame
+    must match the same request with every kernel swapped for its
+    twin."""
     import torch
     from read_tpu_torch.kernel_bench import max_err
     from read_tpu_torch.render import NeuralRenderer
@@ -859,14 +869,9 @@ def phase_serve_bf16(report, ctx, dev):
             raise SmokeFailure(f"serve_bf16 request {i}: bad frame")
     if not float(np.abs(imgs[0] - imgs[1]).max()) > 0:
         raise SmokeFailure("serve_bf16: the 2 requests rendered the same")
-    want = 2 * ctx["wgmma_per_frame"]
-    if counts["gated_conv_kxk_wgmma"] != want:
-        raise SmokeFailure(f"serve_bf16: the wgmma loop ran "
-                           f"{counts['gated_conv_kxk_wgmma']} times, the "
-                           f"route predicts {want}")
-    report["gated_conv_kxk_wgmma"]["launches"] = counts[
+    routed_loops_ran(ctx, "serve_bf16", counts, len(imgs))
+    report["gated_conv_kxk_wgmma"]["bf16_launches"] = counts[
         "gated_conv_kxk_wgmma"]
-    conv1x1_ran(ctx, "serve_bf16", counts, len(imgs))
     with Twins():
         twin = r.infer(poses[0])
     err = max_err("serve_bf16 request 0 vs twins", torch.from_numpy(imgs[0]),
@@ -877,27 +882,30 @@ def phase_serve_bf16(report, ctx, dev):
           f"launches {counts}")
 
 
-def conv1x1_ran(ctx, what, counts, requests):
-    """Fail unless the 1x1 wgmma loop ran exactly as often as
-    ``conv1x1_route`` predicts for ``requests`` frames (9 a frame)."""
-    want = requests * ctx["conv1x1_per_frame"]
-    if counts["gated_conv_1x1_wgmma"] != want:
-        raise SmokeFailure(f"{what}: the 1x1 wgmma loop ran "
-                           f"{counts['gated_conv_1x1_wgmma']} times, the "
-                           f"route predicts {want}")
+def _routed(ctx):
+    """Each wgmma loop's launches per frame, as its route predicts: K2's
+    (``kxk_route``, 79) and the 1x1 loop's (``conv1x1_route``, 9), in
+    either operand mode."""
+    return (("gated_conv_kxk_wgmma", ctx["wgmma_per_frame"]),
+            ("gated_conv_1x1_wgmma", ctx["conv1x1_per_frame"]))
 
 
-def loops_ran(ctx, what, fn, ops):
-    """Run ``fn()``; fail unless the 1x1 wgmma loop and (bf16 operands)
-    K2's wgmma loop ran at least as often as their routes predict for
-    one frame call."""
+def routed_loops_ran(ctx, what, counts, requests):
+    """Fail unless both wgmma loops ran exactly as often as their routes
+    predict for ``requests`` frames."""
+    for name, per_frame in _routed(ctx):
+        if counts[name] != requests * per_frame:
+            raise SmokeFailure(f"{what}: {name} ran {counts[name]} times, "
+                               f"the route predicts {requests * per_frame}")
+
+
+def loops_ran(ctx, what, fn):
+    """Run ``fn()``; fail unless both wgmma loops ran at least as often
+    as their routes predict for one frame call."""
     from read_tpu_torch.ops import gated_conv as GC
-    loops = [("gated_conv_1x1_wgmma", ctx["conv1x1_per_frame"])]
-    if ops == "bf16":
-        loops.append(("gated_conv_kxk_wgmma", ctx["wgmma_per_frame"]))
     before = dict(GC.launches)
     out = fn()
-    for name, want in loops:
+    for name, want in _routed(ctx):
         ran = GC.launches[name] - before[name]
         if ran < want:
             raise SmokeFailure(f"{what}: {name} ran {ran} times, the "
@@ -912,7 +920,7 @@ def phase_frames(ctx, dev):
         for b in (1, 4):
             frame_fn, args = make_frame(b, ops, device=dev)
             out = loops_ran(ctx, f"frame B={b} {ops}",
-                            lambda: frame_fn(*args), ops)
+                            lambda: frame_fn(*args))
             torch.cuda.synchronize()
             if tuple(out.shape) != (b, *HW, 3) or \
                     not bool(torch.isfinite(out).all()):
@@ -935,8 +943,7 @@ def phase_frame_vs_twin(ctx, dev):
     for ops, tols in (("f32", (FRAME_TOL,)),
                       ("bf16", (BF16_TOL, FRAME_TOL))):
         frame_fn, args = make_frame(1, ops, device=dev)
-        got = loops_ran(ctx, f"frame_vs_twin {ops}", lambda: frame_fn(*args),
-                        ops)
+        got = loops_ran(ctx, f"frame_vs_twin {ops}", lambda: frame_fn(*args))
         with Twins():
             want = frame_fn(*args)
         torch.cuda.synchronize()
@@ -980,16 +987,17 @@ def phase_kernel_bench(report, dev):
              "the 4 bench shapes (368x1216x32 .. 46x152x256), f32, summed")
     fill("gated_conv_probe", lambda l: l.startswith("full") and
          l.endswith("f32"), "mode full at the 4 bench shapes, f32, summed")
-    # K2's bf16 rows run the wgmma loop, K8 full bf16 the old tile loop
-    for h, w, c in KB.CONV_SHAPES:
-        tag = f"{h}x{w} {c}->{c} bf16"
+    # K2's rows run the wgmma loop, K8 full the old tile loop
+    for (h, w, c), ops in itertools.product(KB.CONV_SHAPES,
+                                            ("f32", "bf16")):
+        tag = f"{h}x{w} {c}->{c} {ops}"
         new = [r for r in rows if r["kernel"] == "gated_conv_kxk"
                and r["label"] == tag]
         old = [r for r in rows if r["kernel"] == "gated_conv_probe"
                and r["label"] == f"full {tag}"]
         if not (new and old):
-            raise SmokeFailure(f"kernel_bench: no K2/K8 bf16 rows at {tag}")
-        print(f"[kernel_bench] K2 bf16 {tag}: wgmma loop {new[0]['ms']:.4f}"
+            raise SmokeFailure(f"kernel_bench: no K2/K8 rows at {tag}")
+        print(f"[kernel_bench] K2 {tag}: wgmma loop {new[0]['ms']:.4f}"
               f" ms, old loop (K8 full) {old[0]['ms']:.4f}, cuDNN "
               f"{new[0]['library_ms']:.4f}, bound {new[0]['bound_ms']:.4f}")
     print(f"[kernel_bench] {len(rows)} rows, every kernel within its "

@@ -25,15 +25,15 @@
 // What bounds them: arithmetic. At full width the UNet does ~16 GFLOP per
 // 3x3 conv (K = 9*Cin, N = 2*Cout) against a few hundred MB of
 // activations, far above the card's bytes-per-FLOP line; K4 at its SCM
-// shapes (K = 72..256) too. With f32 operands the CUDA cores' FMA rate
-// bounds them on the tile loops here (exact f32 has no tensor core path);
-// with bf16 operands the tensor cores do: K2's bf16 calls with
-// Cin % 32 == 0 and Cout % 8 == 0 run the warp-specialized wgmma loop of
-// gated_conv_wgmma.cuh (`gated_conv_kxk_wgmma`, its own note), the rest
-// mma.sync through WMMA here. K3 and the gated K4 with every C_j % 8 == 0
-// and Cout % 8 == 0 run the 1x1 wgmma loop of gated_conv_1x1_wgmma.cuh
-// (`gated_conv_1x1_wgmma`) in both operand modes: bf16 as K2's loop, f32
-// as three TF32 products held to the f32 bound (its own note).
+// shapes (K = 72..256) too. K2's calls with Cin % 32 == 0, Cout % 8 == 0
+// and aligned views run the warp-specialized wgmma loop of
+// gated_conv_wgmma.cuh (`gated_conv_kxk_wgmma`, its own note) on the
+// tensor cores, in both operand modes: bf16, and f32 as three TF32
+// products held to the f32 bound. The rest run the tile loops here: f32
+// bound by the CUDA cores' FMA rate, bf16 mma.sync through WMMA. K3 and
+// the gated K4 with every C_j % 8 == 0 and Cout % 8 == 0 run the 1x1
+// wgmma loop of gated_conv_1x1_wgmma.cuh (`gated_conv_1x1_wgmma`) in the
+// same two operand modes (its own note).
 //
 // Design: an implicit GEMM, M = output pixels, N = output channels, K =
 // k*k*Cin, with no im2col buffer in device memory; the TPU kernels' lane
@@ -128,25 +128,28 @@ extern "C" int gated_conv_kxk(const float* x, const float* w,
   return dispatch<true>(a, gc::PlainSrc(), aligned16(x), stream);
 }
 
-// K2 with bf16 operands on the wgmma loop (gated_conv_wgmma.cuh). wp is
-// the packed weight of ops/gated_conv.py `pack_kxk_bf16`: ntiles N tiles of
-// tile_n columns (64 or 128), each ceil(k*k*Cin / 64) blocks of
-// [tile_n, 64] bf16. Returns the error of setting the shared-memory size,
-// of the occupancy query or of the launch (cudaErrorInvalidValue for
-// arguments the loop does not take, misaligned epilogue pointers too).
+// K2 on the wgmma loop (gated_conv_wgmma.cuh). wp is the packed weight of
+// ops/gated_conv.py: `pack_kxk_bf16` (bf16 = 1; per N tile ceil(k*k*Cin /
+// 64) blocks [tile_n, 64] bf16) or `pack_kxk_tf32` (bf16 = 0, f32 operands
+// as three TF32 products; ceil(k*k*Cin / 32) blocks [2, tile_n, 32] f32),
+// ntiles N tiles of tile_n columns (64 or 128). Returns the error of
+// setting the shared-memory size, of the occupancy query or of the launch
+// (cudaErrorInvalidValue for arguments the loop does not take, misaligned
+// epilogue pointers too).
 extern "C" int gated_conv_kxk_wgmma(const float* x, const void* wp,
                                     const float* bias, const float* scale,
                                     const float* offset, const float* res,
                                     float* out, int B, int H, int W,
                                     int Cin, int Cout, int k, int stride,
                                     int relu, int tile_n, int ntiles,
-                                    void* stream) {
+                                    int bf16, void* stream) {
   const int pad = (k - 1) / 2;
+  const int ks = bf16 ? gcw::BK : gcw::TF32_BK;  // K a slice
   gcw::Args a{x, static_cast<const uint8_t*>(wp), bias, scale, offset,
               res, out, B, H, W, Cin,
               (H + 2 * pad - k) / stride + 1, (W + 2 * pad - k) / stride + 1,
               Cout, k, stride, pad, relu, k * k * Cin,
-              (k * k * Cin + gcw::BK - 1) / gcw::BK, ntiles};
+              (k * k * Cin + ks - 1) / ks, ntiles};
   if (Cin % 32 != 0 || Cout % 8 != 0 || !aligned16(x) || !aligned16(wp) ||
       !epilogue_aligned(bias, scale, offset, res, out) ||
       (tile_n != 64 && tile_n != 128) ||
@@ -154,7 +157,11 @@ extern "C" int gated_conv_kxk_wgmma(const float* x, const void* wp,
     return (int)cudaErrorInvalidValue;
   if (B * a.Ho * a.Wo == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  return tile_n == 64 ? gcw::launch<64>(a, s) : gcw::launch<128>(a, s);
+  if (bf16)
+    return tile_n == 64 ? gcw::launch<64, false>(a, s)
+                        : gcw::launch<128, false>(a, s);
+  return tile_n == 64 ? gcw::launch<64, true>(a, s)
+                      : gcw::launch<128, true>(a, s);
 }
 
 // K3: 1x1 conv over n pixels, i.e. [n, Cin] @ [Cin, 2*Cout] + epilogue.

@@ -37,9 +37,10 @@
 //   128-byte f32 row), staged as an hi and a lo part.
 //
 // Design, on K2's pattern (gated_conv_wgmma.cuh, whose barriers,
-// descriptors, bulk copy and epilogue it uses): M = pixels (rows of the
-// [n, C_j] inputs: no taps, halo or stride), N = the layer's f|m columns
-// interleaved by 8, K = the concatenated input channels.
+// descriptors, bulk copy, TF32 split and products and epilogue it uses):
+// M = pixels (rows of the [n, C_j] inputs: no taps, halo or stride), N =
+// the layer's f|m columns interleaved by 8, K = the concatenated input
+// channels.
 // - Weights: packed once per module (ops/gated_conv.py `pack_1x1_bf16`,
 //   `pack_1x1_tf32`; cached on BasicConv) into one block per (N tile, K
 //   slice) in the 128-byte swizzle: [64, 64] bf16, or [2, 64, 32] f32
@@ -74,43 +75,6 @@ struct Args {
                    // ntiles; B = H = 1, W = Wo = n pixels, Cin = K
   gc::CatSrc src;  // the inputs x_j [n, C_j]
 };
-
-__device__ __forceinline__ uint32_t tf32_rna(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// v's hi and lo tf32 parts, as 32-bit patterns
-__device__ __forceinline__ void split_tf32(float v, uint32_t* hi,
-                                           uint32_t* lo) {
-  *hi = tf32_rna(v);
-  *lo = tf32_rna(v - __uint_as_float(*hi));  // v - hi is exact
-}
-
-// wgmma.mma_async m64nNk8, f32 += tf32 x tf32, A and B K-major in shared
-// memory (the only layout tf32 takes; no transpose operands).
-__device__ __forceinline__ void mma_tf32_n64(float* d, uint64_t da,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
 
 // The loop. TF32: f32 operands as three tf32 products; else bf16.
 template <bool TF32>
@@ -178,10 +142,10 @@ __global__ void __launch_bounds__(256, 1) conv1x1_kernel(const Args a) {
         for (int i = 0; i < PER; ++i) {
           uint4 hi, lo;
           if constexpr (TF32) {
-            split_tf32(v[i][0].x, &hi.x, &lo.x);
-            split_tf32(v[i][0].y, &hi.y, &lo.y);
-            split_tf32(v[i][0].z, &hi.z, &lo.z);
-            split_tf32(v[i][0].w, &hi.w, &lo.w);
+            gcw::split_tf32(v[i][0].x, &hi.x, &lo.x);
+            gcw::split_tf32(v[i][0].y, &hi.y, &lo.y);
+            gcw::split_tf32(v[i][0].z, &hi.z, &lo.z);
+            gcw::split_tf32(v[i][0].w, &hi.w, &lo.w);
             gcw::st_shared_v4(dst + A_PART + i * 16 * ROW_BYTES, lo);
           } else {
             hi.x = gcw::pack_bf16x2(v[i][0].x, v[i][0].y);
@@ -215,9 +179,9 @@ __global__ void __launch_bounds__(256, 1) conv1x1_kernel(const Args a) {
           const uint64_t dal = da + (A_PART >> 4), dbl = db + (B_PART >> 4);
 #pragma unroll
           for (int ks = 0; ks < 4; ++ks) {  // +32 bytes per k8 step
-            mma_tf32_n64(d, da + 2 * ks, db + 2 * ks);
-            mma_tf32_n64(d, da + 2 * ks, dbl + 2 * ks);
-            mma_tf32_n64(d, dal + 2 * ks, db + 2 * ks);
+            gcw::mma_tf32_n64(d, da + 2 * ks, db + 2 * ks);
+            gcw::mma_tf32_n64(d, da + 2 * ks, dbl + 2 * ks);
+            gcw::mma_tf32_n64(d, dal + 2 * ks, db + 2 * ks);
           }
         } else {
 #pragma unroll

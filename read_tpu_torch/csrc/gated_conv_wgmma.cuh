@@ -1,44 +1,66 @@
-// K2's bf16 route for Hopper: a persistent, warp-specialized wgmma tile
-// loop fed by an mbarrier ring of staged tiles (`gated_conv_kxk_wgmma`,
-// gated_conv.cu).
+// K2 for Hopper: a persistent, warp-specialized wgmma tile loop fed by an
+// mbarrier ring of staged tiles (`gated_conv_kxk_wgmma`, gated_conv.cu),
+// in two operand modes.
 //
-// Replaces, for bf16 operands (JAX's `mxu_bf16`), read_tpu/ops/
-// gated_conv_pack.py `_conv3x3_chw_dot3_kernel` (:190, pallas_call :392)
-// and the strided transitions read_tpu/models/unet_pallas.py `_Ctx.conv`
-// routes through space-to-depth or im2col (:178-219). It takes the calls
-// with Cin % 32 == 0, Cout % 8 == 0 and a 16-byte aligned x; the rest
-// (the 8-channel descriptor inputs, the Cout = 3 heads, f32) keep the
-// tile loops of gated_conv_tile.cuh. Python routes (ops/gated_conv.py
-// `kxk_route`).
+// Replaces read_tpu/ops/gated_conv_pack.py `_conv3x3_chw_dot3_kernel`
+// (:190, pallas_call :392) and the strided transitions read_tpu/models/
+// unet_pallas.py `_Ctx.conv` routes through space-to-depth or im2col
+// (:178-219). It takes the calls with Cin % 32 == 0, Cout % 8 == 0, a
+// 16-byte aligned x and 8-byte aligned bias, scale, offset and residual
+// (the epilogue reads channel pairs), in either operand mode; the rest
+// (the 8-channel descriptor inputs, the Cout = 3 heads, misaligned views)
+// keep the tile loops of gated_conv_tile.cuh. Python routes
+// (ops/gated_conv.py `kxk_route`).
+//
+// Two operand modes, one loop (template argument TF32):
+// - bf16 (JAX's `mxu_bf16`): the producer rounds the input to bf16 (RNE,
+//   as torch's .to(bfloat16)) and one `wgmma m64nNk16 .bf16` product a
+//   k16 step sums in f32. A K slice is 64 channels (one 128-byte row).
+// - f32: three TF32 products, as the 1x1 loop's f32 mode
+//   (gated_conv_1x1_wgmma.cuh): each operand v is split as hi =
+//   rna_tf32(v), lo = rna_tf32(v - hi) (`split_tf32`), and three `wgmma
+//   m64nNk8 .tf32` products a k8 step sum hi*hi + hi*lo + lo*hi into one
+//   f32 sum. Not exact f32 FMA, but held to the f32 bound (atol 2e-5, rtol
+//   1e-4) against the plain f32 twin up to K = 9 * 256. A K slice is 32
+//   channels of one tap (one 128-byte f32 row; Cin % 32 == 0, so no slice
+//   straddles two taps), staged as an hi and a lo part. The tensor cores'
+//   own f32 accumulation drifted past that bound over K >= 1024, so each
+//   slice's products start a fresh wgmma sum, added into f32 registers
+//   (IEEE adds) once its group has retired.
 //
 // What bounds it: at the 32-channel full-resolution layer (368x1216) the
 // f32 activations read and written (0.034 ms at 3.35 TB/s against 0.017 ms
 // of bf16 tensor-core work); at the deeper levels the tensor-core
-// operations (0.017 ms a 3x3 layer). It runs at 5-7x that (PERF.md), with
-// the tensor cores mostly idle: fewer barrier arrivals changed nothing,
-// and more registers a thread (one block per SM instead of two) made it
-// slower, so the number of stages each SM keeps in flight sets its pace.
+// operations (0.017 ms a 3x3 layer in bf16, 6x that as three TF32
+// products). The bf16 mode runs at 5-7x that (PERF.md), with the tensor
+// cores mostly idle: fewer barrier arrivals changed nothing, and more
+// registers a thread (one block per SM instead of two) made it slower,
+// so the number of stages each SM keeps in flight sets its pace. The f32
+// mode runs at ~3.4x its TF32 bound over a frame, 0.6x cuDNN's exact f32;
+// neither a deeper ring nor two blocks an SM moved it (PERF.md).
 //
 // Design. A channels-last implicit GEMM: M = output pixels, N = the
-// layer's f|m columns, K = k*k*Cin tap-major, in 64-deep slices (two taps
-// of 32 channels at Cin = 32; one tap's 64 channels otherwise).
-// - Weights: `pack_kxk_bf16` (ops/gated_conv.py) packs them once per
-//   module into bf16 blocks of [TILE_N rows (n), 64 (k)], one contiguous
-//   block per (N tile, K slice), already in the 128-byte swizzle the wgmma
-//   descriptor reads, with f and m columns interleaved in groups of 8
-//   ([f c0..7 | m c0..7 | f c8..15 | ...]). One `cp.async.bulk` per stage
-//   brings a block in; no tensor map, so the build links only cudart.
+// layer's f|m columns, K = k*k*Cin tap-major, in slices of one 128-byte
+// row (bf16: two taps of 32 channels at Cin = 32, one tap's 64 channels
+// otherwise; f32: 32 channels of one tap).
+// - Weights: `pack_kxk_bf16` / `pack_kxk_tf32` (ops/gated_conv.py) pack
+//   them once per module into blocks of [TILE_N rows (n), 128 bytes (k)]
+//   (f32: an hi block, then a lo block), one contiguous run per (N tile,
+//   K slice), already in the 128-byte swizzle the wgmma descriptor reads,
+//   with f and m columns interleaved in groups of 8 ([f c0..7 | m c0..7 |
+//   f c8..15 | ...]). One `cp.async.bulk` per stage brings it in; no
+//   tensor map, so the build links only cudart.
 // - Producer warpgroup (the block's last 128 threads): per slice, waits
 //   for the stage to be empty, has one thread post the weight block's byte
 //   count and issue its bulk copy, then all 128 load the input patch as
 //   16-byte f32 vectors (zero outside the image, past K and past the last
-//   pixel; stride and k = 4 by index arithmetic), round to bf16
-//   (`__floats2bfloat162_rn`, RNE as torch's .to(bfloat16)) and store the
-//   swizzled A stage; `fence.proxy.async.shared::cta` makes those generic
-//   stores visible to wgmma before each thread's arrive on the stage's
-//   full barrier (129 arrivals: 128 threads + the byte-count arrive).
+//   pixel; stride and k = 4 by index arithmetic), convert them (bf16 RNE,
+//   or TF32 hi and lo) and store the swizzled A part(s);
+//   `fence.proxy.async.shared::cta` makes those generic stores visible to
+//   wgmma before each thread's arrive on the stage's full barrier (129
+//   arrivals: 128 threads + the byte-count arrive).
 // - Consumer warpgroup (the block's first 128 threads, 64 pixels): waits
-//   for the full barrier, issues 4 `wgmma.mma_async m64nTILE_Nk16` from
+//   for the full barrier, issues 4 bf16 or 12 tf32 `wgmma.mma_async` from
 //   shared memory, commits, keeps that group in flight (`wait_group 1`)
 //   and frees the previous stage (one arrive per warp on its empty
 //   barrier).
@@ -50,12 +72,16 @@
 // - Persistent blocks: as many as fit on the card at once, each walking
 //   tiles t, t + gridDim.x, ... through one ring, so no block waits to
 //   start and one tile's epilogue overlaps the next tile's staging.
-// Tiling: 64-pixel tiles, STAGES = 4, and TILE_N (set by the packing) 64
-// for Cout <= 32 and 128 otherwise (Cout = 128 and 256 take 2 and 4 N
-// tiles). At 46x152x256 that gives 110 x 4 = 440 tiles; at 92x304x128
-// 874; at 368x1216x32 6992. Other tilings (2-6 stages, two consumer
-// warpgroups, 256-column tiles) were measured (PERF.md): none was faster
-// at every level, so this one alone is built.
+// Tiling: 64-pixel tiles, TILE_N (set by the packing) 64 for Cout <= 32
+// and 128 otherwise (Cout = 128 and 256 take 2 and 4 N tiles). At
+// 46x152x256 that gives 110 x 4 = 440 tiles; at 92x304x128 874; at
+// 368x1216x32 6992. bf16: STAGES = 4 stages of 24 KB (128 columns); other
+// tilings (2-6 stages, two consumer warpgroups, 256-column tiles) were
+// measured (PERF.md): none was faster at every level, so this one alone
+// is built. f32: a stage is twice as large (48 KB at 128 columns) and a
+// consumer thread holds two accumulator sets (153 registers at 128
+// columns: one block an SM); TF32_STAGES = 3 ran fastest of 2, 3 and 4,
+// and 64-column tiles (two blocks an SM) ran no faster (PERF.md).
 
 #pragma once
 
@@ -65,14 +91,17 @@
 
 namespace gcw {
 
-constexpr int BK = 64;          // K slice: 64 bf16 = one 128-byte row
+constexpr int BK = 64;          // bf16 K slice: 64 bf16 = one 128-byte row
+constexpr int TF32_BK = 32;     // f32 K slice: 32 f32 = one 128-byte row
 constexpr int ROW_BYTES = 128;  // a swizzled row of A or B
 constexpr int BM = 64;          // output pixels a tile: one warpgroup's M
-constexpr int STAGES = 4;       // ring depth
+constexpr int STAGES = 4;       // ring depth, bf16
+constexpr int TF32_STAGES = 3;  // ring depth, f32 (three TF32 products)
 
 struct Args {
   const float* x;       // [B, H, W, Cin] f32, 16-byte aligned
-  const uint8_t* wp;    // packed bf16 [ntiles, slices, TILE_N, 64]
+  const uint8_t* wp;    // packed: bf16 [ntiles, slices, TILE_N, 64] or
+                        // f32 [ntiles, slices, 2, TILE_N, 32]
   const float* bias;    // [2*Cout]
   const float* scale;   // [Cout]
   const float* offset;  // [Cout]
@@ -227,6 +256,86 @@ __device__ __forceinline__ void mma(float* d, uint64_t da, uint64_t db) {
   else mma_n128(d, da, db);
 }
 
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// v's hi and lo tf32 parts, as 32-bit patterns
+__device__ __forceinline__ void split_tf32(float v, uint32_t* hi,
+                                           uint32_t* lo) {
+  *hi = tf32_rna(v);
+  *lo = tf32_rna(v - __uint_as_float(*hi));  // v - hi is exact
+}
+
+// wgmma.mma_async m64nNk8, f32 += tf32 x tf32 (f32 = tf32 x tf32 where
+// `acc` is false: the accumulator's old value is not read), A and B
+// K-major in shared memory (the only layout tf32 takes; no transpose
+// operands).
+__device__ __forceinline__ void mma_tf32_n64(float* d, uint64_t da,
+                                             uint64_t db, bool acc = true) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"((int)acc));
+}
+
+__device__ __forceinline__ void mma_tf32_n128(float* d, uint64_t da,
+                                              uint64_t db, bool acc = true) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"((int)acc));
+}
+
+template <int TILE_N>
+__device__ __forceinline__ void mma_tf32(float* d, uint64_t da, uint64_t db,
+                                         bool acc) {
+  if constexpr (TILE_N == 64) mma_tf32_n64(d, da, db, acc);
+  else mma_tf32_n128(d, da, db, acc);
+}
+
 __device__ __forceinline__ float gate(float f, float g, int relu) {
   if (relu) f = f > 0.0f ? f : expm1f(f);
   return f * (1.0f / (1.0f + expf(-g)));
@@ -272,11 +381,16 @@ __device__ __forceinline__ void epilogue(const Args& a, const float* d,
 // The tile loop, persistent: each block walks the output tiles t =
 // blockIdx.x, + gridDim.x, ... (BM consecutive pixels of N tile
 // t / mblocks), and its producer and consumer run one ring through all of
-// them, so one tile's epilogue overlaps the next tile's staging.
-template <int TILE_N>
+// them, so one tile's epilogue overlaps the next tile's staging. TF32:
+// f32 operands as three tf32 products; else bf16.
+template <int TILE_N, bool TF32>
 __global__ void __launch_bounds__(256, 1) wgmma_kernel(const Args a) {
-  constexpr uint32_t A_BYTES = BM * ROW_BYTES, B_BYTES = TILE_N * ROW_BYTES;
-  constexpr int ST = STAGES;
+  constexpr int P = TF32 ? 2 : 1;  // parts of an operand: hi (and lo)
+  constexpr uint32_t A_PART = BM * ROW_BYTES, B_PART = TILE_N * ROW_BYTES;
+  constexpr uint32_t A_BYTES = P * A_PART, B_BYTES = P * B_PART;
+  constexpr int ST = TF32 ? TF32_STAGES : STAGES;
+  constexpr int KS = TF32 ? TF32_BK : BK;  // K a slice: one 128-byte row
+  constexpr int CH = KS / 8;               // channels a 16-byte chunk
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sA = base, sB = base + ST * A_BYTES;
@@ -295,7 +409,7 @@ __global__ void __launch_bounds__(256, 1) wgmma_kernel(const Args a) {
   __syncthreads();
 
   if (wg == 1) {
-    // ---- producer warpgroup: pixel rows r0 + 16 i, 8-channel chunk c8
+    // ---- producer warpgroup: pixel rows r0 + 16 i, 16-byte chunk c8
     constexpr int PER = BM / 16;
     const int tp = tid - 128, c8 = tp & 7, r0 = tp >> 3;
     // row m = r0 + 16 i keeps m % 8 = r0 % 8: chunk c8 lands at c8 ^ (m % 8)
@@ -329,41 +443,90 @@ __global__ void __launch_bounds__(256, 1) wgmma_kernel(const Args a) {
           bulk_copy(sB + st * B_BYTES, wsrc + (size_t)it * B_BYTES, B_BYTES,
                     full + 8 * st);
         }
-        const int kidx = it * BK + c8 * 8;
+        const int kidx = it * KS + c8 * CH;
         const bool kin = kidx < a.K;
         const int tap = kin ? kidx / a.Cin : 0;
         const int ci = kidx - tap * a.Cin;
         const int ky = tap / a.k, kx = tap - ky * a.k;
-        float4 v[PER][2];
+        float4 v[PER][CH / 4];
 #pragma unroll
         for (int i = 0; i < PER; ++i) {
           const int iy = iy0[i] + ky, ix = ix0[i] + kx;
-          v[i][0] = v[i][1] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+          for (int q = 0; q < CH / 4; ++q)
+            v[i][q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
           if (kin && img[i] >= 0 && iy >= 0 && iy < a.H && ix >= 0 &&
               ix < a.W) {
             const float4* src = reinterpret_cast<const float4*>(
                 a.x + ((size_t)(img[i] + iy) * a.W + ix) * a.Cin + ci);
-            v[i][0] = src[0];
-            v[i][1] = src[1];
+#pragma unroll
+            for (int q = 0; q < CH / 4; ++q) v[i][q] = src[q];
           }
         }
         const uint32_t dst = sA + st * A_BYTES + a_off;
 #pragma unroll
         for (int i = 0; i < PER; ++i) {
-          uint4 pk;
-          pk.x = pack_bf16x2(v[i][0].x, v[i][0].y);
-          pk.y = pack_bf16x2(v[i][0].z, v[i][0].w);
-          pk.z = pack_bf16x2(v[i][1].x, v[i][1].y);
-          pk.w = pack_bf16x2(v[i][1].z, v[i][1].w);
-          st_shared_v4(dst + i * 16 * ROW_BYTES, pk);
+          uint4 hi, lo;
+          if constexpr (TF32) {
+            split_tf32(v[i][0].x, &hi.x, &lo.x);
+            split_tf32(v[i][0].y, &hi.y, &lo.y);
+            split_tf32(v[i][0].z, &hi.z, &lo.z);
+            split_tf32(v[i][0].w, &hi.w, &lo.w);
+            st_shared_v4(dst + A_PART + i * 16 * ROW_BYTES, lo);
+          } else {
+            hi.x = pack_bf16x2(v[i][0].x, v[i][0].y);
+            hi.y = pack_bf16x2(v[i][0].z, v[i][0].w);
+            hi.z = pack_bf16x2(v[i][CH / 4 - 1].x, v[i][CH / 4 - 1].y);
+            hi.w = pack_bf16x2(v[i][CH / 4 - 1].z, v[i][CH / 4 - 1].w);
+          }
+          st_shared_v4(dst + i * 16 * ROW_BYTES, hi);
         }
         // generic-proxy stores -> visible to wgmma (async proxy)
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         bar_arrive(full + 8 * st);
       }
     }
+  } else if constexpr (TF32) {
+    // ---- consumer warpgroup, f32 operands: pixels m0 .. m0 + 63 of each
+    // tile. The tensor cores' f32 accumulation does not round to nearest:
+    // over K2's up to 9 x 256 = 2304 channels its error grew past the f32
+    // bound (PERF.md). So each slice's three products start a fresh wgmma
+    // sum (d, `acc` false on its first product) and are added into sum
+    // with IEEE adds once that slice's group has retired (wait_group 0).
+    const int lane = tid % 32;
+    int g = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      float d[TILE_N / 2], sum[TILE_N / 2];
+#pragma unroll
+      for (int i = 0; i < TILE_N / 2; ++i) d[i] = sum[i] = 0.0f;
+      for (int it = 0; it < a.slices; ++it, ++g) {
+        const int st = g % ST;
+        bar_wait(full + 8 * st, (g / ST) & 1);
+        const uint64_t da = desc(sA + st * A_BYTES);
+        const uint64_t db = desc(sB + st * B_BYTES);
+        // the lo parts: A_PART and B_PART bytes on, in 16-byte units
+        const uint64_t dal = da + (A_PART >> 4), dbl = db + (B_PART >> 4);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < KS / 8; ++ks) {  // +32 bytes per k8 step
+          mma_tf32<TILE_N>(d, da + 2 * ks, db + 2 * ks, ks > 0);
+          mma_tf32<TILE_N>(d, da + 2 * ks, dbl + 2 * ks, true);
+          mma_tf32<TILE_N>(d, dal + 2 * ks, db + 2 * ks, true);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();  // this stage's group has retired
+        if (lane == 0) bar_arrive(empty + 8 * st);
+#pragma unroll
+        for (int i = 0; i < TILE_N / 2; ++i) sum[i] += d[i];
+      }
+      const int row = (t % mblocks) * BM + 16 * (tid / 32) + lane / 4;
+      const int p[2] = {row < npix ? row : -1,
+                        row + 8 < npix ? row + 8 : -1};
+      epilogue<TILE_N>(a, sum, p, t / mblocks);
+    }
   } else {
-    // ---- consumer warpgroup: pixels m0 .. m0 + 63 of each tile
+    // ---- consumer warpgroup, bf16 operands: pixels m0 .. m0 + 63 of
+    // each tile
     const int lane = tid % 32;
     int g = 0;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
@@ -377,7 +540,7 @@ __global__ void __launch_bounds__(256, 1) wgmma_kernel(const Args a) {
         const uint64_t db = desc(sB + st * B_BYTES);
         wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < BK / 16; ++ks)  // +32 bytes per k16 step
+        for (int ks = 0; ks < KS / 16; ++ks)  // +32 bytes per k16 step
           mma<TILE_N>(d, da + 2 * ks, db + 2 * ks);
         wgmma_commit();
         wgmma_wait<1>();  // the previous stage's group has retired
@@ -393,11 +556,14 @@ __global__ void __launch_bounds__(256, 1) wgmma_kernel(const Args a) {
   }
 }
 
-// Dynamic shared memory of one block: the A and B stages, the full and
-// empty barriers, and 1 KB to align the stages to the swizzle's 1024 bytes.
-template <int TILE_N>
+// Dynamic shared memory of one block: the A and B stages (twice as large
+// in TF32 mode: hi and lo parts), the full and empty barriers, and 1 KB to
+// align the stages to the swizzle's 1024 bytes.
+template <int TILE_N, bool TF32>
 constexpr size_t smem_bytes() {
-  return (size_t)STAGES * (BM + TILE_N) * ROW_BYTES + 16 * STAGES + 1024;
+  constexpr int ST = TF32 ? TF32_STAGES : STAGES;
+  return (size_t)ST * (TF32 ? 2 : 1) * (BM + TILE_N) * ROW_BYTES + 16 * ST +
+         1024;
 }
 
 // How many blocks of `kern` (256 threads, `smem` bytes of dynamic shared
@@ -437,12 +603,12 @@ inline int resident_blocks(const void* kern, size_t smem, int* cache,
 }
 
 // Launch as many blocks as fit on the device at once (at most one a
-// tile), for each TILE_N.
-template <int TILE_N>
+// tile), for each TILE_N and operand mode.
+template <int TILE_N, bool TF32>
 int launch(const Args& a, cudaStream_t stream) {
   static int cache[MAX_DEVICES];
-  auto kern = wgmma_kernel<TILE_N>;
-  constexpr size_t smem = smem_bytes<TILE_N>();
+  auto kern = wgmma_kernel<TILE_N, TF32>;
+  constexpr size_t smem = smem_bytes<TILE_N, TF32>();
   int most = 0;
   const int e = resident_blocks(reinterpret_cast<const void*>(kern), smem,
                                 cache, &most);

@@ -12,17 +12,17 @@ The counterpart of the JAX package's kernel benches, one group each:
   1x1 beside K3 at ``(368, 1216, 32->32)``, ``(184, 608, 64->64)``,
   ``(92, 304, 128->128)``, ``(46, 152, 256->256)``, f32 and bf16;
 - ``probe`` (``scripts/probe_pack_split.py``): K8's four modes at the
-  same four shapes, f32 and bf16 (K8 runs K2's old tile loops, so its
-  bf16 ``full`` rows are the old bf16 loop beside the ``convs`` group's
-  K2 bf16 rows, which run the wgmma loop);
+  same four shapes, f32 and bf16 (K8 still runs K2's old tile loops, so
+  its ``full`` rows are the old loop beside the ``convs`` group's K2
+  rows, which run the wgmma loop in both operand modes);
 - ``cat`` (``scripts/probe_pack_new.py`` ``cat11_*``): K4 at the three
   SCM sites of the serving frame and at ``cat11_convs2`` (32+32->32) and
   ``cat11_aff0`` (32+64+128+256->32), 1216x368, f32 and bf16.
 
-K3 and K4 run the 1x1 wgmma loop at every bench shape (f32 operands as
-three TF32 products), with their weights packed once per row, as
-``BasicConv`` caches them; their f32 rows take the bound of that
-arithmetic (``tf32x3``) and carry the f32 FMA peak's as
+K2 runs its wgmma loop and K3 and K4 the 1x1 wgmma loop at every bench
+shape (f32 operands as three TF32 products), with their weights packed
+once per row, as ``BasicConv`` caches them; their f32 rows take the
+bound of that arithmetic (``tf32x3``) and carry the f32 FMA peak's as
 ``f32_fma_bound_ms``.
 
 Each row gives the kernel's device time (:func:`event_ms`: CUDA events
@@ -94,8 +94,8 @@ def bound(flops: float, nbytes: float, bf16: bool = False,
     """``(ms, 'operations' | 'bytes')``: the least time the card could
     take, the larger of ``flops`` at the f32 (or bf16 tensor-core) peak
     and ``nbytes`` at the HBM rate, and which of the two it is.
-    ``tf32x3``: f32 operands as three TF32 tensor-core products (the 1x1
-    wgmma loop's f32 mode), ``3 * flops`` at the TF32 peak."""
+    ``tf32x3``: f32 operands as three TF32 tensor-core products (the
+    wgmma loops' f32 mode), ``3 * flops`` at the TF32 peak."""
     if tf32x3:
         flops, peak = 3 * flops, PEAK_TF32
     else:
@@ -334,7 +334,8 @@ def conv_rows(dev) -> List[Row]:
                 tag = f"{h}x{w} {c}->{c} {'bf16' if bf16 else 'f32'}"
                 if k == 3:
                     lib = (lambda xl=xl, wl=wl: library_conv(xl, wl))
-                    packed = GC.pack_kxk_bf16(wk) if bf16 else None
+                    packed = (GC.pack_kxk_bf16(wk) if bf16
+                              else GC.pack_kxk_tf32(wk))
                     rows.append(Row(
                         "convs", "gated_conv_kxk", tag,
                         lambda x=x, a=(wk, b, scale, offset), bf=bf16,
@@ -343,7 +344,8 @@ def conv_rows(dev) -> List[Row]:
                         lambda x=x, a=(wk, b, scale, offset), bf=bf16:
                             GC.gated_conv_kxk_plain(x, *a, bf16=bf),
                         lib, (BF16_TOL, F32_TOL) if bf16 else (F32_TOL,),
-                        *conv_cost(x.shape, 3, 1, 2 * c, c), bf16))
+                        *conv_cost(x.shape, 3, 1, 2 * c, c), bf16,
+                        tf32x3=not bf16))
                     kern, twin = R2.gated_conv3x3_r2, R2.gated_conv3x3_r2_plain
                     kname = "gated_conv3x3_r2"
                 else:

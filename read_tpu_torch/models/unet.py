@@ -4,11 +4,12 @@ Counterpart of ``read_tpu/models/unet.py:130-365`` (topology and
 parameter names). The **serving** route (``train=None``, the default)
 runs it the way ``read_tpu/models/unet_pallas.py`` runs it for
 inference, under ``torch.no_grad()``: BatchNorm folded into each gated
-conv's affine
-(``_fold_bn`` :43-49), every 3x3 and strided conv on K2, the SCM 1x1
-convs on K3, the SCM ``BasicConv_4`` over its concat of two
-same-resolution maps on K4 (the concat never written; K3 and K4 on the
-1x1 wgmma loop, with their packed weight cached), and the 1x1 convs
+conv's affine (``_fold_bn`` :43-49), every 3x3 and strided conv on K2
+(on its wgmma loop where ``GC.kxk_route`` says so, with its packed
+weight cached), the SCM 1x1 convs on K3, the SCM ``BasicConv_4`` over
+its concat of two same-resolution maps on K4 (the concat never written;
+K3 and K4 on the 1x1 wgmma loop, with their packed weight cached), and
+the 1x1 convs
 over concatenations of resampled maps (AFF ``BasicConv_0``, ``Convs*``)
 as ``conv1x1_comb`` (:228-276): ``conv1x1(concat(up(x_j))) == sum_j
 up(x_j @ W_j)``, low-resolution matmuls, the resample, and a PyTorch
@@ -191,9 +192,14 @@ class BasicConv(nn.Module):
         return hit[1]
 
     def packed_kxk_bf16(self) -> torch.Tensor:
-        """``GC.pack_kxk_bf16`` of the conv kernel (K2's wgmma loop),
-        cached (:meth:`_packed_with`)."""
+        """``GC.pack_kxk_bf16`` of the conv kernel (K2's wgmma loop, bf16
+        operands), cached (:meth:`_packed_with`)."""
         return self._packed_with(GC.pack_kxk_bf16)
+
+    def packed_kxk_tf32(self) -> torch.Tensor:
+        """``GC.pack_kxk_tf32`` of the conv kernel (K2's wgmma loop, f32
+        operands as three TF32 products), cached (:meth:`_packed_with`)."""
+        return self._packed_with(GC.pack_kxk_tf32)
 
     def packed_1x1(self, bf16: bool) -> torch.Tensor:
         """``GC.pack_1x1_bf16`` (``bf16``) or ``GC.pack_1x1_tf32`` of the
@@ -204,14 +210,16 @@ class BasicConv(nn.Module):
 
     def prepare(self, bf16: bool) -> None:
         """Fill the caches now: the folded BN, and the weight a wgmma
-        loop takes for ``bf16`` operands (the 1x1 loop's for a 1x1 conv,
-        K2's for a bf16 k x k conv). A renderer calls it at load, so no
+        loop takes for ``bf16`` or f32 operands (the 1x1 loop's for a 1x1
+        conv, K2's for a k x k conv). A renderer calls it at load, so no
         request folds or packs."""
         self.folded_bn()
         if self.k == 1 and self.stride == 1:
             self.packed_1x1(bf16)
         elif bf16:
             self.packed_kxk_bf16()
+        else:
+            self.packed_kxk_tf32()
 
     def forward(self, x: torch.Tensor, bf16: bool = False,
                 train: Optional[bool] = None,
@@ -227,7 +235,8 @@ class BasicConv(nn.Module):
                                      packed=lambda: self.packed_1x1(bf16))
         return GC.gated_conv_kxk(x, w, b, scale, offset, res,
                                  stride=self.stride, relu=self.relu,
-                                 bf16=bf16, packed=self.packed_kxk_bf16)
+                                 bf16=bf16, packed=self.packed_kxk_bf16
+                                 if bf16 else self.packed_kxk_tf32)
 
     def _differentiable(self, x: torch.Tensor, train: bool,
                         res: Optional[torch.Tensor]) -> torch.Tensor:

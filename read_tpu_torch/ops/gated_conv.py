@@ -25,30 +25,33 @@ to bfloat16 and accumulates in float32 (JAX's ``bf16_mxu``).
 Each wrapper sends a CPU tensor to its plain twin and a CUDA tensor to
 its kernel (anything else raises). ``launches[<wrapper name>]`` counts
 each wrapper's kernel launches; ``launches['gated_conv_kxk_wgmma']``
-counts the K2 launches :func:`kxk_route` sent to the wgmma loop, and
-``launches['gated_conv_1x1_wgmma']`` the K3 and K4 launches
-:func:`conv1x1_route` sent to the 1x1 wgmma loop (they count under their
-wrapper's name too).
+counts the K2 launches :func:`kxk_route` sent to the wgmma loop (both
+operand modes), and ``launches['gated_conv_1x1_wgmma']`` the K3 and K4
+launches :func:`conv1x1_route` sent to the 1x1 wgmma loop (they count
+under their wrapper's name too).
 
-K2 has two loops on CUDA, chosen by :func:`kxk_route`: bf16 operands with
-``Cin % 32 == 0``, ``Cout % 8 == 0`` and a 16-byte aligned ``x`` take the
-warp-specialized wgmma loop (``csrc/gated_conv_wgmma.cuh``), whose weight
-:func:`pack_kxk_bf16` packs once (``models.unet.BasicConv`` caches it);
-the rest take the tile loops of ``csrc/gated_conv_tile.cuh``.
+K2 has two loops on CUDA, chosen by :func:`kxk_route`: a call with
+``Cin % 32 == 0``, ``Cout % 8 == 0``, a 16-byte aligned ``x`` and 8-byte
+aligned bias, scale, offset and residual takes the warp-specialized
+wgmma loop (``csrc/gated_conv_wgmma.cuh``) in either operand mode, with
+the weight of :func:`pack_kxk_bf16` or :func:`pack_kxk_tf32`; the rest
+take the tile loops of ``csrc/gated_conv_tile.cuh``.
 
 K3 and K4 have two loops on CUDA too, chosen by :func:`conv1x1_route`: a
 gated call whose inputs all have ``C % 8 == 0`` and 16-byte aligned
 data, with ``Cout % 8 == 0`` and 8-byte aligned bias, scale, offset and
 residual, takes the 1x1 wgmma loop (``csrc/gated_conv_1x1_wgmma.cuh``)
 in either operand mode, with the weight of :func:`pack_1x1_bf16` or
-:func:`pack_1x1_tf32`; the rest take the tile loops. A wrapper's
-``packed`` is the packed weight or a function that returns it, called
-only when the wgmma route runs (``models.unet.BasicConv`` passes its
-cache's getter). With bf16 operands the loop is K2's arithmetic. With f32
-operands it is **not exact f32 FMA**: each operand is split into TF32
-parts (:func:`tf32_split`) and three TF32 tensor-core products ``hi*hi +
-hi*lo + lo*hi`` are summed in f32, which holds the f32 bound ``atol 2e-5,
-rtol 1e-4`` against the twins; the twins stay exact f32.
+:func:`pack_1x1_tf32`; the rest take the tile loops.
+
+A wrapper's ``packed`` is the packed weight or a function that returns
+it, called only when a wgmma route runs (``models.unet.BasicConv``
+passes its cache's getter). With bf16 operands both wgmma loops round
+both operands to bf16 and sum in f32. With f32 operands they are **not
+exact f32 FMA**: each operand is split into TF32 parts
+(:func:`tf32_split`) and three TF32 tensor-core products ``hi*hi + hi*lo
++ lo*hi`` are summed in f32, which holds the f32 bound ``atol 2e-5, rtol
+1e-4`` against the twins; the twins stay exact f32.
 """
 
 from __future__ import annotations
@@ -62,8 +65,8 @@ import torch.nn.functional as F
 from read_tpu_torch import _build
 
 __all__ = ["gated_epilogue", "gated_conv_kxk", "gated_conv_kxk_plain",
-           "kxk_route", "wgmma_tile_n", "pack_kxk_bf16", "conv1x1_route",
-           "pack_1x1_bf16", "pack_1x1_tf32", "tf32_split",
+           "kxk_route", "wgmma_tile_n", "pack_kxk_bf16", "pack_kxk_tf32",
+           "conv1x1_route", "pack_1x1_bf16", "pack_1x1_tf32", "tf32_split",
            "gated_conv_1x1", "gated_conv_1x1_plain", "gated_conv_1x1_cat",
            "gated_conv_1x1_cat_plain", "round_bf16", "launches"]
 
@@ -73,7 +76,7 @@ launches = {"gated_conv_kxk": 0, "gated_conv_kxk_wgmma": 0,
             "gated_conv_1x1_wgmma": 0}
 MAX_CAT = 4  # inputs K4 takes in one launch
 WGMMA_K = 64  # K slice of the wgmma loops: one 128-byte bf16 row
-TF32_K = 32  # K slice of the 1x1 loop's f32 mode: one 128-byte f32 row
+TF32_K = 32  # K slice of their f32 mode: one 128-byte f32 row
 CONV1X1_TILE_N = 64  # f|m columns of a 1x1-loop N tile (PERF.md, PR 6)
 
 
@@ -91,7 +94,7 @@ def _rna_tf32(t: torch.Tensor) -> torch.Tensor:
 
 def tf32_split(t: torch.Tensor):
     """``(hi, lo)``: ``hi = rna_tf32(t)``, ``lo = rna_tf32(t - hi)``, the
-    two TF32 parts the 1x1 loop's f32 mode multiplies (``t - hi`` is
+    two TF32 parts the wgmma loops' f32 mode multiplies (``t - hi`` is
     exact, so ``hi + lo`` is ``t`` to within ~2^-22 of ``|t|``)."""
     hi = _rna_tf32(t)
     return hi, _rna_tf32(t - hi)
@@ -171,18 +174,27 @@ def gated_conv_kxk_plain(x, w, b, scale, offset, res=None, *, stride=1,
 
 _KXK_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                  + [ctypes.c_void_p])
-_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
                    + [ctypes.c_void_p])
 
 
-def kxk_route(x: torch.Tensor, w: torch.Tensor, bf16: bool) -> str:
-    """Which CUDA loop K2 runs for ``x [B, H, W, Cin]`` and ``w [k, k,
-    Cin, 2*Cout]``: ``'wgmma'`` for bf16 operands with ``Cin % 32 == 0``,
-    ``Cout % 8 == 0`` and a 16-byte aligned ``x``; ``'tile'`` otherwise
-    (the 8-channel descriptor inputs, the ``Cout = 3`` heads, f32)."""
+def _epilogue_aligned(epilogue) -> bool:
+    """The wgmma loops' epilogue reads bias, scale, offset and the
+    residual as channel pairs: each must be 8-byte aligned (None
+    skipped)."""
+    return all(t.data_ptr() % 8 == 0 for t in epilogue if t is not None)
+
+
+def kxk_route(x: torch.Tensor, w: torch.Tensor, epilogue=()) -> str:
+    """Which CUDA loop K2 runs for ``x [B, H, W, Cin]``, ``w [k, k, Cin,
+    2*Cout]`` and the ``epilogue`` tensors (bias, scale, offset,
+    residual; None skipped), in either operand mode: ``'wgmma'`` for
+    ``Cin % 32 == 0``, ``Cout % 8 == 0``, a 16-byte aligned ``x`` and
+    8-byte aligned epilogue tensors; ``'tile'`` otherwise (the 8-channel
+    descriptor inputs, the ``Cout = 3`` heads, misaligned views)."""
     cin, cout = w.shape[-2], w.shape[-1] // 2
-    if bf16 and cin % 32 == 0 and cout % 8 == 0 \
-            and x.data_ptr() % 16 == 0:
+    if cin % 32 == 0 and cout % 8 == 0 and x.data_ptr() % 16 == 0 \
+            and _epilogue_aligned(epilogue):
         return "wgmma"
     return "tile"
 
@@ -207,6 +219,23 @@ def _resolve_packed(packed, pack, w):
     if packed is None:
         return pack(w)
     return packed() if callable(packed) else packed
+
+
+def _check_packed(name, packed, w, kk, cout, tile_n, bf16, dev):
+    """Raise unless ``packed`` is the contiguous blocks of a ``[kk,
+    2*cout]`` weight ``w`` on ``dev`` in ``tile_n``-column N tiles: bf16
+    ``[ntiles, slices, tile_n, 64]``, or f32 ``[ntiles, slices, 2, tile_n,
+    32]`` (hi and lo)."""
+    want = list(_blocks_shape(kk, cout, WGMMA_K if bf16 else TF32_K,
+                              tile_n))
+    if not bf16:
+        want.insert(2, 2)   # the hi and the lo block
+    if packed.dtype != (torch.bfloat16 if bf16 else torch.float32) \
+            or packed.device != dev or not packed.is_contiguous() \
+            or list(packed.shape) != want:
+        raise ValueError(f"{name}: packed weight {tuple(packed.shape)} "
+                         f"{packed.dtype} does not fit w {tuple(w.shape)} "
+                         f"({'bf16' if bf16 else 'f32'} operands)")
 
 
 def _pack_blocks(wm: torch.Tensor, row: int, tile_n: int) -> torch.Tensor:
@@ -241,9 +270,18 @@ def _pack_blocks(wm: torch.Tensor, row: int, tile_n: int) -> torch.Tensor:
     return b.reshape(ntiles, slices, tile_n, row)
 
 
+def _tf32_blocks(wm: torch.Tensor, tile_n: int) -> torch.Tensor:
+    """The f32 modes' weight: :func:`_pack_blocks` of ``wm [K, 2*Cout]``
+    in 32-deep slices, split by :func:`tf32_split` into ``[ntiles,
+    slices, 2, tile_n, 32]``: per (N tile, K slice) the ``hi`` block,
+    then the ``lo`` block, for one bulk copy a stage."""
+    hi, lo = tf32_split(_pack_blocks(wm, TF32_K, tile_n))
+    return torch.stack([hi, lo], 2).contiguous()
+
+
 def pack_kxk_bf16(w: torch.Tensor) -> torch.Tensor:
-    """The wgmma loop's weight: HWIO ``w [k, k, Cin, 2*Cout]`` (f32) as
-    bf16 (round to nearest even) ``[ntiles, slices, tile_n, 64]``, one
+    """The wgmma loop's bf16 weight: HWIO ``w [k, k, Cin, 2*Cout]`` (f32)
+    as bf16 (round to nearest even) ``[ntiles, slices, tile_n, 64]``, one
     contiguous block per (N tile, K slice) for one bulk copy a stage:
     :func:`_pack_blocks` of ``w`` as ``[k*k*Cin, 2*Cout]`` (tap-major K,
     as ``w.reshape``) in 64-deep slices, ``tile_n`` the
@@ -253,17 +291,31 @@ def pack_kxk_bf16(w: torch.Tensor) -> torch.Tensor:
                         wgmma_tile_n(c2 // 2)).to(torch.bfloat16).contiguous()
 
 
-def _launch_wgmma(x, packed, b, scale, offset, res, out, k, stride, relu):
-    """Launch ``gated_conv_kxk_wgmma`` into ``out``."""
+def pack_kxk_tf32(w: torch.Tensor) -> torch.Tensor:
+    """The wgmma loop's f32-mode weight: HWIO ``w [k, k, Cin, 2*Cout]``
+    as ``[ntiles, slices, 2, tile_n, 32]`` float32: per (N tile, K slice)
+    the :func:`tf32_split` ``hi`` block, then the ``lo`` block, each in
+    :func:`_pack_blocks`' layout of ``w`` as ``[k*k*Cin, 2*Cout]`` with
+    32-deep slices (one 128-byte f32 row), ``tile_n`` the
+    :func:`wgmma_tile_n` of ``Cout`` (:func:`pack_1x1_tf32`'s layout)."""
+    k, _, cin, c2 = w.shape
+    return _tf32_blocks(w.reshape(k * k * cin, c2), wgmma_tile_n(c2 // 2))
+
+
+def _launch_wgmma(x, packed, b, scale, offset, res, out, k, stride, relu,
+                  bf16):
+    """Launch ``gated_conv_kxk_wgmma`` into ``out``; ``packed`` is
+    :func:`pack_kxk_bf16` (``bf16``) or :func:`pack_kxk_tf32` of the
+    weight."""
     bsz, h, wd, cin = x.shape
     cout = out.shape[-1]
-    ntiles, _, tile_n, _ = packed.shape
+    ntiles, tile_n = packed.shape[0], packed.shape[-2]
     fn = _build.function("gated_conv", "gated_conv_kxk_wgmma",
                          _WGMMA_ARGTYPES)
     _build.call(fn, x.device, "gated_conv_kxk (wgmma)", x.data_ptr(),
                 packed.data_ptr(), b.data_ptr(), scale.data_ptr(),
                 offset.data_ptr(), _ptr(res), out.data_ptr(), bsz, h, wd,
-                cin, cout, k, stride, int(relu), tile_n, ntiles)
+                cin, cout, k, stride, int(relu), tile_n, ntiles, int(bf16))
 
 
 def gated_conv_kxk(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -273,9 +325,10 @@ def gated_conv_kxk(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                    packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K2: gated k x k conv (k in {3, 4}, stride in {1, 2}, zero pad
     ``(k-1)//2``) of ``x [B, H, W, Cin]`` with ``w [k, k, Cin, 2*Cout]``;
-    returns ``[B, Ho, Wo, Cout]``. ``packed`` is ``pack_kxk_bf16(w)``
-    for the wgmma loop, or a function that returns it (packed here when
-    it is needed and not given)."""
+    returns ``[B, Ho, Wo, Cout]``. ``packed`` is :func:`pack_kxk_bf16`
+    (``bf16``) or :func:`pack_kxk_tf32` of ``w`` for the wgmma loop, or
+    a function that returns it (packed here when it is needed and not
+    given; ignored by the twin)."""
     k = w.shape[0]
     if w.dim() != 4 or w.shape[1] != k or k not in (3, 4) \
             or stride not in (1, 2) or x.dim() != 4:
@@ -292,17 +345,13 @@ def gated_conv_kxk(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                                     stride=stride, relu=relu, bf16=bf16)
     out = torch.empty((bsz, ho, wo, cout), dtype=torch.float32,
                       device=x.device)
-    if kxk_route(x, w, bf16) == "wgmma":
-        packed = _resolve_packed(packed, pack_kxk_bf16, w)
-        want = _blocks_shape(k * k * cin, cout, WGMMA_K, wgmma_tile_n(cout))
-        if packed.dtype != torch.bfloat16 or packed.device != x.device \
-                or not packed.is_contiguous() \
-                or tuple(packed.shape) != want:
-            raise ValueError(f"gated_conv_kxk: packed weight "
-                             f"{tuple(packed.shape)} {packed.dtype} does "
-                             f"not fit w {tuple(w.shape)}")
+    if kxk_route(x, w, (b, scale, offset, res)) == "wgmma":
+        packed = _resolve_packed(packed, pack_kxk_bf16 if bf16
+                                 else pack_kxk_tf32, w)
+        _check_packed("gated_conv_kxk", packed, w, k * k * cin, cout,
+                      wgmma_tile_n(cout), bf16, x.device)
         _launch_wgmma(x, packed, b, scale, offset, res, out, k, stride,
-                      relu)
+                      relu, bf16)
         launches["gated_conv_kxk"] += 1
         launches["gated_conv_kxk_wgmma"] += 1
         return out
@@ -346,8 +395,7 @@ def conv1x1_route(xs, cout: int, gated: bool = True, epilogue=()) -> str:
     other widths, misaligned views)."""
     if gated and cout % 8 == 0 and all(
             x.shape[-1] % 8 == 0 and x.data_ptr() % 16 == 0 for x in xs) \
-            and all(t.data_ptr() % 8 == 0 for t in epilogue
-                    if t is not None):
+            and _epilogue_aligned(epilogue):
         return "wgmma"
     return "tile"
 
@@ -368,9 +416,7 @@ def pack_1x1_tf32(w: torch.Tensor) -> torch.Tensor:
     per (N tile, K slice) the :func:`tf32_split` ``hi`` block, then the
     ``lo`` block, each in :func:`_pack_blocks`' layout with 32-deep
     slices (one 128-byte f32 row) and 64-column N tiles."""
-    w2 = _weight_2d("pack_1x1_tf32", w)
-    hi, lo = tf32_split(_pack_blocks(w2, TF32_K, CONV1X1_TILE_N))
-    return torch.stack([hi, lo], 2).contiguous()
+    return _tf32_blocks(_weight_2d("pack_1x1_tf32", w), CONV1X1_TILE_N)
 
 
 _1X1_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
@@ -388,18 +434,8 @@ def _launch_1x1_wgmma(name, xs, w2, packed, b, scale, offset, res, out,
     cout = out.shape[-1]
     packed = _resolve_packed(packed, pack_1x1_bf16 if bf16
                              else pack_1x1_tf32, w2)
-    want = list(_blocks_shape(sum(cins), cout, WGMMA_K if bf16 else TF32_K,
-                              CONV1X1_TILE_N))
-    if not bf16:
-        want.insert(2, 2)   # the hi and the lo block
-    if packed.dtype != (torch.bfloat16 if bf16 else torch.float32) \
-            or packed.device != out.device \
-            or not packed.is_contiguous() \
-            or list(packed.shape) != want:
-        raise ValueError(f"{name}: packed weight {tuple(packed.shape)} "
-                         f"{packed.dtype} does not fit w "
-                         f"{tuple(w2.shape)} ({'bf16' if bf16 else 'f32'}"
-                         " operands)")
+    _check_packed(name, packed, w2, sum(cins), cout, CONV1X1_TILE_N, bf16,
+                  out.device)
     pad = MAX_CAT - len(xs)
     fn = _build.function("gated_conv", "gated_conv_1x1_wgmma",
                          _1X1_WGMMA_ARGTYPES)

@@ -297,16 +297,17 @@ def test_route_keeps_misaligned_epilogue_views_on_the_tile_loop():
 
 def test_unet_prepare_fills_the_caches_the_wrappers_read():
     """``UNet.prepare`` (a renderer calls it at load) folds every BN and
-    packs every 1x1 BasicConv's loop weight for the operand type and,
-    for bf16, every k x k conv's K2 weight; the getters then return the
-    cached packs without packing again."""
+    packs every 1x1 BasicConv's loop weight and every k x k conv's K2
+    weight for the operand type (TF32 parts for f32); the getters then
+    return the cached packs without packing again."""
     net = UNet(base_channel=8, num_res=1).init_weights(
         torch.Generator().manual_seed(0)).eval()
     convs = [m for m in net.modules() if isinstance(m, BasicConv)]
     net.prepare("f32")
     for m in convs:
         keys = set(m._packed)
-        assert keys == ({GC.pack_1x1_tf32} if m.k == 1 else set())
+        assert keys == ({GC.pack_1x1_tf32} if m.k == 1
+                        else {GC.pack_kxk_tf32})
         assert m._folded is not None
         assert m.folded_bn() is m._folded[1]
     net.prepare("bf16")
@@ -320,6 +321,9 @@ def test_unet_prepare_fills_the_caches_the_wrappers_read():
                                GC.pack_1x1_bf16(m.conv_fm.kernel))
         else:
             assert m.packed_kxk_bf16() is cached[id(m)][GC.pack_kxk_bf16]
+            assert m.packed_kxk_tf32() is cached[id(m)][GC.pack_kxk_tf32]
+            assert torch.equal(m.packed_kxk_tf32(),
+                               GC.pack_kxk_tf32(m.conv_fm.kernel))
     with pytest.raises(ValueError):
         net.prepare("f16")
 

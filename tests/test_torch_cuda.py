@@ -12,9 +12,9 @@ within ``atol 0.35, rtol 0.05`` (bf16 operands; also within the f32
 bound: the same rounded operands, f32 sums), the bounds of
 ``tests/test_unet_pallas.py``; K7's bf16 output within ``atol 1e-3,
 rtol 1e-2`` (one f32 sum rounded to bf16 once: at most one bf16 ulp
-apart). K3 and K4 on the 1x1 wgmma loop are held to the f32 bound in
-both operand modes (f32 operands as three TF32 products; bf16 also
-within the bf16 bound). One training step on the GPU
+apart). K2 on its wgmma loop and K3 and K4 on the 1x1 wgmma loop are
+held to the f32 bound in both operand modes (f32 operands as three TF32
+products; bf16 also within the bf16 bound). One training step on the GPU
 (K5, cuDNN) is held against the same step on the CPU (the twins) from
 the same state: losses rtol 1e-3, running statistics atol 1e-5. The
 device-guard test needs two cards and skips on one.
@@ -171,46 +171,79 @@ def test_gated_conv_kxk_kernel_matches_twin(dev, cin, cout, k, stride,
     (32, 32, 3, 1), (64, 64, 3, 1), (128, 128, 3, 1), (256, 256, 3, 1),
     (32, 64, 3, 2), (64, 128, 4, 2), (256, 128, 4, 2), (96, 64, 3, 1)])
 @pytest.mark.parametrize("with_res", [False, True])
+@pytest.mark.parametrize("bf16", [False, True])
 def test_gated_conv_kxk_wgmma_matches_twin(dev, cin, cout, k, stride,
-                                           with_res):
-    """K2's bf16 wgmma loop on a ragged 23x70 image, B=2, relu on and
-    off: the same bf16 operands and f32 sums as the twin, so within the
-    f32 bound; the route counter shows the new loop ran."""
+                                           with_res, bf16):
+    """K2's wgmma loop on a ragged 23x70 image, B=2, relu on and off,
+    within the f32 bound of the twin in both operand modes: bf16 (the
+    same bf16 operands and f32 sums as the twin) and f32 (three TF32
+    products, K up to 9 x 256 = 2304); the route counter shows the loop
+    ran."""
     x, w, b, scale, offset = _conv_case(dev, (2, 23, 70), cin, cout, k,
                                         cin + 3 * cout + k)
-    assert GC.kxk_route(x, w, True) == "wgmma"
     pad = (k - 1) // 2
     ho, wo = ((n + 2 * pad - k) // stride + 1 for n in (23, 70))
     res = (torch.randn(2, ho, wo, cout, device=dev) if with_res else None)
-    packed = GC.pack_kxk_bf16(w)
+    assert GC.kxk_route(x, w, (b, scale, offset, res)) == "wgmma"
+    packed = GC.pack_kxk_bf16(w) if bf16 else GC.pack_kxk_tf32(w)
     for relu in (True, False):
         before = dict(GC.launches)
         got = GC.gated_conv_kxk(x, w, b, scale, offset, res, stride=stride,
-                                relu=relu, bf16=True, packed=packed)
+                                relu=relu, bf16=bf16, packed=packed)
         assert GC.launches["gated_conv_kxk_wgmma"] == \
             before["gated_conv_kxk_wgmma"] + 1
         assert GC.launches["gated_conv_kxk"] == before["gated_conv_kxk"] + 1
         want = GC.gated_conv_kxk_plain(x, w, b, scale, offset, res,
-                                       stride=stride, relu=relu, bf16=True)
+                                       stride=stride, relu=relu, bf16=bf16)
         torch.cuda.synchronize()
         assert got.shape == (2, ho, wo, cout)
         torch.testing.assert_close(got, want, **F32)
 
 
-def test_gated_conv_kxk_wgmma_refused_launch_raises(dev):
+@pytest.mark.parametrize("bf16", [False, True])
+def test_gated_conv_kxk_wgmma_refused_launch_raises(dev, bf16):
     """A packed weight the kernel refuses (256-column N tiles; a tile
-    count that does not cover Cout) surfaces as the wrapper's error."""
+    count that does not cover Cout) surfaces as the wrapper's error; a
+    pack of the other operand mode raises in the wrapper."""
     x, w, b, scale, offset = _conv_case(dev, (1, 8, 8), 32, 128, 3, 1)
     out = torch.empty(1, 8, 8, 128, device=dev)
-    good = GC.pack_kxk_bf16(w)
-    assert tuple(good.shape) == (2, 5, 128, 64)
-    for packed in (good.reshape(1, 5, 256, 64), good[:1].contiguous()):
+    good = GC.pack_kxk_bf16(w) if bf16 else GC.pack_kxk_tf32(w)
+    other = GC.pack_kxk_tf32(w) if bf16 else GC.pack_kxk_bf16(w)
+    lead = (2, 5) if bf16 else (2, 9, 2)
+    assert tuple(good.shape) == lead + (128, 64 if bf16 else 32)
+    wide = good.reshape(1, *lead[1:], 256, good.shape[-1])
+    for packed in (wide, good[:1].contiguous()):
         with pytest.raises(RuntimeError, match="CUDA launch failed"):
             GC._launch_wgmma(x, packed, b, scale, offset, None, out, 3, 1,
-                             True)
-    with pytest.raises(ValueError, match="packed weight"):
-        GC.gated_conv_kxk(x, w, b, scale, offset, bf16=True,
-                          packed=good[:1].contiguous())
+                             True, bf16)
+    for packed in (good[:1].contiguous(), other):
+        with pytest.raises(ValueError, match="packed weight"):
+            GC.gated_conv_kxk(x, w, b, scale, offset, bf16=bf16,
+                              packed=packed)
+
+
+def test_basic_conv_passes_its_cached_kxk_packs(dev):
+    """``BasicConv.forward`` hands K2's loop the module's cached pack
+    (through the cache's getter) for each operand type."""
+    seen = []
+    real = GC._launch_wgmma
+
+    def spy(x, packed, *args):
+        seen.append(packed)
+        return real(x, packed, *args)
+
+    conv = BasicConv(32, 64, 3).to(dev)
+    with torch.no_grad():
+        conv.conv_fm.kernel.normal_()
+    x = torch.randn(1, 6, 11, 32, device=dev)
+    GC._launch_wgmma = spy
+    try:
+        conv(x, False)
+        conv(x, True)
+    finally:
+        GC._launch_wgmma = real
+    assert seen[0] is conv.packed_kxk_tf32()
+    assert seen[1] is conv.packed_kxk_bf16()
 
 
 @pytest.mark.parametrize("cins,cout", [
@@ -273,13 +306,14 @@ def test_gated_conv_1x1_wgmma_refused_launch_raises(dev):
 
 @pytest.mark.parametrize("bf16", [False, True])
 def test_misaligned_epilogue_views_keep_the_tile_loop(dev, bf16):
-    """A residual view (or a bias view) at a 4-byte offset sends K3 and K4
-    to the tile loop, which matches the twin; the 1x1 and K2 wgmma C
-    entries refuse such pointers with an error the wrapper raises, and
+    """A residual view (or a bias view) at a 4-byte offset sends K2, K3
+    and K4 to the tile loop, which matches the twin; the 1x1 and K2 wgmma
+    C entries refuse such pointers with an error the wrapper raises, and
     the context stays usable (no misaligned-address fault)."""
     gen = torch.Generator(device=dev).manual_seed(11)
     x = torch.randn(1, 7, 19, 64, generator=gen, device=dev)
     w = torch.randn(1, 1, 64, 64, generator=gen, device=dev) / 8.0
+    w3 = torch.randn(3, 3, 64, 64, generator=gen, device=dev) / 24.0
     vec = torch.randn(65, generator=gen, device=dev)
     b, scale, offset = vec[:64], vec[:32].abs() + 0.5, vec[32:64]
     flat = torch.randn(7 * 19 * 32 + 1, generator=gen, device=dev)
@@ -291,26 +325,37 @@ def test_misaligned_epilogue_views_keep_the_tile_loop(dev, bf16):
         got = GC.gated_conv_1x1(x, w, bias, scale, offset, r, bf16=bf16)
         got4 = GC.gated_conv_1x1_cat(xs, w, bias, scale, offset, r,
                                      bf16=bf16)
-        assert GC.launches["gated_conv_1x1_wgmma"] == \
-            before["gated_conv_1x1_wgmma"]
+        got2 = GC.gated_conv_kxk(x, w3, bias, scale, offset, r, bf16=bf16)
+        assert GC.launches["gated_conv_kxk"] == before["gated_conv_kxk"] + 1
+        for loop in ("gated_conv_1x1_wgmma", "gated_conv_kxk_wgmma"):
+            assert GC.launches[loop] == before[loop]
         want = GC.gated_conv_1x1_plain(x, w, bias, scale, offset, r,
                                        bf16=bf16)
+        want2 = GC.gated_conv_kxk_plain(x, w3, bias, scale, offset, r,
+                                        bf16=bf16)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, **F32)
         torch.testing.assert_close(got4, want, **F32)
+        torch.testing.assert_close(got2, want2, **F32)
     out = torch.empty(1, 7, 19, 32, device=dev)
     with pytest.raises(RuntimeError, match="CUDA launch failed"):
         GC._launch_1x1_wgmma("gated_conv_1x1", [x], w, None, b, scale,
                              offset, res, out, True, bf16)
-    if bf16:
-        w3 = torch.randn(3, 3, 64, 64, generator=gen, device=dev) / 24.0
-        with pytest.raises(RuntimeError, match="CUDA launch failed"):
-            GC._launch_wgmma(x, GC.pack_kxk_bf16(w3), b, scale, offset,
-                             res, out, 3, 1, True)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        GC._launch_wgmma(x, GC.pack_kxk_bf16(w3) if bf16 else
+                         GC.pack_kxk_tf32(w3), b, scale, offset, res, out,
+                         3, 1, True, bf16)
+    before = dict(GC.launches)
     got = GC.gated_conv_1x1(x, w, b, scale, offset, res.clone(), bf16=bf16)
+    got2 = GC.gated_conv_kxk(x, w3, b, scale, offset, res.clone(),
+                             bf16=bf16)
+    for loop in ("gated_conv_1x1_wgmma", "gated_conv_kxk_wgmma"):
+        assert GC.launches[loop] == before[loop] + 1
     torch.cuda.synchronize()
     torch.testing.assert_close(got, GC.gated_conv_1x1_plain(
         x, w, b, scale, offset, res, bf16=bf16), **F32)
+    torch.testing.assert_close(got2, GC.gated_conv_kxk_plain(
+        x, w3, b, scale, offset, res, bf16=bf16), **F32)
 
 
 def test_basic_conv_passes_its_cached_1x1_packs(dev):
