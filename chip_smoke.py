@@ -44,13 +44,20 @@ without a device it exits non-zero at once. It
    with the same frame with every kernel swapped for its twin; a frame
    that runs either wgmma loop fewer times than its route predicts
    fails;
-8. runs the kernel bench (``read_tpu_torch.kernel_bench``) in-process:
-   K1, K5 and K6 (bit-equal, ties included) at 1M points, 1216x368, B=1
-   and 2; K7 beside K2 and K3, and K8's four modes, at the four level
-   shapes; K4 at the frame's SCM sites and the two concat probes; f32
-   and bf16; each against its twin, with its library yardstick and
-   bound; K2's rows (the wgmma loop) are printed beside K8 ``full`` (the
-   old tile loop) of the same run, in both operand modes.
+8. holds K7's band kernel against its twin on its own route (a
+   ``gated=False`` call and a width the wgmma loops do not take, 3x3 and
+   1x1, f32 and bf16), then runs the kernel bench
+   (``read_tpu_torch.kernel_bench``) in-process: K1, K5 and K6
+   (bit-equal, ties included) at 1M points, 1216x368, B=1 and 2; K7
+   beside K2 and K3, and K8's four modes, at the four level shapes; K4
+   at the frame's SCM sites and the two concat probes; f32 and bf16;
+   each against its twin, with its library yardstick and bound; K2's
+   rows (the wgmma loop) are printed beside K8 ``full`` (the old tile
+   loop) of the same run, in both operand modes, and K7's 16 gated rows
+   (3x3 on K2's loop, 1x1 on the 1x1 loop; f32 as three TF32 products,
+   bf16 in the loops' bf16-storage mode), each of which must have
+   launched its loop, beside the band kernel called directly and the
+   same call packing its weight on every call.
 
 The serving phases also require K4 (``gated_conv_1x1_cat``): 3 launches
 per request, the SCMs' ``BasicConv_4``. TF32 is off throughout, so the
@@ -64,12 +71,14 @@ the kernel bench's first pass; K2's loop also on the bf16 requests,
 ``bf16_launches``), error, its time, its twin's, the library call's and
 its bound (``shape`` says what they were measured on); the K2, K3, K4
 and wgmma-loop entries add their bf16 per-frame times (``bf16_ms``,
-``bf16_plain_ms``, ``bf16_library_ms``, ``bf16_bound_ms``). The f32
-entries of K2, K3, K4 and the loops, whose wgmma calls run three TF32
-tensor-core products, take as ``bound_ms`` the bound of that arithmetic
-(``3 * flops`` at the TF32 peak, or the bytes; K2's 5 tile-loop calls at
-the f32 FMA peak) and give the f32 FMA peak's looser bound beside it
-(``f32_fma_bound_ms``).
+``bf16_plain_ms``, ``bf16_library_ms``, ``bf16_bound_ms``), K7's four
+entries (``gated_conv{3x3,1x1}_r2_wgmma``: the loops; ``..._band``: the
+band kernel) their bf16 sums over the four bench shapes. The f32
+entries of K2, K3, K4, K7 on the loops and the loops, whose wgmma calls
+run three TF32 tensor-core products, take as ``bound_ms`` the bound of
+that arithmetic (``3 * flops`` at the TF32 peak, or the bytes; K2's 5
+tile-loop calls at the f32 FMA peak) and give the f32 FMA peak's looser
+bound beside it (``f32_fma_bound_ms``).
 """
 
 import contextlib
@@ -107,10 +116,14 @@ KERNELS = {
                              "read_tpu/ops/gated_conv_pack.py:509"),
     "zbuffer_keys": ("read_tpu_torch/csrc/zbuffer.cu",
                      "read_tpu/ops/rasterize_pallas.py:234"),
-    "gated_conv3x3_r2": ("read_tpu_torch/csrc/gated_conv_r2.cu",
-                         "scripts/gated_conv_pallas_r2.py:73"),
-    "gated_conv1x1_r2": ("read_tpu_torch/csrc/gated_conv_r2.cu",
-                         "scripts/gated_conv_pallas_r2.py:169"),
+    "gated_conv3x3_r2_wgmma": ("read_tpu_torch/csrc/gated_conv_wgmma.cuh",
+                               "scripts/gated_conv_pallas_r2.py:73"),
+    "gated_conv1x1_r2_wgmma": ("read_tpu_torch/csrc/gated_conv_1x1_wgmma.cuh",
+                               "scripts/gated_conv_pallas_r2.py:169"),
+    "gated_conv3x3_r2_band": ("read_tpu_torch/csrc/gated_conv_r2.cu",
+                              "scripts/gated_conv_pallas_r2.py:73"),
+    "gated_conv1x1_r2_band": ("read_tpu_torch/csrc/gated_conv_r2.cu",
+                              "scripts/gated_conv_pallas_r2.py:169"),
     "gated_conv_probe": ("read_tpu_torch/csrc/gated_conv_probe.cu",
                          "scripts/probe_pack_split.py:33"),
 }
@@ -954,52 +967,141 @@ def phase_frame_vs_twin(ctx, dev):
               f"{err:.3g} (within {bounds})")
 
 
+def phase_r2_band_route(dev):
+    """K7's band kernel on its own route: a ``gated=False`` call and a
+    gated call the loops do not take (3x3: Cin = 8; 1x1: Cin = 12), f32
+    and bf16, at the second bench level (184x608), each held against its
+    twin; each must launch the band kernel and not a wgmma loop."""
+    import torch
+    from read_tpu_torch.kernel_bench import BF16_OUT_TOL, max_err
+    from read_tpu_torch.ops import gated_conv_r2 as R2
+    gen = torch.Generator(device=dev).manual_seed(3)
+    h, w = 184, 608
+    for k, (cin, cout, gated), dt in itertools.product(
+            (3, 1), ((64, 64, False), (None, 64, True)),
+            (torch.float32, torch.bfloat16)):
+        cin = cin or (8 if k == 3 else 12)
+        c2 = 2 * cout if gated else cout
+        x = torch.randn(h, w, cin, generator=gen, device=dev).to(dt)
+        wk = (torch.randn(k, k, cin, c2, generator=gen, device=dev)
+              / (k * k * cin) ** 0.5).to(dt)
+        b = torch.randn(c2, generator=gen, device=dev) * 0.1
+        scale = torch.rand(cout, generator=gen, device=dev) + 0.5
+        offset = torch.randn(cout, generator=gen, device=dev) * 0.1
+        kern, twin = ((R2.gated_conv3x3_r2, R2.gated_conv3x3_r2_plain)
+                      if k == 3 else
+                      (R2.gated_conv1x1_r2, R2.gated_conv1x1_r2_plain))
+        name = kern.__name__
+        before = dict(R2.launches)
+        got = kern(x, wk, b, scale, offset, gated=gated)
+        ran = {key: R2.launches[key] - before[key] for key in before}
+        if ran[name + "_band"] != 1 or ran[name + "_wgmma"] != 0:
+            raise SmokeFailure(f"r2 band route {name} Cin={cin} gated="
+                               f"{gated}: launches {ran}")
+        want = twin(x, wk, b, scale, offset, gated=gated)
+        torch.cuda.synchronize()
+        tols = (BF16_OUT_TOL,) if dt == torch.bfloat16 else (F32_TOL,)
+        err = max_err(f"{name} band route", got, want, tols)
+        print(f"[kernel_bench] {name} on the band kernel's own route, "
+              f"{h}x{w} {cin}->{cout} gated={gated} {dt}: max |err| "
+              f"{err:.3g}")
+
+
 def phase_kernel_bench(report, dev):
     """The kernel bench in-process: K6, K7 and K8 on their path (the
     bench's first pass counts their launches), K4 at the frame's SCM
-    sites; every row held against its twin."""
+    sites; every row held against its twin. Each of K7's 16 gated rows
+    (3x3 and 1x1, 4 shapes, f32 and bf16) must have run on its wgmma
+    loop, and each band row on the band kernel."""
     from read_tpu_torch import kernel_bench as KB
     rows, counts = KB.run(dev)
+    tags = {ops: [f"{h}x{w} {c}->{c} {ops}" for h, w, c in KB.CONV_SHAPES]
+            for ops in ("f32", "bf16")}
 
-    def fill(name, pick, shape):
-        sel = [r for r in rows if r["kernel"] == name and pick(r["label"])]
-        if not sel:
-            raise SmokeFailure(f"kernel_bench: no {name} row for {shape}")
+    def select(kernel, labels):
+        sel = [r for r in rows if r["kernel"] == kernel
+               and r["label"] in labels]
+        if len(sel) != len(labels):
+            raise SmokeFailure(f"kernel_bench: {kernel} has "
+                               f"{len(sel)} of the rows {labels}")
+        return sel
+
+    def bound_of(sel):
         by = {}
         for r in sel:
             by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"]
+        return sum(by.values()), max(by, key=by.get)
+
+    def fill(name, sel, shape, kernel=None):
+        b_ms, by = bound_of(sel)
         report[name].update(
             ms=sum(r["ms"] for r in sel),
             plain_ms=sum(r["plain_ms"] for r in sel),
             library_ms=sum(r["library_ms"] for r in sel),
-            bound_ms=sum(by.values()), bound_by=max(by, key=by.get),
+            bound_ms=b_ms, bound_by=by,
             max_abs_err=max(r["max_abs_err"] for r in sel), shape=shape)
+        if any("f32_fma_bound_ms" in r for r in sel):
+            report[name]["f32_fma_bound_ms"] = sum(
+                r["f32_fma_bound_ms"] for r in sel)
+        if kernel is not None:   # K7: the bf16 rows beside the f32 ones
+            bf = select(kernel, tags["bf16"])
+            report[name].update(
+                bf16_ms=sum(r["ms"] for r in bf),
+                bf16_plain_ms=sum(r["plain_ms"] for r in bf),
+                bf16_library_ms=sum(r["library_ms"] for r in bf),
+                bf16_bound_ms=bound_of(bf)[0],
+                bf16_max_abs_err=max(r["max_abs_err"] for r in bf))
 
-    for name in ("zbuffer_keys", "gated_conv3x3_r2", "gated_conv1x1_r2",
-                 "gated_conv_probe"):
+    for name in ("zbuffer_keys", "gated_conv3x3_r2_wgmma",
+                 "gated_conv1x1_r2_wgmma", "gated_conv3x3_r2_band",
+                 "gated_conv1x1_r2_band", "gated_conv_probe"):
         if counts[name] == 0:
             raise SmokeFailure(f"kernel_bench: {name} never ran")
         report[name]["launches"] = counts[name]
-    fill("zbuffer_keys", lambda l: l == "B=1",
+    fill("zbuffer_keys", select("zbuffer_keys", ["B=1"]),
          f"B=1 N={N_POINTS} {HW[1]}x{HW[0]}, the frame's packed keys")
-    for name in ("gated_conv3x3_r2", "gated_conv1x1_r2"):
-        fill(name, lambda l: l.endswith("f32"),
-             "the 4 bench shapes (368x1216x32 .. 46x152x256), f32, summed")
-    fill("gated_conv_probe", lambda l: l.startswith("full") and
-         l.endswith("f32"), "mode full at the 4 bench shapes, f32, summed")
-    # K2's rows run the wgmma loop, K8 full the old tile loop
+    levels = "the 4 bench shapes (368x1216x32 .. 46x152x256), summed"
+    for k7 in ("gated_conv3x3_r2", "gated_conv1x1_r2"):
+        # every gated K7 row on its wgmma loop, the band rows on the band
+        for ops in ("f32", "bf16"):
+            loop = select(k7, tags[ops] + [f"packs per call {t}"
+                                           for t in tags[ops]])
+            band = select(k7 + "_band", tags[ops])
+            for r, want in [(r, {k7: 1, k7 + "_wgmma": 1}) for r in loop] \
+                    + [(r, {k7 + "_band": 1}) for r in band]:
+                if r["launches"] != want:
+                    raise SmokeFailure(f"kernel_bench: {r['kernel']} "
+                                       f"{r['label']} launched "
+                                       f"{r['launches']}, want {want}")
+        fill(k7 + "_wgmma", select(k7, tags["f32"]),
+             f"{levels}; f32 (three TF32 products), bf16 (bf16 storage) "
+             "as bf16_*", kernel=k7)
+        fill(k7 + "_band", select(k7 + "_band", tags["f32"]),
+             f"{levels}; f32, bf16 as bf16_*", kernel=k7 + "_band")
+    fill("gated_conv_probe", select("gated_conv_probe",
+                                    ["full " + t for t in tags["f32"]]),
+         "mode full at the 4 bench shapes, f32, summed")
+    # K2's rows run the wgmma loop, K8 full the old tile loop; K7's rows
+    # run the loops, beside its band kernel
+    by = {(r["kernel"], r["label"]): r for r in rows}
     for (h, w, c), ops in itertools.product(KB.CONV_SHAPES,
                                             ("f32", "bf16")):
         tag = f"{h}x{w} {c}->{c} {ops}"
-        new = [r for r in rows if r["kernel"] == "gated_conv_kxk"
-               and r["label"] == tag]
-        old = [r for r in rows if r["kernel"] == "gated_conv_probe"
-               and r["label"] == f"full {tag}"]
-        if not (new and old):
-            raise SmokeFailure(f"kernel_bench: no K2/K8 rows at {tag}")
-        print(f"[kernel_bench] K2 {tag}: wgmma loop {new[0]['ms']:.4f}"
-              f" ms, old loop (K8 full) {old[0]['ms']:.4f}, cuDNN "
-              f"{new[0]['library_ms']:.4f}, bound {new[0]['bound_ms']:.4f}")
+        new = by[("gated_conv_kxk", tag)]
+        old = by[("gated_conv_probe", f"full {tag}")]
+        print(f"[kernel_bench] K2 {tag}: wgmma loop {new['ms']:.4f}"
+              f" ms, old loop (K8 full) {old['ms']:.4f}, cuDNN "
+              f"{new['library_ms']:.4f}, bound {new['bound_ms']:.4f}")
+        for k7, what in (("gated_conv3x3_r2", "K7 3x3"),
+                         ("gated_conv1x1_r2", "K7 1x1")):
+            loop, band = by[(k7, tag)], by[(k7 + "_band", tag)]
+            unpacked = by[(k7, f"packs per call {tag}")]
+            print(f"[kernel_bench] {what} {tag}: wgmma loop "
+                  f"{loop['ms']:.4f} ms (packing per call "
+                  f"{unpacked['ms']:.4f}), band kernel {band['ms']:.4f}, "
+                  f"library {loop['library_ms']:.4f}, bound "
+                  f"{loop['bound_ms']:.4f} ({loop['bound_by']}), err "
+                  f"{loop['max_abs_err']:.3g} / {band['max_abs_err']:.3g}")
     print(f"[kernel_bench] {len(rows)} rows, every kernel within its "
           f"tolerance of its twin; first-pass launches {counts}")
 
@@ -1051,6 +1153,7 @@ def main() -> int:
                                 torch.cuda.empty_cache())),
               ("frame_vs_twin", lambda: phase_frame_vs_twin(ctx, dev)),
               ("frames", lambda: phase_frames(ctx, dev)),
+              ("r2_band_route", lambda: phase_r2_band_route(dev)),
               ("kernel_bench", lambda: phase_kernel_bench(report, dev)),
               ("report", lambda: check_report(report))]
     for name, fn in phases:

@@ -100,16 +100,22 @@ bool aligned16(const void* p) {
 }
 
 // The wgmma loops' epilogue (gcw::epilogue) reads bias, scale, offset and
-// the residual, and writes the output, as channel pairs (float2): each
-// must be 8-byte aligned (res may be null).
+// the residual, and writes the output, as channel pairs (float2; a bf16
+// output as __nv_bfloat162): each must be 8-byte aligned (res may be
+// null).
 bool epilogue_aligned(const float* bias, const float* scale,
                       const float* offset, const float* res,
-                      const float* out) {
-  const float* ps[] = {bias, scale, offset, res, out};
-  for (const float* p : ps)
+                      const void* out) {
+  const void* ps[] = {bias, scale, offset, res, out};
+  for (const void* p : ps)
     if (reinterpret_cast<uintptr_t>(p) % 8 != 0) return false;
   return true;
 }
+
+// The wgmma loops' modes (`ops` of their C entries): f32 operands as three
+// TF32 products; bf16 operands rounded from f32 storage (x and out f32);
+// bf16 storage (x, packed weight and out bf16, no residual: K7's bf16).
+enum { kOpsTF32x3 = 0, kOpsBF16 = 1, kOpsBF16Storage = 2 };
 
 }  // namespace
 
@@ -128,23 +134,25 @@ extern "C" int gated_conv_kxk(const float* x, const float* w,
   return dispatch<true>(a, gc::PlainSrc(), aligned16(x), stream);
 }
 
-// K2 on the wgmma loop (gated_conv_wgmma.cuh). wp is the packed weight of
-// ops/gated_conv.py: `pack_kxk_bf16` (bf16 = 1; per N tile ceil(k*k*Cin /
-// 64) blocks [tile_n, 64] bf16) or `pack_kxk_tf32` (bf16 = 0, f32 operands
+// K2 (and K7 3x3, B = 1) on the wgmma loop (gated_conv_wgmma.cuh). wp is
+// the packed weight of ops/gated_conv.py: `pack_kxk_bf16` (ops =
+// kOpsBF16 or kOpsBF16Storage; per N tile ceil(k*k*Cin / 64) blocks
+// [tile_n, 64] bf16) or `pack_kxk_tf32` (ops = kOpsTF32x3, f32 operands
 // as three TF32 products; ceil(k*k*Cin / 32) blocks [2, tile_n, 32] f32),
-// ntiles N tiles of tile_n columns (64 or 128). Returns the error of
-// setting the shared-memory size, of the occupancy query or of the launch
+// ntiles N tiles of tile_n columns (64 or 128). x and out are f32, or
+// bf16 with kOpsBF16Storage (res then null). Returns the error of setting
+// the shared-memory size, of the occupancy query or of the launch
 // (cudaErrorInvalidValue for arguments the loop does not take, misaligned
 // epilogue pointers too).
-extern "C" int gated_conv_kxk_wgmma(const float* x, const void* wp,
+extern "C" int gated_conv_kxk_wgmma(const void* x, const void* wp,
                                     const float* bias, const float* scale,
                                     const float* offset, const float* res,
-                                    float* out, int B, int H, int W,
+                                    void* out, int B, int H, int W,
                                     int Cin, int Cout, int k, int stride,
                                     int relu, int tile_n, int ntiles,
-                                    int bf16, void* stream) {
+                                    int ops, void* stream) {
   const int pad = (k - 1) / 2;
-  const int ks = bf16 ? gcw::BK : gcw::TF32_BK;  // K a slice
+  const int ks = ops == kOpsTF32x3 ? gcw::TF32_BK : gcw::BK;  // K a slice
   gcw::Args a{x, static_cast<const uint8_t*>(wp), bias, scale, offset,
               res, out, B, H, W, Cin,
               (H + 2 * pad - k) / stride + 1, (W + 2 * pad - k) / stride + 1,
@@ -153,11 +161,15 @@ extern "C" int gated_conv_kxk_wgmma(const float* x, const void* wp,
   if (Cin % 32 != 0 || Cout % 8 != 0 || !aligned16(x) || !aligned16(wp) ||
       !epilogue_aligned(bias, scale, offset, res, out) ||
       (tile_n != 64 && tile_n != 128) ||
-      ntiles != (Cout + tile_n / 2 - 1) / (tile_n / 2))
+      ntiles != (Cout + tile_n / 2 - 1) / (tile_n / 2) || ops < 0 ||
+      ops > kOpsBF16Storage || (ops == kOpsBF16Storage && res != nullptr))
     return (int)cudaErrorInvalidValue;
   if (B * a.Ho * a.Wo == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
+  if (ops == kOpsBF16Storage)
+    return tile_n == 64 ? gcw::launch<64, false, true>(a, s)
+                        : gcw::launch<128, false, true>(a, s);
+  if (ops == kOpsBF16)
     return tile_n == 64 ? gcw::launch<64, false>(a, s)
                         : gcw::launch<128, false>(a, s);
   return tile_n == 64 ? gcw::launch<64, true>(a, s)
@@ -212,33 +224,40 @@ extern "C" int gated_conv_1x1_cat(const float* x0, const float* x1,
                : dispatch<false>(a, src, vec4, stream);
 }
 
-// K3 and the gated K4 on the 1x1 wgmma loop (gated_conv_1x1_wgmma.cuh):
-// the concat of nx <= 4 inputs x_j [n, c_j] (K3: nx = 1), every c_j % 8
-// == 0 and x_j 16-byte aligned, Cout % 8 == 0, the epilogue's pointers
-// 8-byte aligned. wp is the packed weight of ops/gated_conv.py:
-// `pack_1x1_bf16` (bf16 = 1; per N tile ceil(K / 64) blocks [64, 64]
-// bf16) or `pack_1x1_tf32` (bf16 = 0, f32 operands as three TF32
-// products; ceil(K / 32) blocks [2, 64, 32] f32), ceil(Cout / 32) N tiles
-// of gc1::TILE_N = 64 columns. Returns the error of setting the
+// K3, the gated K4 (and K7 1x1) on the 1x1 wgmma loop
+// (gated_conv_1x1_wgmma.cuh): the concat of nx <= 4 inputs x_j [n, c_j]
+// (K3, K7: nx = 1), every c_j % 8 == 0 and x_j 16-byte aligned, Cout % 8
+// == 0, the epilogue's pointers 8-byte aligned. wp is the packed weight
+// of ops/gated_conv.py: `pack_1x1_bf16` (ops = kOpsBF16 or
+// kOpsBF16Storage; per N tile ceil(K / 64) blocks [64, 64] bf16) or
+// `pack_1x1_tf32` (ops = kOpsTF32x3, f32 operands as three TF32 products;
+// ceil(K / 32) blocks [2, 64, 32] f32), ceil(Cout / 32) N tiles of
+// gc1::TILE_N = 64 columns. The x_j and out are f32, or bf16 with
+// kOpsBF16Storage (res then null). Returns the error of setting the
 // shared-memory size, of the occupancy query or of the launch
 // (cudaErrorInvalidValue for arguments the loop does not take).
-extern "C" int gated_conv_1x1_wgmma(const float* x0, const float* x1,
-                                    const float* x2, const float* x3,
+extern "C" int gated_conv_1x1_wgmma(const void* x0, const void* x1,
+                                    const void* x2, const void* x3,
                                     int c0, int c1, int c2, int c3, int nx,
                                     const void* wp, const float* bias,
                                     const float* scale, const float* offset,
-                                    const float* res, float* out, int n,
-                                    int Cout, int relu, int bf16,
+                                    const float* res, void* out, int n,
+                                    int Cout, int relu, int ops,
                                     void* stream) {
   if (nx < 1 || nx > gc::kMaxCat) return (int)cudaErrorInvalidValue;
-  const float* xs[gc::kMaxCat] = {x0, x1, x2, x3};
+  // CatSrc keeps addresses: the producer reads them as bf16 where ops =
+  // kOpsBF16Storage
+  const float* xs[gc::kMaxCat] = {
+      static_cast<const float*>(x0), static_cast<const float*>(x1),
+      static_cast<const float*>(x2), static_cast<const float*>(x3)};
   const int cs[gc::kMaxCat] = {c0, c1, c2, c3};
   gc::CatSrc src;
   const bool ok = cat_src(xs, cs, nx, 8, &src);
   const int K = src.off[gc::kMaxCat];
-  const int ks = bf16 ? 64 : 32;  // channels a K slice
+  const int ks = ops == kOpsTF32x3 ? 32 : 64;  // channels a K slice
   if (!ok || K == 0 || Cout % 8 != 0 || !aligned16(wp) ||
-      !epilogue_aligned(bias, scale, offset, res, out))
+      !epilogue_aligned(bias, scale, offset, res, out) || ops < 0 ||
+      ops > kOpsBF16Storage || (ops == kOpsBF16Storage && res != nullptr))
     return (int)cudaErrorInvalidValue;
   const int ntiles = (Cout + gc1::TILE_N / 2 - 1) / (gc1::TILE_N / 2);
   if (n == 0) return (int)cudaGetLastError();
@@ -247,5 +266,6 @@ extern "C" int gated_conv_1x1_wgmma(const float* x0, const float* x1,
                         1, 1, 0, relu, K, (K + ks - 1) / ks, ntiles},
               src};
   cudaStream_t s = (cudaStream_t)stream;
-  return bf16 ? gc1::launch<false>(a, s) : gc1::launch<true>(a, s);
+  if (ops == kOpsBF16Storage) return gc1::launch<false, true>(a, s);
+  return ops == kOpsBF16 ? gc1::launch<false>(a, s) : gc1::launch<true>(a, s);
 }

@@ -11,6 +11,10 @@
 // frame. The rest (K4
 // with gated = 0, other widths, misaligned views) keep the tile loops of
 // gated_conv_tile.cuh. Python routes (ops/gated_conv.py `conv1x1_route`).
+// It also takes K7 1x1, scripts/gated_conv_pallas_r2.py `_conv1x1_kernel`
+// (:169, pallas_call :202), as K3 with one input of one image and no
+// residual, in f32 (TF32 x3) or with x, w and the output all bf16 (the
+// bf16-storage mode below; ops/gated_conv_r2.py `r2_route`).
 //
 // What bounds it: the bytes, at the frame's shapes (K = 16..256 input
 // channels, 32..512 f|m columns: a few floats read and written a pixel
@@ -22,7 +26,7 @@
 // per SM: 64-column tiles and a 2-stage ring (3 f32 / 4 bf16 blocks an
 // SM) ran fastest of 2-4 stages and 64/128 columns.
 //
-// Two operand modes, one loop; each computes the function it is asked for:
+// Three modes, one loop; each computes the function it is asked for:
 // - bf16 (JAX's `mxu_bf16`): the producer rounds the input to bf16 (RNE)
 //   and one `wgmma m64nNk16 .bf16` product a k16 step sums in f32: K2's
 //   arithmetic. A K slice is 64 channels (one 128-byte bf16 row).
@@ -35,6 +39,11 @@
 //   is not exact f32 FMA, but is held to the f32 bound (atol 2e-5, rtol
 //   1e-4) against the plain f32 twin. A K slice is 32 channels (one
 //   128-byte f32 row), staged as an hi and a lo part.
+// - bf16 storage (BF16_IO; K7's bf16 contract): the input and the output
+//   are bf16 in memory; each 16-byte chunk (8 channels) goes into the A
+//   stage as loaded, the products are the bf16 mode's, and the epilogue
+//   rounds each f32 channel pair once to a __nv_bfloat162 (K2's loop
+//   note).
 //
 // Design, on K2's pattern (gated_conv_wgmma.cuh, whose barriers,
 // descriptors, bulk copy, TF32 split and products and epilogue it uses):
@@ -76,9 +85,12 @@ struct Args {
   gc::CatSrc src;  // the inputs x_j [n, C_j]
 };
 
-// The loop. TF32: f32 operands as three tf32 products; else bf16.
-template <bool TF32>
+// The loop. TF32: f32 operands as three tf32 products; else bf16, read
+// from f32 storage and rounded, or (BF16_IO) read from bf16 storage as
+// they are, with a bf16 output.
+template <bool TF32, bool BF16_IO = false>
 __global__ void __launch_bounds__(256, 1) conv1x1_kernel(const Args a) {
+  static_assert(!(TF32 && BF16_IO), "bf16 storage has bf16 operands");
   constexpr int P = TF32 ? 2 : 1;  // parts of an operand: hi (and lo)
   constexpr uint32_t A_PART = BM * ROW_BYTES, B_PART = TILE_N * ROW_BYTES;
   constexpr uint32_t A_BYTES = P * A_PART, B_BYTES = P * B_PART;
@@ -123,37 +135,57 @@ __global__ void __launch_bounds__(256, 1) conv1x1_kernel(const Args a) {
         const bool kin = kidx < a.e.K;  // K % 8 == 0: the whole chunk
         int o = 0, cj = 0;
         const float* xj = a.src.at(kin ? kidx : 0, &o, &cj);
-        float4 v[PER][CH / 4];
-#pragma unroll
-        for (int i = 0; i < PER; ++i) {
-          const int p = m0 + r0 + 16 * i;
-#pragma unroll
-          for (int q = 0; q < CH / 4; ++q)
-            v[i][q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-          if (kin && p < n) {
-            const float4* src = reinterpret_cast<const float4*>(
-                xj + (size_t)p * cj + (kidx - o));
-#pragma unroll
-            for (int q = 0; q < CH / 4; ++q) v[i][q] = src[q];
-          }
-        }
         const uint32_t dst = sA + st * A_BYTES + a_off;
+        if constexpr (BF16_IO) {
+          // x_j holds bf16: a 16-byte chunk is 8 channels, stored as
+          // loaded
+          uint4 u[PER];
 #pragma unroll
-        for (int i = 0; i < PER; ++i) {
-          uint4 hi, lo;
-          if constexpr (TF32) {
-            gcw::split_tf32(v[i][0].x, &hi.x, &lo.x);
-            gcw::split_tf32(v[i][0].y, &hi.y, &lo.y);
-            gcw::split_tf32(v[i][0].z, &hi.z, &lo.z);
-            gcw::split_tf32(v[i][0].w, &hi.w, &lo.w);
-            gcw::st_shared_v4(dst + A_PART + i * 16 * ROW_BYTES, lo);
-          } else {
-            hi.x = gcw::pack_bf16x2(v[i][0].x, v[i][0].y);
-            hi.y = gcw::pack_bf16x2(v[i][0].z, v[i][0].w);
-            hi.z = gcw::pack_bf16x2(v[i][CH / 4 - 1].x, v[i][CH / 4 - 1].y);
-            hi.w = gcw::pack_bf16x2(v[i][CH / 4 - 1].z, v[i][CH / 4 - 1].w);
+          for (int i = 0; i < PER; ++i) {
+            const int p = m0 + r0 + 16 * i;
+            u[i] = make_uint4(0u, 0u, 0u, 0u);
+            if (kin && p < n)
+              u[i] = *reinterpret_cast<const uint4*>(
+                  reinterpret_cast<const __nv_bfloat16*>(xj) +
+                  (size_t)p * cj + (kidx - o));
           }
-          gcw::st_shared_v4(dst + i * 16 * ROW_BYTES, hi);
+#pragma unroll
+          for (int i = 0; i < PER; ++i)
+            gcw::st_shared_v4(dst + i * 16 * ROW_BYTES, u[i]);
+        } else {
+          float4 v[PER][CH / 4];
+#pragma unroll
+          for (int i = 0; i < PER; ++i) {
+            const int p = m0 + r0 + 16 * i;
+#pragma unroll
+            for (int q = 0; q < CH / 4; ++q)
+              v[i][q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            if (kin && p < n) {
+              const float4* src = reinterpret_cast<const float4*>(
+                  xj + (size_t)p * cj + (kidx - o));
+#pragma unroll
+              for (int q = 0; q < CH / 4; ++q) v[i][q] = src[q];
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < PER; ++i) {
+            uint4 hi, lo;
+            if constexpr (TF32) {
+              gcw::split_tf32(v[i][0].x, &hi.x, &lo.x);
+              gcw::split_tf32(v[i][0].y, &hi.y, &lo.y);
+              gcw::split_tf32(v[i][0].z, &hi.z, &lo.z);
+              gcw::split_tf32(v[i][0].w, &hi.w, &lo.w);
+              gcw::st_shared_v4(dst + A_PART + i * 16 * ROW_BYTES, lo);
+            } else {
+              hi.x = gcw::pack_bf16x2(v[i][0].x, v[i][0].y);
+              hi.y = gcw::pack_bf16x2(v[i][0].z, v[i][0].w);
+              hi.z = gcw::pack_bf16x2(v[i][CH / 4 - 1].x,
+                                      v[i][CH / 4 - 1].y);
+              hi.w = gcw::pack_bf16x2(v[i][CH / 4 - 1].z,
+                                      v[i][CH / 4 - 1].w);
+            }
+            gcw::st_shared_v4(dst + i * 16 * ROW_BYTES, hi);
+          }
         }
         // generic-proxy stores -> visible to wgmma (async proxy)
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -197,7 +229,7 @@ __global__ void __launch_bounds__(256, 1) conv1x1_kernel(const Args a) {
       if (lane == 0) gcw::bar_arrive(empty + 8 * ((g - 1) % STAGES));
       const int row = (t % mblocks) * BM + 16 * (tid / 32) + lane / 4;
       const int p[2] = {row < n ? row : -1, row + 8 < n ? row + 8 : -1};
-      gcw::epilogue<TILE_N>(a.e, d, p, t / mblocks);
+      gcw::epilogue<TILE_N, BF16_IO>(a.e, d, p, t / mblocks);
     }
   }
 }
@@ -211,10 +243,10 @@ constexpr size_t smem_bytes() {
 }
 
 // Launch as many blocks as fit on the device at once (at most one a tile).
-template <bool TF32>
+template <bool TF32, bool BF16_IO = false>
 int launch(const Args& a, cudaStream_t stream) {
   static int cache[gcw::MAX_DEVICES];
-  auto kern = conv1x1_kernel<TF32>;
+  auto kern = conv1x1_kernel<TF32, BF16_IO>;
   constexpr size_t smem = smem_bytes<TF32>();
   int most = 0;
   const int e = gcw::resident_blocks(reinterpret_cast<const void*>(kern),

@@ -1,9 +1,14 @@
-// K7: the row-band gated 3x3 and 1x1 convolutions, for Hopper.
+// K7: the row-band gated 3x3 and 1x1 convolutions, for Hopper (the band
+// kernel).
 //
 // Replaces scripts/gated_conv_pallas_r2.py `_conv3x3_kernel` (via
 // `gated_conv3x3`) and `_conv1x1_kernel` (via `gated_conv1x1`), the
-// round-2 design that K2 superseded on the TPU; it is kept as a second
-// conv design at K2's shapes. Contract: one image x [H, W, Cin], weights
+// round-2 design that K2 superseded on the TPU, for the calls the wgmma
+// loops do not take (ops/gated_conv_r2.py `r2_route`: gated = 0, other
+// widths, misaligned views); the gated calls with aligned views and
+// widths run K2's loop and the 1x1 loop (gated_conv_wgmma.cuh,
+// gated_conv_1x1_wgmma.cuh), and the kernel bench times this kernel
+// beside them as the old design. Contract: one image x [H, W, Cin], weights
 // HWIO [k, k, Cin, C2], stride 1, zero pad (k-1)/2, no residual; gated:
 // C2 = 2*Cout, out = act(f) * sigmoid(m) * scale + offset; not gated:
 // C2 = Cout, out = act(acc) * scale + offset; act = ELU when relu. T is

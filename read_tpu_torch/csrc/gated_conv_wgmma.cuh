@@ -10,12 +10,25 @@
 // (the epilogue reads channel pairs), in either operand mode; the rest
 // (the 8-channel descriptor inputs, the Cout = 3 heads, misaligned views)
 // keep the tile loops of gated_conv_tile.cuh. Python routes
-// (ops/gated_conv.py `kxk_route`).
+// (ops/gated_conv.py `kxk_route`). It also takes K7 3x3, scripts/
+// gated_conv_pallas_r2.py `_conv3x3_kernel` (:73, pallas_call :138): the
+// same gated conv of one image (B = 1, stride 1, no residual), with x, w
+// and the output all f32 or all bf16 (ops/gated_conv_r2.py `r2_route`).
 //
-// Two operand modes, one loop (template argument TF32):
+// Three modes, one loop (template arguments TF32 and BF16_IO):
 // - bf16 (JAX's `mxu_bf16`): the producer rounds the input to bf16 (RNE,
 //   as torch's .to(bfloat16)) and one `wgmma m64nNk16 .bf16` product a
 //   k16 step sums in f32. A K slice is 64 channels (one 128-byte row).
+// - bf16 storage (BF16_IO; K7's bf16 contract): x and the output are
+//   bf16 in memory. The producer stores each 16-byte chunk (8 channels)
+//   into the swizzled A stage as it was loaded, with no conversion; the
+//   products are the bf16 mode's; the epilogue computes in f32, rounds
+//   each channel pair once (RNE) and stores it as one __nv_bfloat162. No
+//   residual. A plain load and shared store, as in the other modes:
+//   `cp.async` copies, each stage handed over once the next one's were in
+//   flight, gave no consistent gain over the bench levels (slower at 32
+//   channels; PERF.md), and that hand-over deadlocks a 2-stage ring whose
+//   consumer keeps one stage in flight (the 1x1 loop's).
 // - f32: three TF32 products, as the 1x1 loop's f32 mode
 //   (gated_conv_1x1_wgmma.cuh): each operand v is split as hi =
 //   rna_tf32(v), lo = rna_tf32(v - hi) (`split_tf32`), and three `wgmma
@@ -99,14 +112,16 @@ constexpr int STAGES = 4;       // ring depth, bf16
 constexpr int TF32_STAGES = 3;  // ring depth, f32 (three TF32 products)
 
 struct Args {
-  const float* x;       // [B, H, W, Cin] f32, 16-byte aligned
+  const void* x;        // [B, H, W, Cin] f32 (bf16 storage: bf16),
+                        // 16-byte aligned
   const uint8_t* wp;    // packed: bf16 [ntiles, slices, TILE_N, 64] or
                         // f32 [ntiles, slices, 2, TILE_N, 32]
   const float* bias;    // [2*Cout]
   const float* scale;   // [Cout]
   const float* offset;  // [Cout]
-  const float* res;     // [B, Ho, Wo, Cout] or nullptr
-  float* out;           // [B, Ho, Wo, Cout]
+  const float* res;     // [B, Ho, Wo, Cout] or nullptr (bf16 storage:
+                        // nullptr)
+  void* out;            // [B, Ho, Wo, Cout] f32 (bf16 storage: bf16)
   int B, H, W, Cin, Ho, Wo, Cout, k, stride, pad, relu;
   int K, slices, ntiles;
 };
@@ -345,8 +360,10 @@ __device__ __forceinline__ float gate(float f, float g, int relu) {
 // fragment i = 4 j + e is row lane/4 + 8 (e/2), column 8 j + 2 (lane % 4)
 // + e % 2; column group j = 2q is f and 2q + 1 is m of channels
 // ch0 + 8q + 2 (lane % 4) + e % 2. p[h] is the output pixel of row
-// 16 warp + lane/4 + 8h (-1: none).
-template <int TILE_N>
+// 16 warp + lane/4 + 8h (-1: none). BF16_IO (bf16 storage): each pair is
+// rounded once to bf16 (RNE) and stored as one __nv_bfloat162; no
+// residual.
+template <int TILE_N, bool BF16_IO = false>
 __device__ __forceinline__ void epilogue(const Args& a, const float* d,
                                          const int* p, int tile) {
   const int lane = threadIdx.x % 32;
@@ -368,12 +385,18 @@ __device__ __forceinline__ void epilogue(const Args& a, const float* d,
       o.y = gate(d[8 * q + 2 * h + 1] + bf.y,
                  d[8 * q + 4 + 2 * h + 1] + bm.y, a.relu) * sc.y + of.y;
       const size_t oi = (size_t)p[h] * a.Cout + c;
-      if (a.res != nullptr) {
-        const float2 r = *reinterpret_cast<const float2*>(a.res + oi);
-        o.x += r.x;
-        o.y += r.y;
+      if constexpr (BF16_IO) {
+        *reinterpret_cast<__nv_bfloat162*>(
+            static_cast<__nv_bfloat16*>(a.out) + oi) =
+            __float22bfloat162_rn(o);
+      } else {
+        if (a.res != nullptr) {
+          const float2 r = *reinterpret_cast<const float2*>(a.res + oi);
+          o.x += r.x;
+          o.y += r.y;
+        }
+        *reinterpret_cast<float2*>(static_cast<float*>(a.out) + oi) = o;
       }
-      *reinterpret_cast<float2*>(a.out + oi) = o;
     }
   }
 }
@@ -382,9 +405,12 @@ __device__ __forceinline__ void epilogue(const Args& a, const float* d,
 // blockIdx.x, + gridDim.x, ... (BM consecutive pixels of N tile
 // t / mblocks), and its producer and consumer run one ring through all of
 // them, so one tile's epilogue overlaps the next tile's staging. TF32:
-// f32 operands as three tf32 products; else bf16.
-template <int TILE_N, bool TF32>
+// f32 operands as three tf32 products; else bf16, read from f32 storage
+// and rounded, or (BF16_IO) read from bf16 storage as they are, with a
+// bf16 output.
+template <int TILE_N, bool TF32, bool BF16_IO = false>
 __global__ void __launch_bounds__(256, 1) wgmma_kernel(const Args a) {
+  static_assert(!(TF32 && BF16_IO), "bf16 storage has bf16 operands");
   constexpr int P = TF32 ? 2 : 1;  // parts of an operand: hi (and lo)
   constexpr uint32_t A_PART = BM * ROW_BYTES, B_PART = TILE_N * ROW_BYTES;
   constexpr uint32_t A_BYTES = P * A_PART, B_BYTES = P * B_PART;
@@ -448,38 +474,57 @@ __global__ void __launch_bounds__(256, 1) wgmma_kernel(const Args a) {
         const int tap = kin ? kidx / a.Cin : 0;
         const int ci = kidx - tap * a.Cin;
         const int ky = tap / a.k, kx = tap - ky * a.k;
-        float4 v[PER][CH / 4];
-#pragma unroll
-        for (int i = 0; i < PER; ++i) {
-          const int iy = iy0[i] + ky, ix = ix0[i] + kx;
-#pragma unroll
-          for (int q = 0; q < CH / 4; ++q)
-            v[i][q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-          if (kin && img[i] >= 0 && iy >= 0 && iy < a.H && ix >= 0 &&
-              ix < a.W) {
-            const float4* src = reinterpret_cast<const float4*>(
-                a.x + ((size_t)(img[i] + iy) * a.W + ix) * a.Cin + ci);
-#pragma unroll
-            for (int q = 0; q < CH / 4; ++q) v[i][q] = src[q];
-          }
-        }
         const uint32_t dst = sA + st * A_BYTES + a_off;
+        if constexpr (BF16_IO) {
+          // a 16-byte chunk is 8 bf16 channels: stored as loaded
+          uint4 u[PER];
 #pragma unroll
-        for (int i = 0; i < PER; ++i) {
-          uint4 hi, lo;
-          if constexpr (TF32) {
-            split_tf32(v[i][0].x, &hi.x, &lo.x);
-            split_tf32(v[i][0].y, &hi.y, &lo.y);
-            split_tf32(v[i][0].z, &hi.z, &lo.z);
-            split_tf32(v[i][0].w, &hi.w, &lo.w);
-            st_shared_v4(dst + A_PART + i * 16 * ROW_BYTES, lo);
-          } else {
-            hi.x = pack_bf16x2(v[i][0].x, v[i][0].y);
-            hi.y = pack_bf16x2(v[i][0].z, v[i][0].w);
-            hi.z = pack_bf16x2(v[i][CH / 4 - 1].x, v[i][CH / 4 - 1].y);
-            hi.w = pack_bf16x2(v[i][CH / 4 - 1].z, v[i][CH / 4 - 1].w);
+          for (int i = 0; i < PER; ++i) {
+            const int iy = iy0[i] + ky, ix = ix0[i] + kx;
+            u[i] = make_uint4(0u, 0u, 0u, 0u);
+            if (kin && img[i] >= 0 && iy >= 0 && iy < a.H && ix >= 0 &&
+                ix < a.W)
+              u[i] = *reinterpret_cast<const uint4*>(
+                  static_cast<const __nv_bfloat16*>(a.x) +
+                  ((size_t)(img[i] + iy) * a.W + ix) * a.Cin + ci);
           }
-          st_shared_v4(dst + i * 16 * ROW_BYTES, hi);
+#pragma unroll
+          for (int i = 0; i < PER; ++i)
+            st_shared_v4(dst + i * 16 * ROW_BYTES, u[i]);
+        } else {
+          float4 v[PER][CH / 4];
+#pragma unroll
+          for (int i = 0; i < PER; ++i) {
+            const int iy = iy0[i] + ky, ix = ix0[i] + kx;
+#pragma unroll
+            for (int q = 0; q < CH / 4; ++q)
+              v[i][q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            if (kin && img[i] >= 0 && iy >= 0 && iy < a.H && ix >= 0 &&
+                ix < a.W) {
+              const float4* src = reinterpret_cast<const float4*>(
+                  static_cast<const float*>(a.x) +
+                  ((size_t)(img[i] + iy) * a.W + ix) * a.Cin + ci);
+#pragma unroll
+              for (int q = 0; q < CH / 4; ++q) v[i][q] = src[q];
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < PER; ++i) {
+            uint4 hi, lo;
+            if constexpr (TF32) {
+              split_tf32(v[i][0].x, &hi.x, &lo.x);
+              split_tf32(v[i][0].y, &hi.y, &lo.y);
+              split_tf32(v[i][0].z, &hi.z, &lo.z);
+              split_tf32(v[i][0].w, &hi.w, &lo.w);
+              st_shared_v4(dst + A_PART + i * 16 * ROW_BYTES, lo);
+            } else {
+              hi.x = pack_bf16x2(v[i][0].x, v[i][0].y);
+              hi.y = pack_bf16x2(v[i][0].z, v[i][0].w);
+              hi.z = pack_bf16x2(v[i][CH / 4 - 1].x, v[i][CH / 4 - 1].y);
+              hi.w = pack_bf16x2(v[i][CH / 4 - 1].z, v[i][CH / 4 - 1].w);
+            }
+            st_shared_v4(dst + i * 16 * ROW_BYTES, hi);
+          }
         }
         // generic-proxy stores -> visible to wgmma (async proxy)
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -551,7 +596,7 @@ __global__ void __launch_bounds__(256, 1) wgmma_kernel(const Args a) {
       const int row = (t % mblocks) * BM + 16 * (tid / 32) + lane / 4;
       const int p[2] = {row < npix ? row : -1,
                         row + 8 < npix ? row + 8 : -1};
-      epilogue<TILE_N>(a, d, p, t / mblocks);
+      epilogue<TILE_N, BF16_IO>(a, d, p, t / mblocks);
     }
   }
 }
@@ -604,10 +649,10 @@ inline int resident_blocks(const void* kern, size_t smem, int* cache,
 
 // Launch as many blocks as fit on the device at once (at most one a
 // tile), for each TILE_N and operand mode.
-template <int TILE_N, bool TF32>
+template <int TILE_N, bool TF32, bool BF16_IO = false>
 int launch(const Args& a, cudaStream_t stream) {
   static int cache[MAX_DEVICES];
-  auto kern = wgmma_kernel<TILE_N, TF32>;
+  auto kern = wgmma_kernel<TILE_N, TF32, BF16_IO>;
   constexpr size_t smem = smem_bytes<TILE_N, TF32>();
   int most = 0;
   const int e = resident_blocks(reinterpret_cast<const void*>(kern), smem,

@@ -10,7 +10,12 @@ The counterpart of the JAX package's kernel benches, one group each:
   every position 4 times: heavy ties), 1M points, 1216x368, B=1 and 2;
 - ``convs`` (``scripts/bench_gated_conv.py``): K7 3x3 beside K2 and K7
   1x1 beside K3 at ``(368, 1216, 32->32)``, ``(184, 608, 64->64)``,
-  ``(92, 304, 128->128)``, ``(46, 152, 256->256)``, f32 and bf16;
+  ``(92, 304, 128->128)``, ``(46, 152, 256->256)``, f32 and bf16 (x, w
+  and out in the dtype); each K7 row (a wgmma loop, through
+  ``ops.gated_conv_r2.r2_route``) follows the same call packing its
+  weight on every call (label ``packs per call ...``, timed alone) and
+  precedes the band kernel called directly (kernel ``<name>_band``, the
+  old design);
 - ``probe`` (``scripts/probe_pack_split.py``): K8's four modes at the
   same four shapes, f32 and bf16 (K8 still runs K2's old tile loops, so
   its ``full`` rows are the old loop beside the ``convs`` group's K2
@@ -19,10 +24,11 @@ The counterpart of the JAX package's kernel benches, one group each:
   SCM sites of the serving frame and at ``cat11_convs2`` (32+32->32) and
   ``cat11_aff0`` (32+64+128+256->32), 1216x368, f32 and bf16.
 
-K2 runs its wgmma loop and K3 and K4 the 1x1 wgmma loop at every bench
-shape (f32 operands as three TF32 products), with their weights packed
-once per row, as ``BasicConv`` caches them; their f32 rows take the
-bound of that arithmetic (``tf32x3``) and carry the f32 FMA peak's as
+K2 and K7 3x3 run K2's wgmma loop, and K3, K4 and K7 1x1 the 1x1 wgmma
+loop, at every bench shape (f32 operands as three TF32 products; K7's
+bf16 in the loops' bf16-storage mode), with their weights packed once
+per row, as ``BasicConv`` caches them; their f32 rows take the bound of
+that arithmetic (``tf32x3``) and carry the f32 FMA peak's as
 ``f32_fma_bound_ms``.
 
 Each row gives the kernel's device time (:func:`event_ms`: CUDA events
@@ -220,6 +226,7 @@ class Row:
         self.flops, self.nbytes, self.bf16 = flops, nbytes, bf16
         self.tf32x3 = tf32x3
         self.out = None
+        self.launches = {}  # counter -> launches of the first pass's call
 
     def measure(self) -> Dict:
         name = f"{self.kernel} {self.label}"
@@ -239,7 +246,8 @@ class Row:
                "label": self.label, "ms": t_k, "plain_ms": t_p,
                "library_ms": t_l, "bound_ms": b_ms, "bound_by": by,
                "kernel_over_bound": t_k / b_ms, "max_abs_err": err,
-               "flops": self.flops, "bytes": self.nbytes}
+               "flops": self.flops, "bytes": self.nbytes,
+               "launches": self.launches}
         if self.tf32x3:
             row["f32_fma_bound_ms"] = bound(self.flops, self.nbytes)[0]
         return row
@@ -347,7 +355,6 @@ def conv_rows(dev) -> List[Row]:
                         *conv_cost(x.shape, 3, 1, 2 * c, c), bf16,
                         tf32x3=not bf16))
                     kern, twin = R2.gated_conv3x3_r2, R2.gated_conv3x3_r2_plain
-                    kname = "gated_conv3x3_r2"
                 else:
                     lib = (lambda xl=xl, wl=wl.reshape(c, 2 * c):
                            torch.matmul(xl, wl))
@@ -364,17 +371,33 @@ def conv_rows(dev) -> List[Row]:
                         *conv_cost(x.shape, 1, 1, 2 * c, c), bf16,
                         tf32x3=not bf16))
                     kern, twin = R2.gated_conv1x1_r2, R2.gated_conv1x1_r2_plain
-                    kname = "gated_conv1x1_r2"
-                nb = 2 if bf16 else 4
-                rows.append(Row(
-                    "convs", kname, tag,
-                    lambda f=kern, x=xl[0], a=(wl, b, scale, offset):
-                        f(x, *a),
-                    lambda f=twin, x=xl[0], a=(wl, b, scale, offset):
-                        f(x, *a),
-                    lib, (BF16_OUT_TOL,) if bf16 else (F32_TOL,),
-                    *conv_cost(x.shape, k, 1, 2 * c, c, nb, nb), bf16))
+                rows += r2_rows(kern, twin, lib, tag, xl[0], wl, b, scale,
+                                offset)
     return rows
+
+
+def r2_rows(kern, twin, lib, tag, x, w, b, scale, offset) -> List[Row]:
+    """K7's rows at one shape and dtype: the wrapper (gated: a wgmma loop
+    through ``r2_route``) packing its weight on every call (no twin or
+    library, labelled ``packs per call``), the same with the weight
+    packed once (``R2.pack_r2``, as ``BasicConv`` caches K2's), and the
+    band kernel called directly (``R2._band``, kernel ``<name>_band``)."""
+    k, c2 = w.shape[0], w.shape[-1]
+    bf16 = x.dtype == torch.bfloat16
+    nb = 2 if bf16 else 4
+    cost = conv_cost((1, *x.shape), k, 1, c2, c2 // 2, nb, nb)
+    tols = (BF16_OUT_TOL,) if bf16 else (F32_TOL,)
+    a = (w, b, scale, offset)
+    name = kern.__name__
+    return [
+        Row("convs", name, f"packs per call {tag}",
+            lambda: kern(x, *a), None, None, tols, *cost, bf16,
+            tf32x3=not bf16),
+        Row("convs", name, tag,
+            lambda pk=R2.pack_r2(w): kern(x, *a, packed=pk),
+            lambda: twin(x, *a), lib, tols, *cost, bf16, tf32x3=not bf16),
+        Row("convs", f"{name}_band", tag, lambda: R2._band(k, x, *a),
+            lambda: twin(x, *a), lib, tols, *cost, bf16)]
 
 
 def probe_rows(dev) -> List[Row]:
@@ -450,23 +473,27 @@ _BUILDERS = {"zbuffer": zbuffer_rows, "convs": conv_rows,
 def run(dev, echo: Optional[Callable] = print):
     """Run every bench group on ``dev``: ``(rows, launches)``. Every row's
     kernel runs once first (``launches``: the counts of that pass, the
-    bench's own path), then each is held against its twin and timed."""
+    bench's own path; each row's ``launches`` the counters its call
+    moved), then each is held against its twin and timed."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     counters = (RK.launches, GC.launches, R2.launches, GP.launches)
+
+    def counts():
+        return {k: v for c in counters for k, v in c.items()}
+
     results = []
-    total = {}
+    total = {key: 0 for key in counts()}
     for build_rows in _BUILDERS.values():
         rows = build_rows(dev)
-        for counts in counters:
-            for key in counts:
-                counts[key] = 0
         for row in rows:
+            before = counts()
             row.out = row.fn()
+            row.launches = {k: v - before[k] for k, v in counts().items()
+                            if v != before[k]}
+            for key, val in row.launches.items():
+                total[key] += val
         torch.cuda.synchronize()
-        for counts in counters:
-            for key, val in counts.items():
-                total[key] = total.get(key, 0) + val
         for row in rows:
             res = row.measure()
             results.append(res)

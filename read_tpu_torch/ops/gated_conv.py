@@ -44,6 +44,10 @@ residual, takes the 1x1 wgmma loop (``csrc/gated_conv_1x1_wgmma.cuh``)
 in either operand mode, with the weight of :func:`pack_1x1_bf16` or
 :func:`pack_1x1_tf32`; the rest take the tile loops.
 
+K7 (``ops.gated_conv_r2``) runs its gated calls on the same two loops,
+with a third mode for its bf16 contract (``OPS_BF16_STORAGE``: x, weight
+and output bf16), and counts them under its own names.
+
 A wrapper's ``packed`` is the packed weight or a function that returns
 it, called only when a wgmma route runs (``models.unet.BasicConv``
 passes its cache's getter). With bf16 operands both wgmma loops round
@@ -78,6 +82,10 @@ MAX_CAT = 4  # inputs K4 takes in one launch
 WGMMA_K = 64  # K slice of the wgmma loops: one 128-byte bf16 row
 TF32_K = 32  # K slice of their f32 mode: one 128-byte f32 row
 CONV1X1_TILE_N = 64  # f|m columns of a 1x1-loop N tile (PERF.md, PR 6)
+# the wgmma loops' modes (`ops` of their C entries): f32 operands as three
+# TF32 products; bf16 operands rounded from f32 storage; bf16 storage (x,
+# weight and output bf16, no residual: K7's bf16, ops.gated_conv_r2)
+OPS_TF32X3, OPS_BF16, OPS_BF16_STORAGE = 0, 1, 2
 
 
 def round_bf16(t: torch.Tensor) -> torch.Tensor:
@@ -303,19 +311,20 @@ def pack_kxk_tf32(w: torch.Tensor) -> torch.Tensor:
 
 
 def _launch_wgmma(x, packed, b, scale, offset, res, out, k, stride, relu,
-                  bf16):
-    """Launch ``gated_conv_kxk_wgmma`` into ``out``; ``packed`` is
-    :func:`pack_kxk_bf16` (``bf16``) or :func:`pack_kxk_tf32` of the
-    weight."""
+                  ops, what="gated_conv_kxk (wgmma)"):
+    """Launch ``gated_conv_kxk_wgmma`` in mode ``ops`` (``OPS_*``; a bool
+    is bf16 operands or not) into ``out``; ``packed`` is
+    :func:`pack_kxk_bf16` (the bf16 modes) or :func:`pack_kxk_tf32` of
+    the weight; ``what`` names the call in an error."""
     bsz, h, wd, cin = x.shape
     cout = out.shape[-1]
     ntiles, tile_n = packed.shape[0], packed.shape[-2]
     fn = _build.function("gated_conv", "gated_conv_kxk_wgmma",
                          _WGMMA_ARGTYPES)
-    _build.call(fn, x.device, "gated_conv_kxk (wgmma)", x.data_ptr(),
-                packed.data_ptr(), b.data_ptr(), scale.data_ptr(),
-                offset.data_ptr(), _ptr(res), out.data_ptr(), bsz, h, wd,
-                cin, cout, k, stride, int(relu), tile_n, ntiles, int(bf16))
+    _build.call(fn, x.device, what, x.data_ptr(), packed.data_ptr(),
+                b.data_ptr(), scale.data_ptr(), offset.data_ptr(),
+                _ptr(res), out.data_ptr(), bsz, h, wd, cin, cout, k, stride,
+                int(relu), tile_n, ntiles, int(ops))
 
 
 def gated_conv_kxk(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -351,7 +360,7 @@ def gated_conv_kxk(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         _check_packed("gated_conv_kxk", packed, w, k * k * cin, cout,
                       wgmma_tile_n(cout), bf16, x.device)
         _launch_wgmma(x, packed, b, scale, offset, res, out, k, stride,
-                      relu, bf16)
+                      relu, OPS_BF16 if bf16 else OPS_TF32X3)
         launches["gated_conv_kxk"] += 1
         launches["gated_conv_kxk_wgmma"] += 1
         return out
@@ -424,27 +433,34 @@ _1X1_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
 
 
+def _call_1x1_wgmma(what, xs, packed, b, scale, offset, res, out, relu,
+                    ops):
+    """Launch ``gated_conv_1x1_wgmma`` in mode ``ops`` (``OPS_*``) over
+    inputs ``xs`` into ``out`` with the packed weight ``packed``; ``what``
+    names the call in an error."""
+    cout = out.shape[-1]
+    pad = MAX_CAT - len(xs)
+    fn = _build.function("gated_conv", "gated_conv_1x1_wgmma",
+                         _1X1_WGMMA_ARGTYPES)
+    _build.call(fn, out.device, what, *[x.data_ptr() for x in xs],
+                *[None] * pad, *[x.shape[-1] for x in xs], *[0] * pad,
+                len(xs), packed.data_ptr(), b.data_ptr(), scale.data_ptr(),
+                offset.data_ptr(), _ptr(res), out.data_ptr(),
+                out.numel() // max(cout, 1), cout, int(relu), ops)
+
+
 def _launch_1x1_wgmma(name, xs, w2, packed, b, scale, offset, res, out,
                       relu, bf16):
     """Launch ``gated_conv_1x1_wgmma`` over inputs ``xs`` into ``out``;
     ``packed`` is :func:`pack_1x1_bf16` or :func:`pack_1x1_tf32` of
     ``w2``, or a function that returns it (packed here when not
     given)."""
-    cins = [x.shape[-1] for x in xs]
-    cout = out.shape[-1]
     packed = _resolve_packed(packed, pack_1x1_bf16 if bf16
                              else pack_1x1_tf32, w2)
-    _check_packed(name, packed, w2, sum(cins), cout, CONV1X1_TILE_N, bf16,
-                  out.device)
-    pad = MAX_CAT - len(xs)
-    fn = _build.function("gated_conv", "gated_conv_1x1_wgmma",
-                         _1X1_WGMMA_ARGTYPES)
-    _build.call(fn, out.device, f"{name} (wgmma)",
-                *[x.data_ptr() for x in xs], *[None] * pad, *cins,
-                *[0] * pad, len(xs), packed.data_ptr(), b.data_ptr(),
-                scale.data_ptr(), offset.data_ptr(), _ptr(res),
-                out.data_ptr(), out.numel() // max(cout, 1), cout,
-                int(relu), int(bf16))
+    _check_packed(name, packed, w2, sum(x.shape[-1] for x in xs),
+                  out.shape[-1], CONV1X1_TILE_N, bf16, out.device)
+    _call_1x1_wgmma(f"{name} (wgmma)", xs, packed, b, scale, offset, res,
+                    out, relu, OPS_BF16 if bf16 else OPS_TF32X3)
     launches[name] += 1
     launches["gated_conv_1x1_wgmma"] += 1
 

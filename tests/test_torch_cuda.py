@@ -12,7 +12,10 @@ within ``atol 0.35, rtol 0.05`` (bf16 operands; also within the f32
 bound: the same rounded operands, f32 sums), the bounds of
 ``tests/test_unet_pallas.py``; K7's bf16 output within ``atol 1e-3,
 rtol 1e-2`` (one f32 sum rounded to bf16 once: at most one bf16 ulp
-apart). K2 on its wgmma loop and K3 and K4 on the 1x1 wgmma loop are
+apart, which its wgmma route is also held to). K7's gated calls run the
+wgmma loops (3x3 on K2's, 1x1 on the 1x1 loop; f32 as three TF32
+products, bf16 in the loops' bf16-storage mode), the rest its band
+kernel. K2 on its wgmma loop and K3 and K4 on the 1x1 wgmma loop are
 held to the f32 bound in both operand modes (f32 operands as three TF32
 products; bf16 also within the bf16 bound). One training step on the GPU
 (K5, cuDNN) is held against the same step on the CPU (the twins) from
@@ -523,6 +526,124 @@ def test_gated_conv_r2_kernel_matches_twin(dev, k, cin, cout, h, w, dtype):
             torch.testing.assert_close(
                 got.float(), want.float(),
                 **(BF16_OUT if dtype == torch.bfloat16 else F32))
+
+
+def _r2_case(dev, h, w, cin, cout, k, gated, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c2 = 2 * cout if gated else cout
+    x = torch.randn(h, w, cin, generator=gen, device=dev).to(dtype)
+    wk = (torch.randn(k, k, cin, c2, generator=gen, device=dev)
+          / (k * k * cin) ** 0.5).to(dtype)
+    b = torch.randn(c2, generator=gen, device=dev) * 0.1
+    scale = torch.rand(cout, generator=gen, device=dev) + 0.5
+    offset = torch.randn(cout, generator=gen, device=dev) * 0.1
+    return x, wk, b, scale, offset
+
+
+def _r2_fns(k):
+    return ((R2.gated_conv3x3_r2, R2.gated_conv3x3_r2_plain) if k == 3
+            else (R2.gated_conv1x1_r2, R2.gated_conv1x1_r2_plain))
+
+
+def _assert_r2_close(got, want):
+    """f32: the f32 bound; bf16: each value at most one bf16 ulp (2**(e -
+    7) for a value in [2**e, 2**(e+1))) from the twin's, 1e-5 beside it
+    for values near 0, and within ``BF16_OUT``."""
+    g, w = got.float(), want.float()
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(g, w, **F32)
+        return
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -100)))
+                     - 7)
+    assert bool(((g - w).abs() <= ulp + 1e-5).all())
+    torch.testing.assert_close(g, w, **BF16_OUT)
+
+
+@pytest.mark.parametrize("h,w,c", [(37, 121, 32), (23, 61, 64),
+                                   (12, 30, 128), (6, 15, 256)])
+@pytest.mark.parametrize("k", [3, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gated_conv_r2_wgmma_matches_twin(dev, h, w, c, k, dtype):
+    """K7 on its wgmma loop (3x3 on K2's, 1x1 on the 1x1 loop) at the
+    bench's four levels cut about 10x in H and W (odd sizes, K up to 9 x
+    256 = 2304), relu on and off, with a packed weight, a getter and
+    none: f32 (three TF32 products) within the f32 bound, bf16 in and out
+    within one bf16 ulp of the twin; the route counters show the loop
+    ran, no band kernel, and nothing counted under K2/K3's names."""
+    kern, twin = _r2_fns(k)
+    name = kern.__name__
+    x, wk, b, scale, offset = _r2_case(dev, h, w, c, c, k, True, dtype,
+                                       h + c + k)
+    assert R2.r2_route(x, wk, True, (b, scale, offset)) == "wgmma"
+    pk = R2.pack_r2(wk)
+    for relu, packed in ((True, pk), (False, lambda: pk), (True, None)):
+        before, gc_before = dict(R2.launches), dict(GC.launches)
+        got = kern(x, wk, b, scale, offset, relu=relu, packed=packed)
+        assert R2.launches[name] == before[name] + 1
+        assert R2.launches[name + "_wgmma"] == before[name + "_wgmma"] + 1
+        assert R2.launches[name + "_band"] == before[name + "_band"]
+        assert GC.launches == gc_before
+        want = twin(x, wk, b, scale, offset, relu=relu)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (h, w, c)
+        _assert_r2_close(got, want)
+
+
+@pytest.mark.parametrize("k", [3, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gated_conv_r2_band_route_matches_twin(dev, k, dtype):
+    """``gated=False``, widths the loops do not take (3x3 Cin = 8, 1x1
+    Cin = 12, Cout = 12) and misaligned x or bias views run the band
+    kernel, which matches the twin."""
+    kern, twin = _r2_fns(k)
+    name = kern.__name__
+    cases = [(32, 32, False, None), (8 if k == 3 else 12, 32, True, None),
+             (32, 12, True, None), (32, 32, True, "x"),
+             (32, 32, True, "bias")]
+    for i, (cin, cout, gated, view) in enumerate(cases):
+        x, wk, b, scale, offset = _r2_case(dev, 19, 45, cin, cout, k, gated,
+                                           dtype, 50 + i)
+        if view == "x":      # 2 or 4 bytes past a 16-byte boundary
+            flat = torch.zeros(x.numel() + 1, dtype=dtype, device=dev)
+            x = flat[1:].view(x.shape).copy_(x)
+        elif view == "bias":   # 4 bytes past an 8-byte boundary
+            b = torch.zeros(b.numel() + 1, device=dev)[1:].copy_(b)
+        assert R2.r2_route(x, wk, gated, (b, scale, offset)) == "band"
+        before = dict(R2.launches)
+        got = kern(x, wk, b, scale, offset, gated=gated,
+                   packed=lambda: pytest.fail("packed on the band route"))
+        assert R2.launches[name + "_band"] == before[name + "_band"] + 1
+        assert R2.launches[name + "_wgmma"] == before[name + "_wgmma"]
+        want = twin(x, wk, b, scale, offset, gated=gated)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype
+        torch.testing.assert_close(
+            got.float(), want.float(),
+            **(BF16_OUT if dtype == torch.bfloat16 else F32))
+
+
+def test_gated_conv_r2_wgmma_refused_launch_raises(dev):
+    """On K7's wgmma route a pack of the other dtype's mode raises in the
+    wrapper (the band kernel does not run instead); launches the C
+    entries refuse (a residual in bf16 storage, an unknown mode) surface
+    as the wrapper's error."""
+    x, wk, b, scale, offset = _r2_case(dev, 8, 8, 32, 32, 3, True,
+                                       torch.bfloat16, 7)
+    w1 = wk[1:2, 1:2].contiguous()
+    before = dict(R2.launches)
+    for kern, w, other in ((R2.gated_conv3x3_r2, wk, GC.pack_kxk_tf32),
+                           (R2.gated_conv1x1_r2, w1, GC.pack_1x1_tf32)):
+        with pytest.raises(ValueError, match="packed weight"):
+            kern(x, w, b, scale, offset, packed=other(w.float()))
+    assert R2.launches == before
+    out = torch.empty(1, 8, 8, 32, dtype=torch.bfloat16, device=dev)
+    res = torch.zeros(1, 8, 8, 32, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        GC._launch_wgmma(x[None], R2.pack_r2(wk), b, scale, offset, res,
+                         out, 3, 1, True, GC.OPS_BF16_STORAGE)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        GC._call_1x1_wgmma("gated_conv1x1_r2", [x], R2.pack_r2(w1), b,
+                           scale, offset, None, out[0], True, 3)
 
 
 @pytest.mark.parametrize("cin,cout,h,w", [(32, 32, 20, 70), (8, 12, 9, 33),

@@ -60,11 +60,16 @@ def test_rows_run_and_compare_at_a_tiny_size(monkeypatch):
         by[r["kernel"]] = by.get(r["kernel"], 0) + 1
         assert r["bound_ms"] > 0 and r["bound_by"] in ("bytes",
                                                        "operations")
+    # K7: the wrapper packing per call and with a packed weight, and the
+    # band kernel called directly, per shape and dtype
     assert by == {"zbuffer": 3, "zbuffer_exact": 3, "zbuffer_keys": 3,
-                  "gated_conv_kxk": 4, "gated_conv3x3_r2": 4,
-                  "gated_conv_1x1": 4, "gated_conv1x1_r2": 4,
+                  "gated_conv_kxk": 4, "gated_conv3x3_r2": 8,
+                  "gated_conv3x3_r2_band": 4, "gated_conv_1x1": 4,
+                  "gated_conv1x1_r2": 8, "gated_conv1x1_r2_band": 4,
                   "gated_conv_probe": 12, "gated_conv_1x1_cat": 4}
     assert all(v == 0 for v in launches.values())   # twins on the CPU
+    assert all(r["launches"] == {} for r in rows)
+    assert sum(r["label"].startswith("packs per call") for r in rows) == 8
     assert all(r["max_abs_err"] == 0.0 for r in rows
                if r["group"] == "zbuffer")
 
