@@ -51,13 +51,17 @@ without a device it exits non-zero at once. It
    (bit-equal, ties included) at 1M points, 1216x368, B=1 and 2; K7
    beside K2 and K3, and K8's four modes, at the four level shapes; K4
    at the frame's SCM sites and the two concat probes; f32 and bf16;
-   each against its twin, with its library yardstick and bound; K2's
-   rows (the wgmma loop) are printed beside K8 ``full`` (the old tile
-   loop) of the same run, in both operand modes, and K7's 16 gated rows
-   (3x3 on K2's loop, 1x1 on the 1x1 loop; f32 as three TF32 products,
-   bf16 in the loops' bf16-storage mode), each of which must have
-   launched its loop, beside the band kernel called directly and the
-   same call packing its weight on every call.
+   each against its twin, with its library yardstick and bound. Per
+   level and dtype it prints K2's gated row beside K8's four modes on
+   the same wgmma loop (``full``, ``nopack``, ``packonly``, ``nowin``;
+   ``packonly`` bit-equal) and, at 128 and 256 channels, ``full`` and
+   ``packonly`` at one N tile (each of those 40 rows must have launched
+   the loop), the four modes on the old tile loop (32 rows, each must
+   have launched it), cuDNN and the bound; and K7's 16 gated rows (3x3
+   on K2's loop, 1x1 on the 1x1 loop; f32 as three TF32 products, bf16
+   in the loops' bf16-storage mode), each of which must have launched
+   its loop, beside the band kernel called directly and the same call
+   packing its weight on every call.
 
 The serving phases also require K4 (``gated_conv_1x1_cat``): 3 launches
 per request, the SCMs' ``BasicConv_4``. TF32 is off throughout, so the
@@ -67,16 +71,18 @@ raises and the script exits non-zero. The last stdout line is ``{"ok":
 true, "device": {...}}``; the line before it lists each kernel's
 launches (counted on the run of the path it serves: K1-K4 and both
 wgmma loops on the f32 serving path, K5 on the training steps, K6-K8 on
-the kernel bench's first pass; K2's loop also on the bf16 requests,
+the kernel bench's first pass, K8's on K2's wgmma loop with its tile-loop
+launches as ``tile_launches``; K2's loop also on the bf16 requests,
 ``bf16_launches``), error, its time, its twin's, the library call's and
 its bound (``shape`` says what they were measured on); the K2, K3, K4
 and wgmma-loop entries add their bf16 per-frame times (``bf16_ms``,
 ``bf16_plain_ms``, ``bf16_library_ms``, ``bf16_bound_ms``), K7's four
 entries (``gated_conv{3x3,1x1}_r2_wgmma``: the loops; ``..._band``: the
-band kernel) their bf16 sums over the four bench shapes. The f32
-entries of K2, K3, K4, K7 on the loops and the loops, whose wgmma calls
-run three TF32 tensor-core products, take as ``bound_ms`` the bound of
-that arithmetic (``3 * flops`` at the TF32 peak, or the bytes; K2's 5
+band kernel) and K8's (``full`` on K2's wgmma loop; ``tile_*``: on the
+old tile loop) their bf16 sums over the four bench shapes. The f32
+entries of K2, K3, K4, K7 on the loops, K8 and the loops, whose wgmma
+calls run three TF32 tensor-core products, take as ``bound_ms`` the
+bound of that arithmetic (``3 * flops`` at the TF32 peak, or the bytes; K2's 5
 tile-loop calls at the f32 FMA peak) and give the f32 FMA peak's looser
 bound beside it (``f32_fma_bound_ms``).
 """
@@ -124,8 +130,11 @@ KERNELS = {
                               "scripts/gated_conv_pallas_r2.py:73"),
     "gated_conv1x1_r2_band": ("read_tpu_torch/csrc/gated_conv_r2.cu",
                               "scripts/gated_conv_pallas_r2.py:169"),
-    "gated_conv_probe": ("read_tpu_torch/csrc/gated_conv_probe.cu",
-                         "scripts/probe_pack_split.py:33"),
+    # K8's entry is its `full` mode on K2's wgmma loop (the kernel in the
+    # header), launched through the C entry named third
+    "gated_conv_probe": ("read_tpu_torch/csrc/gated_conv_wgmma.cuh",
+                         "scripts/probe_pack_split.py:33",
+                         "read_tpu_torch/csrc/gated_conv_probe.cu"),
 }
 LIBRARIES = ("zbuffer", "gated_conv", "gated_conv_r2", "gated_conv_probe")
 
@@ -1012,8 +1021,11 @@ def phase_kernel_bench(report, dev):
     bench's first pass counts their launches), K4 at the frame's SCM
     sites; every row held against its twin. Each of K7's 16 gated rows
     (3x3 and 1x1, 4 shapes, f32 and bf16) must have run on its wgmma
-    loop, and each band row on the band kernel."""
+    loop, and each band row on the band kernel; each of K8's 32 mode rows
+    and 8 one-N-tile rows on K2's wgmma loop, and its 32 ``tile <mode>``
+    rows on the tile loop."""
     from read_tpu_torch import kernel_bench as KB
+    from read_tpu_torch.ops import gated_conv_probe as GP
     rows, counts = KB.run(dev)
     tags = {ops: [f"{h}x{w} {c}->{c} {ops}" for h, w, c in KB.CONV_SHAPES]
             for ops in ("f32", "bf16")}
@@ -1032,7 +1044,7 @@ def phase_kernel_bench(report, dev):
             by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"]
         return sum(by.values()), max(by, key=by.get)
 
-    def fill(name, sel, shape, kernel=None):
+    def fill(name, sel, shape, bf=None):
         b_ms, by = bound_of(sel)
         report[name].update(
             ms=sum(r["ms"] for r in sel),
@@ -1043,8 +1055,7 @@ def phase_kernel_bench(report, dev):
         if any("f32_fma_bound_ms" in r for r in sel):
             report[name]["f32_fma_bound_ms"] = sum(
                 r["f32_fma_bound_ms"] for r in sel)
-        if kernel is not None:   # K7: the bf16 rows beside the f32 ones
-            bf = select(kernel, tags["bf16"])
+        if bf is not None:   # the bf16 rows beside the f32 ones
             report[name].update(
                 bf16_ms=sum(r["ms"] for r in bf),
                 bf16_plain_ms=sum(r["plain_ms"] for r in bf),
@@ -1054,10 +1065,12 @@ def phase_kernel_bench(report, dev):
 
     for name in ("zbuffer_keys", "gated_conv3x3_r2_wgmma",
                  "gated_conv1x1_r2_wgmma", "gated_conv3x3_r2_band",
-                 "gated_conv1x1_r2_band", "gated_conv_probe"):
+                 "gated_conv1x1_r2_band", "gated_conv_probe_wgmma",
+                 "gated_conv_probe_tile"):
         if counts[name] == 0:
             raise SmokeFailure(f"kernel_bench: {name} never ran")
-        report[name]["launches"] = counts[name]
+        if name in report:
+            report[name]["launches"] = counts[name]
     fill("zbuffer_keys", select("zbuffer_keys", ["B=1"]),
          f"B=1 N={N_POINTS} {HW[1]}x{HW[0]}, the frame's packed keys")
     levels = "the 4 bench shapes (368x1216x32 .. 46x152x256), summed"
@@ -1075,23 +1088,61 @@ def phase_kernel_bench(report, dev):
                                        f"{r['launches']}, want {want}")
         fill(k7 + "_wgmma", select(k7, tags["f32"]),
              f"{levels}; f32 (three TF32 products), bf16 (bf16 storage) "
-             "as bf16_*", kernel=k7)
+             "as bf16_*", bf=select(k7, tags["bf16"]))
         fill(k7 + "_band", select(k7 + "_band", tags["f32"]),
-             f"{levels}; f32, bf16 as bf16_*", kernel=k7 + "_band")
-    fill("gated_conv_probe", select("gated_conv_probe",
-                                    ["full " + t for t in tags["f32"]]),
-         "mode full at the 4 bench shapes, f32, summed")
-    # K2's rows run the wgmma loop, K8 full the old tile loop; K7's rows
-    # run the loops, beside its band kernel
+             f"{levels}; f32, bf16 as bf16_*",
+             bf=select(k7 + "_band", tags["bf16"]))
+    # K8: every mode row (and one-N-tile row) on K2's wgmma loop, every
+    # tile row on the tile loop; its entry is `full` on the loop
+    # (launches: the loop's)
+    k8 = "gated_conv_probe"
+    one_tile = {ops: {(h, w, c): f"{h}x{w} {c}->64 {ops}"
+                      for h, w, c in KB.CONV_SHAPES if c > 64}
+                for ops in ("f32", "bf16")}
+    for ops in ("f32", "bf16"):
+        for r, loop in [(r, "wgmma") for r in select(
+                k8, [f"{m} {t}" for m in GP.MODES for t in tags[ops]]
+                + [f"{m} {t}" for m in ("full", "packonly")
+                   for t in one_tile[ops].values()])] \
+                + [(r, "tile") for r in select(
+                    k8, [f"tile {m} {t}" for m in GP.MODES
+                         for t in tags[ops]])]:
+            want = {k8: 1, f"{k8}_{loop}": 1}
+            if r["launches"] != want:
+                raise SmokeFailure(f"kernel_bench: {k8} {r['label']} "
+                                   f"launched {r['launches']}, want {want}")
+    fill(k8, select(k8, [f"full {t}" for t in tags["f32"]]),
+         f"mode full on K2's wgmma loop, {levels}; f32 (three TF32 "
+         "products), bf16 operands as bf16_*; tile_*: full on the old "
+         "tile loop",
+         bf=select(k8, [f"full {t}" for t in tags["bf16"]]))
+    report[k8].update(
+        launches=counts[f"{k8}_wgmma"], tile_launches=counts[f"{k8}_tile"],
+        tile_ms=sum(r["ms"] for r in select(
+            k8, [f"tile full {t}" for t in tags["f32"]])),
+        bf16_tile_ms=sum(r["ms"] for r in select(
+            k8, [f"tile full {t}" for t in tags["bf16"]])))
+    # per level and dtype: K2's gated row, K8's four modes on the same
+    # loop, the old loop's full, cuDNN and the bound; K7's loops beside
+    # its band kernel
     by = {(r["kernel"], r["label"]): r for r in rows}
     for (h, w, c), ops in itertools.product(KB.CONV_SHAPES,
                                             ("f32", "bf16")):
         tag = f"{h}x{w} {c}->{c} {ops}"
-        new = by[("gated_conv_kxk", tag)]
-        old = by[("gated_conv_probe", f"full {tag}")]
-        print(f"[kernel_bench] K2 {tag}: wgmma loop {new['ms']:.4f}"
-              f" ms, old loop (K8 full) {old['ms']:.4f}, cuDNN "
-              f"{new['library_ms']:.4f}, bound {new['bound_ms']:.4f}")
+        k2 = by[("gated_conv_kxk", tag)]
+        modes = ", ".join(f"{m} {by[(k8, f'{m} {tag}')]['ms']:.4f}"
+                          for m in GP.MODES)
+        one = one_tile[ops].get((h, w, c))
+        if one is not None:
+            modes += (f"; at one N tile (->64) full "
+                      f"{by[(k8, f'full {one}')]['ms']:.4f}, packonly "
+                      f"{by[(k8, f'packonly {one}')]['ms']:.4f}")
+        old = ", ".join(f"{m} {by[(k8, f'tile {m} {tag}')]['ms']:.4f}"
+                        for m in GP.MODES)
+        print(f"[kernel_bench] K2/K8 {tag}: K2 gated {k2['ms']:.4f} ms; "
+              f"K8 on the wgmma loop: {modes}; on the old loop: {old}; "
+              f"cuDNN {k2['library_ms']:.4f}; bound {k2['bound_ms']:.4f} "
+              f"({k2['bound_by']})")
         for k7, what in (("gated_conv3x3_r2", "K7 3x3"),
                          ("gated_conv1x1_r2", "K7 1x1")):
             loop, band = by[(k7, tag)], by[(k7 + "_band", tag)]
@@ -1135,8 +1186,9 @@ def main() -> int:
     workdir = os.path.join(os.path.dirname(_build.BUILD_DIR), "smoke")
     os.makedirs(workdir, exist_ok=True)
     report = {name: {"name": name, "route": "cuda", "source": src,
-                     "replaces": rep, "launches": 0}
-              for name, (src, rep) in KERNELS.items()}
+                     "replaces": rep, "launches": 0,
+                     **({"entry": entry[0]} if entry else {})}
+              for name, (src, rep, *entry) in KERNELS.items()}
     ctx = {}
     phases = [("build", lambda: phase_build(report)),
               ("zbuffer", lambda: phase_zbuffer(report, dev)),

@@ -35,8 +35,10 @@ __all__ = ["load", "build", "build_seconds", "function", "call", "check",
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build", "kernels")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+# the code generation flags, and those that make it a shared library
+COMPILE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3"]
+NVCC_FLAGS = COMPILE_FLAGS + ["-shared", "-Xcompiler", "-fPIC"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # seconds spent in nvcc per library this process (0.0 when cached)

@@ -158,22 +158,14 @@ extern "C" int gated_conv_kxk_wgmma(const void* x, const void* wp,
               (H + 2 * pad - k) / stride + 1, (W + 2 * pad - k) / stride + 1,
               Cout, k, stride, pad, relu, k * k * Cin,
               (k * k * Cin + ks - 1) / ks, ntiles};
-  if (Cin % 32 != 0 || Cout % 8 != 0 || !aligned16(x) || !aligned16(wp) ||
-      !epilogue_aligned(bias, scale, offset, res, out) ||
-      (tile_n != 64 && tile_n != 128) ||
-      ntiles != (Cout + tile_n / 2 - 1) / (tile_n / 2) || ops < 0 ||
+  if (!epilogue_aligned(bias, scale, offset, res, out) || ops < 0 ||
       ops > kOpsBF16Storage || (ops == kOpsBF16Storage && res != nullptr))
     return (int)cudaErrorInvalidValue;
-  if (B * a.Ho * a.Wo == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   if (ops == kOpsBF16Storage)
-    return tile_n == 64 ? gcw::launch<64, false, true>(a, s)
-                        : gcw::launch<128, false, true>(a, s);
-  if (ops == kOpsBF16)
-    return tile_n == 64 ? gcw::launch<64, false>(a, s)
-                        : gcw::launch<128, false>(a, s);
-  return tile_n == 64 ? gcw::launch<64, true>(a, s)
-                      : gcw::launch<128, true>(a, s);
+    return gcw::checked_launch<false, true>(a, tile_n, s);
+  if (ops == kOpsBF16) return gcw::checked_launch<false>(a, tile_n, s);
+  return gcw::checked_launch<true>(a, tile_n, s);
 }
 
 // K3: 1x1 conv over n pixels, i.e. [n, Cin] @ [Cin, 2*Cout] + epilogue.

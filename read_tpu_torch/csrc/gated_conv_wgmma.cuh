@@ -50,7 +50,9 @@
 // registers a thread (one block per SM instead of two) made it slower,
 // so the number of stages each SM keeps in flight sets its pace. The f32
 // mode runs at ~3.4x its TF32 bound over a frame, 0.6x cuDNN's exact f32;
-// neither a deeper ring nor two blocks an SM moved it (PERF.md).
+// neither a deeper ring nor two blocks an SM moved it (PERF.md). K8's
+// modes (below) say which phase that is: the producer's staging (PERF.md
+// section 6 gives each mode's time at the four bench levels).
 //
 // Design. A channels-last implicit GEMM: M = output pixels, N = the
 // layer's f|m columns, K = k*k*Cin tap-major, in slices of one 128-byte
@@ -85,6 +87,21 @@
 // - Persistent blocks: as many as fit on the card at once, each walking
 //   tiles t, t + gridDim.x, ... through one ring, so no block waits to
 //   start and one tile's epilogue overlaps the next tile's staging.
+// K8's phase probe (template argument PROBE; C entry gated_conv_probe.cu)
+// runs this loop with one phase stripped, in the bf16 and TF32 x3 modes;
+// PROBE = kProduction (the default) is the kernel above, unchanged:
+// - kProbeFull: the ring and the products as they are; `raw_epilogue`
+//   stores the sums with no bias, gate or BN (out [.., 2*Cout]: f in
+//   columns c, m in Cout + c);
+// - kProbeNoPack: the producer skips the patch loads and the A stores (it
+//   still posts the weight bytes, copies, fences and arrives), so the
+//   products run over stale shared memory: timing only;
+// - kProbePackOnly: the producer as in full; the consumer issues no
+//   product and, on N tile 0, reads the staged chunks whose K index is
+//   below min(2*Cout, K) back from the A stage (unswizzled) into out[p, j]
+//   (bf16: widened; TF32: hi + lo);
+// - kProbeNoWin: every tap loads the centre pixel, zero where the shifted
+//   tap leaves the image or lies past K.
 // Tiling: 64-pixel tiles, TILE_N (set by the packing) 64 for Cout <= 32
 // and 128 otherwise (Cout = 128 and 256 take 2 and 4 N tiles). At
 // 46x152x256 that gives 110 x 4 = 440 tiles; at 92x304x128 874; at
@@ -111,6 +128,10 @@ constexpr int BM = 64;          // output pixels a tile: one warpgroup's M
 constexpr int STAGES = 4;       // ring depth, bf16
 constexpr int TF32_STAGES = 3;  // ring depth, f32 (three TF32 products)
 
+// wgmma_kernel's PROBE: the production kernel, or one of K8's modes
+enum { kProduction = 0, kProbeFull, kProbeNoPack, kProbePackOnly,
+       kProbeNoWin };
+
 struct Args {
   const void* x;        // [B, H, W, Cin] f32 (bf16 storage: bf16),
                         // 16-byte aligned
@@ -121,7 +142,8 @@ struct Args {
   const float* offset;  // [Cout]
   const float* res;     // [B, Ho, Wo, Cout] or nullptr (bf16 storage:
                         // nullptr)
-  void* out;            // [B, Ho, Wo, Cout] f32 (bf16 storage: bf16)
+  void* out;            // [B, Ho, Wo, Cout] f32 (bf16 storage: bf16;
+                        // K8's probe: [B, Ho, Wo, 2*Cout] f32)
   int B, H, W, Cin, Ho, Wo, Cout, k, stride, pad, relu;
   int K, slices, ntiles;
 };
@@ -183,6 +205,14 @@ __device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
                : "memory");
 }
 
+__device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
@@ -401,16 +431,44 @@ __device__ __forceinline__ void epilogue(const Args& a, const float* d,
   }
 }
 
+// K8's epilogue (every probe mode but packonly): the raw sums of the
+// fragment map above, f of channel c to out[p, c] and m to out[p, Cout +
+// c] (out [.., 2*Cout] f32), no bias, gate or BN; float2 stores.
+template <int TILE_N>
+__device__ __forceinline__ void raw_epilogue(const Args& a, const float* d,
+                                             const int* p, int tile) {
+  const int lane = threadIdx.x % 32;
+  const int ch0 = tile * (TILE_N / 2) + 2 * (lane % 4);
+  float* out = static_cast<float*>(a.out);
+#pragma unroll
+  for (int q = 0; q < TILE_N / 16; ++q) {
+    const int c = ch0 + 8 * q;
+    if (c >= a.Cout) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (p[h] < 0) continue;
+      float* o = out + (size_t)p[h] * 2 * a.Cout + c;
+      *reinterpret_cast<float2*>(o) =
+          make_float2(d[8 * q + 2 * h], d[8 * q + 2 * h + 1]);
+      *reinterpret_cast<float2*>(o + a.Cout) =
+          make_float2(d[8 * q + 4 + 2 * h], d[8 * q + 4 + 2 * h + 1]);
+    }
+  }
+}
+
 // The tile loop, persistent: each block walks the output tiles t =
 // blockIdx.x, + gridDim.x, ... (BM consecutive pixels of N tile
 // t / mblocks), and its producer and consumer run one ring through all of
 // them, so one tile's epilogue overlaps the next tile's staging. TF32:
 // f32 operands as three tf32 products; else bf16, read from f32 storage
 // and rounded, or (BF16_IO) read from bf16 storage as they are, with a
-// bf16 output.
-template <int TILE_N, bool TF32, bool BF16_IO = false>
+// bf16 output. PROBE: the production kernel or one of K8's modes (note at
+// the top).
+template <int TILE_N, bool TF32, bool BF16_IO = false,
+          int PROBE = kProduction>
 __global__ void __launch_bounds__(256, 1) wgmma_kernel(const Args a) {
   static_assert(!(TF32 && BF16_IO), "bf16 storage has bf16 operands");
+  static_assert(PROBE == kProduction || !BF16_IO, "K8 probes f32 storage");
   constexpr int P = TF32 ? 2 : 1;  // parts of an operand: hi (and lo)
   constexpr uint32_t A_PART = BM * ROW_BYTES, B_PART = TILE_N * ROW_BYTES;
   constexpr uint32_t A_BYTES = P * A_PART, B_BYTES = P * B_PART;
@@ -475,7 +533,9 @@ __global__ void __launch_bounds__(256, 1) wgmma_kernel(const Args a) {
         const int ci = kidx - tap * a.Cin;
         const int ky = tap / a.k, kx = tap - ky * a.k;
         const uint32_t dst = sA + st * A_BYTES + a_off;
-        if constexpr (BF16_IO) {
+        if constexpr (PROBE == kProbeNoPack) {
+          // K8 nopack: no patch loads, no A stores
+        } else if constexpr (BF16_IO) {
           // a 16-byte chunk is 8 bf16 channels: stored as loaded
           uint4 u[PER];
 #pragma unroll
@@ -499,11 +559,15 @@ __global__ void __launch_bounds__(256, 1) wgmma_kernel(const Args a) {
 #pragma unroll
             for (int q = 0; q < CH / 4; ++q)
               v[i][q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            // K8 nowin: every tap loads the centre pixel, masked as the
+            // shifted tap
+            const int ly = PROBE == kProbeNoWin ? iy0[i] + a.pad : iy;
+            const int lx = PROBE == kProbeNoWin ? ix0[i] + a.pad : ix;
             if (kin && img[i] >= 0 && iy >= 0 && iy < a.H && ix >= 0 &&
                 ix < a.W) {
               const float4* src = reinterpret_cast<const float4*>(
                   static_cast<const float*>(a.x) +
-                  ((size_t)(img[i] + iy) * a.W + ix) * a.Cin + ci);
+                  ((size_t)(img[i] + ly) * a.W + lx) * a.Cin + ci);
 #pragma unroll
               for (int q = 0; q < CH / 4; ++q) v[i][q] = src[q];
             }
@@ -529,6 +593,56 @@ __global__ void __launch_bounds__(256, 1) wgmma_kernel(const Args a) {
         // generic-proxy stores -> visible to wgmma (async proxy)
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         bar_arrive(full + 8 * st);
+      }
+    }
+  } else if constexpr (PROBE == kProbePackOnly) {
+    // ---- consumer warpgroup, K8 packonly: no products. Each thread reads
+    // chunk c8 of rows r0 + 16 i back from the A stage (chunk j of row m
+    // sits at j ^ (m % 8), as the producer stored it) on N tile 0, where
+    // its K index is below min(2*Cout, K), and frees the stage.
+    constexpr int PER = BM / 16;
+    const int c8 = tid & 7, r0 = tid >> 3;
+    const uint32_t a_off = r0 * ROW_BYTES + ((c8 ^ (r0 & 7)) << 4);
+    const int kmax = min(2 * a.Cout, a.K);  // a multiple of 8 (of CH)
+    float* out = static_cast<float*>(a.out);
+    int g = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = (t % mblocks) * BM;
+      for (int it = 0; it < a.slices; ++it, ++g) {
+        const int st = g % ST;
+        bar_wait(full + 8 * st, (g / ST) & 1);
+        const int kidx = it * KS + c8 * CH;
+        if (t < mblocks && kidx < kmax) {
+          const uint32_t src = sA + st * A_BYTES + a_off;
+#pragma unroll
+          for (int i = 0; i < PER; ++i) {
+            const int p = m0 + r0 + 16 * i;
+            if (p >= npix) continue;
+            const uint4 hi = ld_shared_v4(src + i * 16 * ROW_BYTES);
+            float4* o = reinterpret_cast<float4*>(
+                out + (size_t)p * 2 * a.Cout + kidx);
+            if constexpr (TF32) {
+              const uint4 lo =
+                  ld_shared_v4(src + A_PART + i * 16 * ROW_BYTES);
+              o[0] = make_float4(
+                  __uint_as_float(hi.x) + __uint_as_float(lo.x),
+                  __uint_as_float(hi.y) + __uint_as_float(lo.y),
+                  __uint_as_float(hi.z) + __uint_as_float(lo.z),
+                  __uint_as_float(hi.w) + __uint_as_float(lo.w));
+            } else {  // 8 bf16 channels, the first in the low half
+              o[0] = make_float4(__uint_as_float(hi.x << 16),
+                                 __uint_as_float(hi.x & 0xFFFF0000u),
+                                 __uint_as_float(hi.y << 16),
+                                 __uint_as_float(hi.y & 0xFFFF0000u));
+              o[1] = make_float4(__uint_as_float(hi.z << 16),
+                                 __uint_as_float(hi.z & 0xFFFF0000u),
+                                 __uint_as_float(hi.w << 16),
+                                 __uint_as_float(hi.w & 0xFFFF0000u));
+            }
+          }
+        }
+        __syncwarp();
+        if (tid % 32 == 0) bar_arrive(empty + 8 * st);
       }
     }
   } else if constexpr (TF32) {
@@ -567,7 +681,10 @@ __global__ void __launch_bounds__(256, 1) wgmma_kernel(const Args a) {
       const int row = (t % mblocks) * BM + 16 * (tid / 32) + lane / 4;
       const int p[2] = {row < npix ? row : -1,
                         row + 8 < npix ? row + 8 : -1};
-      epilogue<TILE_N>(a, sum, p, t / mblocks);
+      if constexpr (PROBE == kProduction)
+        epilogue<TILE_N>(a, sum, p, t / mblocks);
+      else
+        raw_epilogue<TILE_N>(a, sum, p, t / mblocks);
     }
   } else {
     // ---- consumer warpgroup, bf16 operands: pixels m0 .. m0 + 63 of
@@ -596,7 +713,10 @@ __global__ void __launch_bounds__(256, 1) wgmma_kernel(const Args a) {
       const int row = (t % mblocks) * BM + 16 * (tid / 32) + lane / 4;
       const int p[2] = {row < npix ? row : -1,
                         row + 8 < npix ? row + 8 : -1};
-      epilogue<TILE_N, BF16_IO>(a, d, p, t / mblocks);
+      if constexpr (PROBE == kProduction)
+        epilogue<TILE_N, BF16_IO>(a, d, p, t / mblocks);
+      else
+        raw_epilogue<TILE_N>(a, d, p, t / mblocks);
     }
   }
 }
@@ -648,11 +768,12 @@ inline int resident_blocks(const void* kern, size_t smem, int* cache,
 }
 
 // Launch as many blocks as fit on the device at once (at most one a
-// tile), for each TILE_N and operand mode.
-template <int TILE_N, bool TF32, bool BF16_IO = false>
+// tile), for each TILE_N, operand mode and PROBE.
+template <int TILE_N, bool TF32, bool BF16_IO = false,
+          int PROBE = kProduction>
 int launch(const Args& a, cudaStream_t stream) {
   static int cache[MAX_DEVICES];
-  auto kern = wgmma_kernel<TILE_N, TF32, BF16_IO>;
+  auto kern = wgmma_kernel<TILE_N, TF32, BF16_IO, PROBE>;
   constexpr size_t smem = smem_bytes<TILE_N, TF32>();
   int most = 0;
   const int e = resident_blocks(reinterpret_cast<const void*>(kern), smem,
@@ -662,6 +783,29 @@ int launch(const Args& a, cudaStream_t stream) {
   const int tiles = (npix + BM - 1) / BM * a.ntiles;
   kern<<<tiles < most ? tiles : most, 256, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// Columns of one N tile (f and m together) for Cout: 64 for Cout <= 32,
+// else 128, as ops/gated_conv.py `wgmma_tile_n` packs the weight.
+inline int tile_n_for(int Cout) { return Cout <= 32 ? 64 : 128; }
+
+// What both C entries of this loop (gated_conv.cu's gated_conv_kxk_wgmma,
+// K8's gated_conv_probe.cu) check before they launch, and the launch at
+// the packing's tile width: Cin % 32 == 0, Cout % 8 == 0, x and the
+// packed weight 16-byte aligned, tile_n 64 or 128 and a.ntiles its N
+// tiles; cudaErrorInvalidValue for anything else, no launch for no
+// pixels.
+template <bool TF32, bool BF16_IO = false, int PROBE = kProduction>
+int checked_launch(const Args& a, int tile_n, cudaStream_t stream) {
+  if (a.Cin % 32 != 0 || a.Cout % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(a.x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(a.wp) % 16 != 0 ||
+      (tile_n != 64 && tile_n != 128) ||
+      a.ntiles != (a.Cout + tile_n / 2 - 1) / (tile_n / 2))
+    return (int)cudaErrorInvalidValue;
+  if (a.B * a.Ho * a.Wo == 0) return (int)cudaGetLastError();
+  return tile_n == 64 ? launch<64, TF32, BF16_IO, PROBE>(a, stream)
+                      : launch<128, TF32, BF16_IO, PROBE>(a, stream);
 }
 
 }  // namespace gcw

@@ -16,20 +16,23 @@ The counterpart of the JAX package's kernel benches, one group each:
   weight on every call (label ``packs per call ...``, timed alone) and
   precedes the band kernel called directly (kernel ``<name>_band``, the
   old design);
-- ``probe`` (``scripts/probe_pack_split.py``): K8's four modes at the
-  same four shapes, f32 and bf16 (K8 still runs K2's old tile loops, so
-  its ``full`` rows are the old loop beside the ``convs`` group's K2
-  rows, which run the wgmma loop in both operand modes);
+- ``probe`` (``scripts/probe_pack_split.py``): K8's four modes on K2's
+  wgmma loop at the same four shapes, f32 and bf16, each beside the
+  same four on the old tile loop (label ``tile <mode> ...``): the modes
+  split the loop's time into staging and products, and ``full`` against
+  the ``convs`` group's K2 row is the gated epilogue's share; at 128 and
+  256 channels ``full`` and ``packonly`` at one N tile (``C->64``) too,
+  for what re-staging the patch per N tile costs;
 - ``cat`` (``scripts/probe_pack_new.py`` ``cat11_*``): K4 at the three
   SCM sites of the serving frame and at ``cat11_convs2`` (32+32->32) and
   ``cat11_aff0`` (32+64+128+256->32), 1216x368, f32 and bf16.
 
-K2 and K7 3x3 run K2's wgmma loop, and K3, K4 and K7 1x1 the 1x1 wgmma
-loop, at every bench shape (f32 operands as three TF32 products; K7's
-bf16 in the loops' bf16-storage mode), with their weights packed once
-per row, as ``BasicConv`` caches them; their f32 rows take the bound of
-that arithmetic (``tf32x3``) and carry the f32 FMA peak's as
-``f32_fma_bound_ms``.
+K2, K7 3x3 and K8 (but its ``tile ...`` rows) run K2's wgmma loop, and
+K3, K4 and K7 1x1 the 1x1 wgmma loop, at every bench shape (f32
+operands as three TF32 products; K7's bf16 in the loops' bf16-storage
+mode), with their weights packed once per row, as ``BasicConv`` caches
+them; their f32 rows take the bound of that arithmetic (``tf32x3``)
+and carry the f32 FMA peak's as ``f32_fma_bound_ms``.
 
 Each row gives the kernel's device time (:func:`event_ms`: CUDA events
 around back-to-back calls), the twin's, the
@@ -41,7 +44,7 @@ them), the bound (the larger of operations over the card's peak for
 their type and bytes over 3.35 TB/s, each input read once and each
 output written once; see :func:`bound`) and kernel/bound. Every kernel
 is held against its twin as it goes (z-buffers and K8 ``packonly``
-bit-equal; f32 within ``F32_TOL``; K2/K3/K4 bf16 operands within
+bit-equal; f32 within ``F32_TOL``; K2/K3/K4/K8 bf16 operands within
 ``BF16_TOL`` and ``F32_TOL``: same rounded operands, f32 sums; K7's bf16
 output within ``BF16_OUT_TOL``: one f32 sum rounded to bf16 once, so at
 most one bf16 ulp apart); a mismatch raises. TF32 is off. Without a
@@ -400,10 +403,49 @@ def r2_rows(kern, twin, lib, tag, x, w, b, scale, offset) -> List[Row]:
             lambda: twin(x, *a), lib, tols, *cost, bf16)]
 
 
+def _probe_cost(x, c2):
+    """``{mode: (flops, bytes)}`` of K8 on ``x [1, H, W, Cin]`` with
+    ``c2`` raw output columns: ``full``/``nowin`` the conv's; ``nopack``
+    its products with the weights read and the output written;
+    ``packonly`` x read and the output written."""
+    cin, npix = x.shape[-1], x.shape[1] * x.shape[2]
+    flops, nbytes = conv_cost(x.shape, 3, 1, c2, c2, epilogue=False)
+    out_bytes = 4 * npix * c2
+    return {"full": (flops, nbytes), "nowin": (flops, nbytes),
+            "nopack": (flops, 4 * 9 * cin * c2 + out_bytes),
+            "packonly": (0.0, 4 * x.numel() + out_bytes)}
+
+
 def probe_rows(dev) -> List[Row]:
-    """K8's four modes at the four level shapes."""
+    """K8 at the four level shapes, f32 and bf16: its four modes on K2's
+    wgmma loop (the weight packed once a shape and dtype, as
+    ``BasicConv`` caches K2's; f32 rows with the TF32 x3 bound); at 128
+    and 256 channels ``full`` and ``packonly`` with ``Cout = 64`` too
+    (``C->64``: one N tile, the same K, so the full-width rows less
+    these are what re-staging the patch for each further N tile costs);
+    then the four modes on the old tile loop (label ``tile <mode>
+    ...``)."""
     rows = []
     gen = torch.Generator(device=dev).manual_seed(1)
+
+    def loop_rows(x, wk, modes, tag, bf16, lib, loop="wgmma"):
+        cost = _probe_cost(x, wk.shape[-1])
+        wgmma = loop == "wgmma"
+        tols = (BF16_TOL, F32_TOL) if bf16 and wgmma else (F32_TOL,)
+        packed = None if not wgmma else (
+            GC.pack_kxk_bf16(wk) if bf16 else GC.pack_kxk_tf32(wk))
+        return [Row(
+            "probe", "gated_conv_probe",
+            f"{mode} {tag}" if wgmma else f"tile {mode} {tag}",
+            lambda m=mode: GP.gated_conv_probe(
+                x, wk, mode=m, bf16=bf16, loop=loop, packed=packed),
+            None if mode == "nopack" else
+            (lambda m=mode: GP.gated_conv_probe_plain(
+                x, wk, mode=m, bf16=bf16, loop=loop)),
+            lib if mode == "full" else None,
+            None if mode == "packonly" else tols,
+            *cost[mode], bf16, tf32x3=wgmma and not bf16) for mode in modes]
+
     for h, w, c in CONV_SHAPES:
         x = torch.randn(1, h, w, c, generator=gen, device=dev)
         wk = torch.randn(3, 3, c, 2 * c, generator=gen, device=dev) \
@@ -411,25 +453,13 @@ def probe_rows(dev) -> List[Row]:
         for bf16 in (False, True):
             dt = torch.bfloat16 if bf16 else torch.float32
             lib = (lambda xl=x.to(dt), wl=wk.to(dt): library_conv(xl, wl))
-            flops, nbytes = conv_cost(x.shape, 3, 1, 2 * c, 2 * c,
-                                      epilogue=False)
-            x_bytes, out_bytes = 4 * x.numel(), 8 * h * w * c
-            for mode in GP.MODES:
-                tag = f"{mode} {h}x{w} {c}->{c} {'bf16' if bf16 else 'f32'}"
-                cost = {"full": (flops, nbytes),
-                        "nowin": (flops, nbytes),
-                        "nopack": (flops, out_bytes),
-                        "packonly": (0.0, x_bytes + out_bytes)}[mode]
-                rows.append(Row(
-                    "probe", "gated_conv_probe", tag,
-                    lambda x=x, w_=wk, m=mode, bf=bf16:
-                        GP.gated_conv_probe(x, w_, mode=m, bf16=bf),
-                    None if mode == "nopack" else
-                    (lambda x=x, w_=wk, m=mode, bf=bf16:
-                        GP.gated_conv_probe_plain(x, w_, mode=m, bf16=bf)),
-                    lib if mode == "full" else None,
-                    None if mode == "packonly" else (F32_TOL,),
-                    *cost, bf16))
+            tag = f"{h}x{w} {c}->{c} {'bf16' if bf16 else 'f32'}"
+            rows += loop_rows(x, wk, GP.MODES, tag, bf16, lib)
+            if c > 64:
+                rows += loop_rows(x, wk[..., :128].contiguous(),
+                                  ("full", "packonly"),
+                                  tag.replace(f"->{c}", "->64"), bf16, None)
+            rows += loop_rows(x, wk, GP.MODES, tag, bf16, lib, loop="tile")
     return rows
 
 

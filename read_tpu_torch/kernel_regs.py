@@ -1,0 +1,169 @@
+"""Registers, spills and SASS of the port's CUDA kernels (needs ``nvcc``).
+
+    python -m read_tpu_torch.kernel_regs [--against OTHER/csrc] [--out F]
+
+Compiles each ``csrc/<name>.cu`` with :mod:`._build`'s code generation
+flags into a cubin (``-cubin -Xptxas -v``) and prints, per kernel
+(demangled with ``c++filt`` where it exists), its registers and its
+spill stores and loads. With ``--against`` (another tree's ``csrc``, e.g. a parent commit
+unpacked with ``git archive``) it compiles that tree's sources of the same
+names too and says, for each of its kernels, which kernel of this tree
+has the same SASS (``cuobjdump -sass``, the function names left out),
+or that none has: a change that must leave a kernel's code as it was
+(a defaulted template parameter, say) shows as a match under the new
+name.
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import hashlib
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+from typing import Dict, List
+
+from read_tpu_torch import _build
+
+__all__ = ["parse_ptxas", "parse_sass", "compile_dir", "main"]
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+_FUNC = re.compile(r"^\s*Function : (\S+)")
+
+
+def parse_ptxas(log: str) -> Dict[str, Dict[str, int]]:
+    """``{mangled kernel: {'registers', 'spill_stores', 'spill_loads'}}``
+    from ``ptxas -v`` output (``nvcc -Xptxas -v``)."""
+    out: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": -1, "spill_stores": 0,
+                         "spill_loads": 0}
+            continue
+        if name is None:
+            continue
+        m = _SPILL.search(line)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = _REGS.search(line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def parse_sass(text: str) -> Dict[str, str]:
+    """``{mangled kernel: sha256 of its SASS}`` from ``cuobjdump -sass``:
+    the instruction lines (those with a ``/* .. */`` offset or encoding)
+    after each function's ``Function :`` header, up to the next one, with
+    runs of blanks made one (cuobjdump pads its columns to the widest
+    instruction of the whole file)."""
+    bodies: Dict[str, List[str]] = {}
+    cur = None
+    for line in text.splitlines():
+        m = _FUNC.match(line)
+        if m:
+            cur = m.group(1)
+            bodies[cur] = []
+        elif cur is not None and "/*" in line:
+            bodies[cur].append(" ".join(line.split()))
+    return {k: hashlib.sha256("\n".join(v).encode()).hexdigest()
+            for k, v in bodies.items()}
+
+
+def _tool(name: str) -> str:
+    path = os.path.join(os.path.dirname(_build._nvcc()), name)
+    return path if os.path.exists(path) else (shutil.which(name) or name)
+
+
+def _demangle(names):
+    if not names or shutil.which("c++filt") is None:
+        return {n: n for n in names}
+    res = subprocess.run(["c++filt"], input="\n".join(names),
+                         capture_output=True, text=True, check=True)
+    return dict(zip(names, res.stdout.splitlines()))
+
+
+def compile_dir(csrc: str, names, tmp: str) -> Dict[str, Dict]:
+    """Compile ``csrc/<name>.cu`` for each name (one nvcc each, all at
+    once): ``{name: {kernel: {registers, spill_*, sass}}}``."""
+    jobs = []
+    tmp = tempfile.mkdtemp(dir=tmp)   # one directory per tree
+    for name in names:
+        cubin = os.path.join(tmp, f"{name}.cubin")
+        proc = subprocess.Popen(
+            [_build._nvcc(), *_build.COMPILE_FLAGS, "-cubin", "-Xptxas",
+             "-v", "-o", cubin, os.path.join(csrc, f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, cubin, proc))
+    result = {}
+    for name, cubin, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {csrc}/{name}.cu:\n{log}")
+        sass = subprocess.run([_tool("cuobjdump"), "-sass", cubin],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        kernels = parse_ptxas(log)
+        for kern, digest in parse_sass(sass).items():
+            kernels.setdefault(kern, {})["sass"] = digest
+        result[name] = kernels
+    return result
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--against", default=None,
+                   help="another tree's csrc directory to compare with")
+    p.add_argument("--out", default=None, help="write the table as JSON")
+    args = p.parse_args(argv)
+    names = sorted(os.path.basename(f)[:-3]
+                   for f in glob.glob(os.path.join(_build.CSRC, "*.cu")))
+    with tempfile.TemporaryDirectory() as tmp:
+        mine = compile_dir(_build.CSRC, names, tmp)
+        other = (compile_dir(args.against, [
+            n for n in names
+            if os.path.exists(os.path.join(args.against, f"{n}.cu"))], tmp)
+            if args.against else {})
+    every = {k for lib in (mine, other) for ks in lib.values() for k in ks}
+    pretty = _demangle(sorted(every))
+    for name, kernels in mine.items():
+        for kern, r in sorted(kernels.items()):
+            print(f"[{name}] {pretty[kern]}: {r.get('registers')} registers,"
+                  f" spill {r.get('spill_stores')} / {r.get('spill_loads')}"
+                  " bytes")
+    same = True
+    for name, kernels in other.items():
+        by_sass = {r.get("sass"): k for k, r in mine.get(name, {}).items()}
+        for kern, r in sorted(kernels.items()):
+            match = by_sass.get(r.get("sass"))
+            same &= match is not None
+            print(f"[{name}] against {pretty[kern]} "
+                  f"({r.get('registers')} registers): "
+                  + (f"same SASS as {pretty[match]}" if match
+                     else "no kernel here has its SASS"))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"kernels": {n: {pretty[k]: v for k, v in ks.items()}
+                                   for n, ks in mine.items()},
+                       "against": {n: {pretty[k]: v for k, v in ks.items()}
+                                   for n, ks in other.items()}},
+                      f, indent=1)
+    if other:
+        print(f"[kernel_regs] every kernel of {args.against} has its SASS "
+              f"here: {same}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,7 +7,9 @@ every test skips. On a GPU machine, which need not have JAX installed::
 
 TF32 is switched off for the twins (full float32 convolutions and
 matmuls). K1, K5, K6 and K8 ``packonly`` must be bit-equal; K2/K3/K4,
-K7 and K8 within ``atol 2e-5, rtol 1e-4`` (f32 operands) and K2-K4
+K7 and K8 within ``atol 2e-5, rtol 1e-4`` (f32 operands; K8's modes on
+both of K2's loops, the wgmma loop's f32 as three TF32 products, up to K
+= 9 * 256) and K2-K4
 within ``atol 0.35, rtol 0.05`` (bf16 operands; also within the f32
 bound: the same rounded operands, f32 sums), the bounds of
 ``tests/test_unet_pallas.py``; K7's bf16 output within ``atol 1e-3,
@@ -669,6 +671,93 @@ def test_gated_conv_probe_kernel_matches_twin(dev, cin, cout, h, w, bf16):
     torch.cuda.synchronize()
     assert out.shape == (2, h, w, 2 * cout)
     assert GP.launches["gated_conv_probe"] == before + 1
+
+
+def _probe_case(dev, b, h, w, cin, cout):
+    gen = torch.Generator(device=dev).manual_seed(b + h + cin + cout)
+    x = torch.randn(b, h, w, cin, generator=gen, device=dev)
+    wk = torch.randn(3, 3, cin, 2 * cout, generator=gen, device=dev) / (
+        9 * cin) ** 0.5
+    return x, wk
+
+
+@pytest.mark.parametrize("loop,cin,cout,b,h,w", [
+    ("wgmma", 32, 32, 2, 20, 70),    # one 64-column N tile
+    ("wgmma", 64, 256, 1, 9, 13),    # four N tiles, 117 pixels
+    ("wgmma", 32, 152, 1, 7, 9),     # 2*Cout > 9*Cin: packonly's zeros
+    ("tile", 32, 32, 2, 20, 70),
+    ("tile", 8, 12, 2, 9, 33)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_gated_conv_probe_modes_on_both_loops(dev, loop, cin, cout, b, h,
+                                              w, bf16):
+    """K8's four modes on each loop against the twin of that loop: full
+    and nowin within the f32 bound (bf16 operands: the twin rounds the
+    same operands), packonly bit-equal (on the wgmma loop: the staged
+    TF32 parts' sum in f32, bf16 widened; the output is allocated
+    uninitialised, so NaN left in the allocator's block shows any column
+    no kernel wrote), nopack runs. Each call counts one launch on its
+    loop."""
+    x, wk = _probe_case(dev, b, h, w, cin, cout)
+    packed = GC.pack_kxk_bf16(wk) if bf16 else GC.pack_kxk_tf32(wk)
+    for mode in GP.MODES:
+        torch.full((b, h, w, 2 * cout), float("nan"), device=dev)
+        before = dict(GP.launches)
+        got = GP.gated_conv_probe(x, wk, mode=mode, bf16=bf16, loop=loop,
+                                  packed=packed if loop == "wgmma" else None)
+        torch.cuda.synchronize()
+        assert GP.launches["gated_conv_probe"] == before[
+            "gated_conv_probe"] + 1
+        assert GP.launches[f"gated_conv_probe_{loop}"] == before[
+            f"gated_conv_probe_{loop}"] + 1
+        assert got.shape == (b, h, w, 2 * cout)
+        if mode == "nopack":
+            continue
+        want = GP.gated_conv_probe_plain(x, wk, mode=mode, bf16=bf16,
+                                         loop=loop)
+        torch.cuda.synchronize()
+        if mode == "packonly":
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, **F32)
+
+
+def test_gated_conv_probe_full_tf32x3_at_k_2304(dev):
+    """``full`` on the wgmma loop with f32 operands (three TF32 products,
+    a fresh wgmma sum per 32-channel slice) holds the f32 bound at K =
+    9 * 256, H and W cut small; the loop is K2's own, packed weight made
+    by the wrapper."""
+    x, wk = _probe_case(dev, 1, 12, 17, 256, 64)
+    assert GP.probe_route(x, wk) == "wgmma"
+    got = GP.gated_conv_probe(x, wk, mode="full")
+    want = GP.gated_conv_probe_plain(x, wk, mode="full")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **F32)
+
+
+def test_gated_conv_probe_wgmma_refuses_misaligned_pointers(dev):
+    """The C entry's wgmma route, as ``gated_conv_kxk_wgmma``: x, the
+    packed weight and out 16-byte aligned, else cudaErrorInvalidValue
+    (raised by the wrapper's launch helper), with no launch."""
+    from read_tpu_torch import _build
+    x, wk = _probe_case(dev, 1, 4, 8, 32, 8)
+    packed = GC.pack_kxk_tf32(wk)
+    fn = _build.function("gated_conv_probe", "gated_conv_probe",
+                         GP._ARGTYPES)
+    xs = torch.empty(x.numel() + 1, device=dev)[1:]
+    xs.copy_(x.reshape(-1))
+    out = torch.empty(4 * 8 * 16 + 1, device=dev)
+    good = (x.data_ptr(), packed.data_ptr(), out.data_ptr())
+    for bad in ((xs.data_ptr(),) + good[1:],
+                good[:2] + (out[1:].data_ptr(),)):
+        with pytest.raises(RuntimeError, match="CUDA launch failed"):
+            _build.call(fn, x.device, "gated_conv_probe (wgmma)", *bad, 1,
+                        4, 8, 32, 8, 0, 0, 1)
+    _build.call(fn, x.device, "gated_conv_probe (wgmma)", *good, 1, 4, 8,
+                32, 8, 0, 0, 1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out[:4 * 8 * 16].reshape(1, 4, 8, 16),
+        GP.gated_conv_probe_plain(x, wk, mode="full"), **F32)
 
 
 def test_wrappers_launch_on_their_tensors_device(dev):

@@ -9,6 +9,13 @@ is local to its ``main`` and cannot be imported):
 - ``nowin``: ``sum_t mask_t * x @ W_t`` with the in-image masks of the
   shifted taps, built here with numpy, ``atol 2e-5, rtol 1e-4``;
 - ``nopack`` has no defined output: the twin and the CPU wrapper raise.
+
+On K2's wgmma loop (``loop="wgmma"``, which ``loop=None`` picks where K2
+would: ``Cin % 32 == 0``, ``Cout % 8 == 0``) the same definitions hold,
+but ``packonly`` in f32 is the sum of the staged TF32 parts: here a
+numpy split (round to nearest, ties away from zero, to 11 significant
+bits, as ``cvt.rna.tf32.f32``) of the tap matrix, ``hi + lo``, bit-equal;
+in bf16 the taps rounded to bfloat16 (to nearest even), bit-equal.
 """
 
 import jax
@@ -95,3 +102,91 @@ def test_probe_contract():
         GP.gated_conv_probe(x, wk[:1, :1], mode="full")
     with pytest.raises(RuntimeError):
         GP.gated_conv_probe(x.to("meta"), wk.to("meta"), mode="full")
+
+
+def _round_sig(a, bits, half_even):
+    """numpy: ``a`` (float32) rounded to ``bits`` significant bits, ties
+    to even or away from zero, computed exactly in float64."""
+    v = a.astype(np.float64)
+    m, e = np.frexp(np.abs(v))         # |v| = m * 2**e, m in [0.5, 1)
+    scaled = np.ldexp(m, bits)         # exact: bits significant bits up
+    r = np.rint(scaled) if half_even else np.floor(scaled + 0.5)
+    return (np.sign(v) * np.ldexp(r, e - bits)).astype(np.float32)
+
+
+def _tf32_hi_plus_lo(a):
+    """The TF32 x3 mode's staged operand: hi = rna_tf32(a), lo =
+    rna_tf32(a - hi), summed in float32."""
+    hi = _round_sig(a, 11, half_even=False)
+    lo = _round_sig(a - hi, 11, half_even=False)   # a - hi is exact
+    return hi + lo
+
+
+def _wgmma_case(seed, cin=32, cout=8, b=2, h=5, w=6):
+    x, wk = _case(seed, b=b, h=h, w=w, cin=cin, cout=cout)
+    return torch.tensor(x), torch.tensor(wk)   # torch-allocated: aligned
+
+
+@pytest.mark.parametrize("cin,cout", [(32, 8), (64, 96), (32, 152)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_wgmma_packonly_is_the_staged_tap_matrix(cin, cout, bf16):
+    """Columns j < min(2*Cout, 9*Cin) of the im2col matrix as the wgmma
+    loop stages them (at 32 -> 152 the columns past the 288 taps are
+    zero)."""
+    x, wk = _wgmma_case(5, cin, cout)
+    taps, _ = _taps(x.numpy())
+    cols = np.concatenate(taps, axis=-1)
+    cols = (_round_sig(cols, 8, half_even=True) if bf16
+            else _tf32_hi_plus_lo(cols))
+    want = np.zeros(x.shape[:3] + (2 * cout,), np.float32)
+    m = min(2 * cout, 9 * cin)
+    want[..., :m] = cols[..., :m]
+    got = GP.gated_conv_probe(x, wk, mode="packonly", bf16=bf16,
+                              loop="wgmma")
+    np.testing.assert_array_equal(got.numpy(), want)
+    if not bf16:   # the TF32 parts differ from the taps themselves
+        assert not np.array_equal(want[..., :m],
+                                  np.concatenate(taps, -1)[..., :m])
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_wgmma_full_and_nowin_match_their_definitions(bf16):
+    x, wk = _wgmma_case(6)
+    xn, wn = x.numpy(), wk.numpy()
+    if bf16:
+        xn, wn = (_round_sig(a, 8, half_even=True) for a in (xn, wn))
+    want_full = jax.lax.conv_general_dilated(
+        jnp.asarray(xn), jnp.asarray(wn), (1, 1), [(1, 1), (1, 1)],
+        dimension_numbers=("NHWC", "HWIO", "NHWC"))
+    _, masks = _taps(xn)
+    w9 = wn.reshape(9, xn.shape[-1], -1)
+    want_nowin = sum(masks[t][None, :, :, None] * (xn @ w9[t])
+                     for t in range(9))
+    for mode, want in (("full", want_full), ("nowin", want_nowin)):
+        got = GP.gated_conv_probe(x, wk, mode=mode, bf16=bf16,
+                                  loop="wgmma")
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+@pytest.mark.parametrize("cin,cout,route", [(32, 8, "wgmma"),
+                                            (64, 16, "wgmma"),
+                                            (8, 8, "tile"),
+                                            (32, 12, "tile")])
+def test_probe_routes_as_k2(cin, cout, route):
+    """``loop=None`` takes K2's route; forcing ``wgmma`` where the loop
+    cannot run raises, and ``tile`` always runs."""
+    x, wk = _wgmma_case(7, cin, cout)
+    assert GP.probe_route(x, wk) == route
+    assert GP.probe_route(x, wk, "tile") == "tile"
+    calls = []
+    got = GP.gated_conv_probe(x, wk, mode="packonly",
+                              packed=lambda: calls.append(1))
+    assert calls == []            # the CPU never packs
+    want = GP.gated_conv_probe_plain(x, wk, mode="packonly", loop=route)
+    assert torch.equal(got, want)
+    if route == "tile":
+        for fn in (GP.gated_conv_probe, GP.gated_conv_probe_plain):
+            with pytest.raises(ValueError, match="wgmma loop takes"):
+                fn(x, wk, mode="full", loop="wgmma")
+    with pytest.raises(ValueError, match="loop"):
+        GP.gated_conv_probe(x, wk, mode="full", loop="band")

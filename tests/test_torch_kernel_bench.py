@@ -61,17 +61,53 @@ def test_rows_run_and_compare_at_a_tiny_size(monkeypatch):
         assert r["bound_ms"] > 0 and r["bound_by"] in ("bytes",
                                                        "operations")
     # K7: the wrapper packing per call and with a packed weight, and the
-    # band kernel called directly, per shape and dtype
+    # band kernel called directly, per shape and dtype; K8: its modes on
+    # the wgmma loop and on the tile loop, per shape and dtype
     assert by == {"zbuffer": 3, "zbuffer_exact": 3, "zbuffer_keys": 3,
                   "gated_conv_kxk": 4, "gated_conv3x3_r2": 8,
                   "gated_conv3x3_r2_band": 4, "gated_conv_1x1": 4,
                   "gated_conv1x1_r2": 8, "gated_conv1x1_r2_band": 4,
-                  "gated_conv_probe": 12, "gated_conv_1x1_cat": 4}
+                  "gated_conv_probe": 24, "gated_conv_1x1_cat": 4}
     assert all(v == 0 for v in launches.values())   # twins on the CPU
     assert all(r["launches"] == {} for r in rows)
     assert sum(r["label"].startswith("packs per call") for r in rows) == 8
+    assert sum(r["label"].startswith("tile ") for r in rows) == 12
     assert all(r["max_abs_err"] == 0.0 for r in rows
                if r["group"] == "zbuffer")
+
+
+def test_probe_rows_at_a_deep_level(monkeypatch):
+    """K8's rows at a 128-channel level: the three modes with a CPU twin
+    on the wgmma loop, full and packonly at one N tile (``->64``), the
+    same three on the tile loop, per dtype; each compares and has a
+    bound."""
+    monkeypatch.setattr(KB, "CONV_SHAPES", ((4, 6, 128),))
+    monkeypatch.setattr(GP, "MODES", ("full", "packonly", "nowin"))
+    monkeypatch.setattr(KB, "event_ms", lambda fn, iters=10, warmup=2:
+                        (fn(), 1.0)[1])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    rows = KB.probe_rows(torch.device("cpu"))
+    labels = sorted(r.label for r in rows)
+    assert labels == sorted(
+        f"{m} 4x6 {c} {ops}" for ops in ("f32", "bf16")
+        for m, c in [("full", "128->128"), ("packonly", "128->128"),
+                     ("nowin", "128->128"), ("full", "128->64"),
+                     ("packonly", "128->64"), ("tile full", "128->128"),
+                     ("tile packonly", "128->128"),
+                     ("tile nowin", "128->128")])
+    for row in rows:
+        row.out = row.fn()
+        res = row.measure()
+        assert res["bound_ms"] > 0
+        assert res["max_abs_err"] == 0.0 or "packonly" not in row.label
+        assert (res["library_ms"] is not None) == row.label.startswith(
+            ("full 4x6 128->128", "tile full"))
+    one = {r.label: r for r in rows}
+    # one N tile: a quarter of the output columns, the same K
+    assert one["packonly 4x6 128->64 f32"].nbytes < one[
+        "packonly 4x6 128->128 f32"].nbytes
+    assert one["full 4x6 128->64 f32"].flops * 2 == one[
+        "full 4x6 128->128 f32"].flops
 
 
 def test_event_ms_divides_back_to_back_calls(monkeypatch):
