@@ -54,6 +54,7 @@ CUDA device it raises.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import statistics
 import subprocess
@@ -64,14 +65,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from read_tpu_torch.frame import frame_inputs
+from read_tpu_torch.frame import frame_inputs, train_inputs
 from read_tpu_torch.ops import gated_conv as GC
 from read_tpu_torch.ops import gated_conv_probe as GP
 from read_tpu_torch.ops import gated_conv_r2 as R2
+from read_tpu_torch.ops import rasterize as R
 from read_tpu_torch.ops import rasterize_kernels as RK
 
-__all__ = ["bound", "conv_cost", "event_ms", "graph_ms", "library_conv",
-           "zbuffer_yardsticks", "run", "main"]
+__all__ = ["bound", "conv_cost", "event_ms", "graph_ms", "device_ops",
+           "library_conv", "zbuffer_yardsticks", "run", "main"]
 
 F32_TOL = dict(atol=2e-5, rtol=1e-4)     # tests/test_unet_pallas.py
 BF16_TOL = dict(atol=0.35, rtol=0.05)    # same file, bf16 operands
@@ -85,6 +87,8 @@ PEAK_F32, PEAK_BF16, PEAK_TF32, HBM_BYTES_S = 67e12, 989e12, 495e12, 3.35e12
 # add, 3 divides, depth and pixel mapping ~9)
 PROJECT_FLOPS = 4 * 6 + 3 + 9
 N_POINTS, HW = 1_000_000, (368, 1216)
+# the training step's views (frame.train_inputs) and the pyramids' depth
+TRAIN_B, TRAIN_HW, PYRAMID_LEVELS = 8, (256, 256), 4
 CONV_SHAPES = ((368, 1216, 32), (184, 608, 64), (92, 304, 128),
                (46, 152, 256))
 # the SCM BasicConv_4 sites of the full-width frame: (name, h, w, cins)
@@ -191,6 +195,22 @@ def graph_ms(fn: Callable, iters: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def device_ops(fn: Callable) -> Optional[int]:
+    """Device operations (kernels, memsets, copies) that one ``fn()``
+    queues, counted in a ``torch.profiler`` trace of one call after a
+    warm-up call; None where the trace holds no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
+
+
 def max_err(name: str, got, want, tols) -> float:
     """Max |got - want|; raises unless finite, same shape and within
     every tolerance in ``tols`` (``None``: bit-equal); tuples of outputs
@@ -223,11 +243,14 @@ class Row:
     f32 operands as three TF32 products, see :func:`bound`)."""
 
     def __init__(self, group, kernel, label, fn, twin, library, tols,
-                 flops, nbytes, bf16, tf32x3=False):
+                 flops, nbytes, bf16, tf32x3=False, graph=False):
         self.group, self.kernel, self.label = group, kernel, label
         self.fn, self.twin, self.library, self.tols = fn, twin, library, tols
         self.flops, self.nbytes, self.bf16 = flops, nbytes, bf16
         self.tf32x3 = tf32x3
+        # also time fn (and the library call) in a CUDA graph, and count
+        # the device operations of each
+        self.graph = graph
         self.out = None
         self.launches = {}  # counter -> launches of the first pass's call
 
@@ -253,6 +276,12 @@ class Row:
                "launches": self.launches}
         if self.tf32x3:
             row["f32_fma_bound_ms"] = bound(self.flops, self.nbytes)[0]
+        if self.graph:
+            row.update(graph_ms=graph_ms(self.fn),
+                       device_ops=device_ops(self.fn))
+            if self.library is not None:
+                row.update(library_graph_ms=graph_ms(self.library),
+                           library_device_ops=device_ops(self.library))
         return row
 
 
@@ -302,32 +331,75 @@ def zbuffer_yardsticks(xyz, ms, hw):
 
 
 def zbuffer_rows(dev) -> List[Row]:
-    """K1, K5 and K6 at the serving frame's shapes."""
+    """K1, K5 and K6 at the serving frame's shapes and the training
+    step's, each also in a CUDA graph; then the pyramid rows."""
     rows = []
-    hw = HW[0] * HW[1]
     cases = []
     for b in (1, 2):
-        cases.append((f"B={b}", *frame_inputs(b, N_POINTS, HW)))
+        cases.append((f"B={b}", *frame_inputs(b, N_POINTS, HW), HW))
     xyz, ms = frame_inputs(1, N_POINTS, HW)
-    cases.append(("B=1 ties", np.tile(xyz[:N_POINTS // 4], (4, 1)), ms))
-    for label, xyz, ms in cases:
+    cases.append(("B=1 ties", np.tile(xyz[:N_POINTS // 4], (4, 1)), ms, HW))
+    cases.append((f"B={TRAIN_B} {TRAIN_HW[1]}x{TRAIN_HW[0]}",
+                  *train_inputs(TRAIN_B, N_POINTS, TRAIN_HW[0])[:2],
+                  TRAIN_HW))
+    for label, xyz, ms, hw in cases:
         xyz = torch.from_numpy(xyz).to(dev)
         ms = torch.from_numpy(ms).to(dev)
-        pix, key, lib = zbuffer_yardsticks(xyz, ms, HW)
+        npx = hw[0] * hw[1]
+        pix, key, lib = zbuffer_yardsticks(xyz, ms, hw)
         calls = {
-            "zbuffer": (lambda xyz=xyz, ms=ms: RK.zbuffer(xyz, ms, *HW),
-                        lambda xyz=xyz, ms=ms: RK.zbuffer_plain(xyz, ms,
-                                                                *HW)),
+            "zbuffer": (lambda xyz=xyz, ms=ms, hw=hw: RK.zbuffer(xyz, ms,
+                                                                 *hw),
+                        lambda xyz=xyz, ms=ms, hw=hw: RK.zbuffer_plain(
+                            xyz, ms, *hw)),
             "zbuffer_exact": (
-                lambda xyz=xyz, ms=ms: RK.zbuffer_exact(xyz, ms, *HW),
-                lambda xyz=xyz, ms=ms: RK.zbuffer_exact_plain(xyz, ms, *HW)),
-            "zbuffer_keys": (lambda p=pix, k=key: RK.zbuffer_keys(p, k, hw),
-                             lambda p=pix, k=key: RK.zbuffer_keys_plain(
-                                 p, k, hw))}
+                lambda xyz=xyz, ms=ms, hw=hw: RK.zbuffer_exact(xyz, ms, *hw),
+                lambda xyz=xyz, ms=ms, hw=hw: RK.zbuffer_exact_plain(
+                    xyz, ms, *hw)),
+            "zbuffer_keys": (lambda p=pix, k=key, n=npx: RK.zbuffer_keys(
+                                 p, k, n),
+                             lambda p=pix, k=key, n=npx:
+                                 RK.zbuffer_keys_plain(p, k, n))}
         for name, (fn, twin) in calls.items():
             library, flops, nbytes = lib[name]
             rows.append(Row("zbuffer", name, label, fn, twin, library, None,
-                            flops, nbytes, False))
+                            flops, nbytes, False, graph=True))
+    return rows + pyramid_rows(dev)
+
+
+def pyramid_cost(b, n, hw, levels):
+    """``(flops, bytes)`` of a pyramid: the projection's flops; xyz and
+    the matrices read once, every level's index and depth written
+    once."""
+    h, w = hw
+    out = sum(8 * b * (h >> i) * (w >> i) for i in range(levels))
+    return PROJECT_FLOPS * b * n, 12 * n + 64 * b + out
+
+
+def pyramid_rows(dev) -> List[Row]:
+    """``rasterize_pyramid_pooled`` to ``PYRAMID_LEVELS`` levels for each
+    z-buffer (``method``) and pool, at the serving frame's shape (B=1)
+    and the training step's, in a CUDA graph too and with its device
+    operations counted."""
+    rows = []
+    shapes = [("B=1", *frame_inputs(1, N_POINTS, HW), HW),
+              (f"B={TRAIN_B}",
+               *train_inputs(TRAIN_B, N_POINTS, TRAIN_HW[0])[:2], TRAIN_HW)]
+    for tag, xyz, ms, hw in shapes:
+        xyz = torch.from_numpy(xyz).to(dev)
+        ms = torch.from_numpy(ms).to(dev)
+        for method, pool in itertools.product(("pallas", "sort"),
+                                              ("packed", "exact")):
+            label = (f"{method}+{pool} {tag} {hw[1]}x{hw[0]} "
+                     f"L={PYRAMID_LEVELS}")
+            rows.append(Row(
+                "zbuffer", "rasterize_pyramid_pooled", label,
+                lambda xyz=xyz, ms=ms, hw=hw, m=method, p=pool:
+                    R.rasterize_pyramid_pooled(xyz, ms, hw, PYRAMID_LEVELS,
+                                               method=m, pool_impl=p),
+                None, None, None,
+                *pyramid_cost(ms.shape[0], xyz.shape[0], hw, PYRAMID_LEVELS),
+                False, graph=True))
     return rows
 
 
@@ -538,11 +610,18 @@ def format_row(r: Dict) -> str:
     def ms(v):
         return "-" if v is None else f"{v:.4f}"
     err = "-" if r["max_abs_err"] is None else f"{r['max_abs_err']:.2e}"
+    graph = ""
+    if "graph_ms" in r:
+        graph = (f"; in a CUDA graph {ms(r['graph_ms'])} ms, "
+                 f"{r['device_ops']} device ops")
+        if "library_graph_ms" in r:
+            graph += (f" (library {ms(r['library_graph_ms'])} ms, "
+                      f"{r['library_device_ops']} ops)")
     return (f"[{r['group']}] {r['kernel']} {r['label']}: kernel "
             f"{ms(r['ms'])} ms, twin {ms(r['plain_ms'])}, library "
             f"{ms(r['library_ms'])}, bound {ms(r['bound_ms'])} "
             f"({r['bound_by']}), kernel/bound "
-            f"{r['kernel_over_bound']:.1f}, err {err}")
+            f"{r['kernel_over_bound']:.1f}, err {err}{graph}")
 
 
 def main(argv=None) -> int:

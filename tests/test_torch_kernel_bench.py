@@ -45,6 +45,8 @@ def test_bounds_match_hand_reckonings():
 def test_rows_run_and_compare_at_a_tiny_size(monkeypatch):
     monkeypatch.setattr(KB, "N_POINTS", 6000)
     monkeypatch.setattr(KB, "HW", (24, 40))
+    monkeypatch.setattr(KB, "TRAIN_B", 2)
+    monkeypatch.setattr(KB, "TRAIN_HW", (16, 16))
     monkeypatch.setattr(KB, "CONV_SHAPES", ((10, 12, 32), (6, 8, 64)))
     monkeypatch.setattr(KB, "SCM_SITES", (("SCM2", 6, 8, (8, 56)),))
     monkeypatch.setattr(KB, "CAT_PROBES",
@@ -53,6 +55,8 @@ def test_rows_run_and_compare_at_a_tiny_size(monkeypatch):
     monkeypatch.setattr(GP, "MODES", ("full", "packonly", "nowin"))
     monkeypatch.setattr(KB, "event_ms", lambda fn, iters=10, warmup=2:
                         (fn(), 1.0)[1])
+    monkeypatch.setattr(KB, "graph_ms", lambda fn: (fn(), 0.5)[1])
+    monkeypatch.setattr(KB, "device_ops", lambda fn: (fn(), 3)[1])
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     rows, launches = KB.run(torch.device("cpu"), echo=None)
     by = {}
@@ -63,7 +67,8 @@ def test_rows_run_and_compare_at_a_tiny_size(monkeypatch):
     # K7: the wrapper packing per call and with a packed weight, and the
     # band kernel called directly, per shape and dtype; K8: its modes on
     # the wgmma loop and on the tile loop, per shape and dtype
-    assert by == {"zbuffer": 3, "zbuffer_exact": 3, "zbuffer_keys": 3,
+    assert by == {"zbuffer": 4, "zbuffer_exact": 4, "zbuffer_keys": 4,
+                  "rasterize_pyramid_pooled": 8,
                   "gated_conv_kxk": 4, "gated_conv3x3_r2": 8,
                   "gated_conv3x3_r2_band": 4, "gated_conv_1x1": 4,
                   "gated_conv1x1_r2": 8, "gated_conv1x1_r2_band": 4,
@@ -73,6 +78,9 @@ def test_rows_run_and_compare_at_a_tiny_size(monkeypatch):
     assert sum(r["label"].startswith("packs per call") for r in rows) == 8
     assert sum(r["label"].startswith("tile ") for r in rows) == 12
     assert all(r["max_abs_err"] == 0.0 for r in rows
+               if r["group"] == "zbuffer" and r["plain_ms"] is not None)
+    # every z-buffer row also in a CUDA graph, with its device operations
+    assert all(r["graph_ms"] == 0.5 and r["device_ops"] == 3 for r in rows
                if r["group"] == "zbuffer")
 
 
