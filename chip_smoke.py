@@ -27,7 +27,10 @@ without a device it exits non-zero at once. It
    request;
 4. holds K5, the exact z-buffer, bit-equal against its twin at 1M
    points (1216x368 at B=1 and 2, with heavy ties, and 256x256 at B=8)
-   and times both;
+   and times both, also in a CUDA graph; at the same four shapes holds
+   the pyramid (``rasterize_kernels.zbuffer_pyramid``: K1 or K5 and the
+   pyramid pass) bit-equal against its twin at all 4 levels, for both
+   z-buffers and both pools;
 5. trains: one full training step from a fresh full-width state, with
    K5 and with its twin (cuDNN deterministic), must give bit-equal
    pyramids and the same loss and gradients within 1e-6 relative; then
@@ -48,7 +51,10 @@ without a device it exits non-zero at once. It
    ``gated=False`` call and a width the wgmma loops do not take, 3x3 and
    1x1, f32 and bf16), then runs the kernel bench
    (``read_tpu_torch.kernel_bench``) in-process: K1, K5 and K6
-   (bit-equal, ties included) at 1M points, 1216x368, B=1 and 2; K7
+   (bit-equal, ties included) at 1M points, 1216x368, B=1 and 2, and
+   256x256, B=8, each also in a CUDA graph; the pyramid in its four
+   combinations at the frame's and the training step's shapes beside
+   the parent's chain (K1/K5 and the plain pools); K7
    beside K2 and K3, and K8's four modes, at the four level shapes; K4
    at the frame's SCM sites and the two concat probes; f32 and bf16;
    each against its twin, with its library yardstick and bound. Per
@@ -64,17 +70,25 @@ without a device it exits non-zero at once. It
    packing its weight on every call.
 
 The serving phases also require K4 (``gated_conv_1x1_cat``): 3 launches
-per request, the SCMs' ``BasicConv_4``. TF32 is off throughout, so the
+per request, the SCMs' ``BasicConv_4``; every phase that builds a
+pyramid on the card (serve, serve_bf16, serve_sort, the frames, train)
+requires the pyramid pass (``zbuffer_pyramid``) to have launched as
+often as its z-buffer. TF32 is off throughout, so the
 twins' convolutions and matmuls are full float32 (but for the TF32-on
 train timing). Any failed check
 raises and the script exits non-zero. The last stdout line is ``{"ok":
 true, "device": {...}}``; the line before it lists each kernel's
-launches (counted on the run of the path it serves: K1-K4 and both
-wgmma loops on the f32 serving path, K5 on the training steps, K6-K8 on
+launches (counted on the run of the path it serves: K1-K4, the pyramid
+pass and both wgmma loops on the f32 serving path, K5 on the training
+steps, K6-K8 on
 the kernel bench's first pass, K8's on K2's wgmma loop with its tile-loop
 launches as ``tile_launches``; K2's loop also on the bf16 requests,
 ``bf16_launches``), error, its time, its twin's, the library call's and
-its bound (``shape`` says what they were measured on); the K2, K3, K4
+its bound (``shape`` says what they were measured on); K1, K5, K6 and
+the pyramid add their device time in a CUDA graph (``graph_ms``), the
+pyramid its device operations and the training step's numbers
+(``train_*``) beside the serving frame's, with the parent's chain as
+its library; the K2, K3, K4
 and wgmma-loop entries add their bf16 per-frame times (``bf16_ms``,
 ``bf16_plain_ms``, ``bf16_library_ms``, ``bf16_bound_ms``), K7's four
 entries (``gated_conv{3x3,1x1}_r2_wgmma``: the loops; ``..._band``: the
@@ -116,6 +130,10 @@ KERNELS = {
                        "read_tpu/ops/gated_conv_pack.py:421"),
     "zbuffer_exact": ("read_tpu_torch/csrc/zbuffer.cu",
                       "read_tpu/ops/rasterize_pallas.py:40"),
+    # the pass after K1/K5: K5's output stage, K1's depth gather and the
+    # 2x2 pools (read_tpu/ops/rasterize.py:574, :602)
+    "zbuffer_pyramid": ("read_tpu_torch/csrc/zbuffer.cu",
+                        "read_tpu/ops/rasterize_pallas.py:40"),
     "gated_conv_1x1_cat": ("read_tpu_torch/csrc/gated_conv.cu",
                            "read_tpu/ops/gated_conv_pack.py:509"),
     "gated_conv_1x1_wgmma": ("read_tpu_torch/csrc/gated_conv_1x1_wgmma.cuh",
@@ -167,6 +185,7 @@ class Twins:
         from read_tpu_torch.ops import rasterize_kernels as RK
         self.saved = [(RK, "zbuffer", RK.zbuffer),
                       (RK, "zbuffer_exact", RK.zbuffer_exact),
+                      (RK, "zbuffer_pyramid", RK.zbuffer_pyramid),
                       (GC, "gated_conv_kxk", GC.gated_conv_kxk),
                       (GC, "gated_conv_1x1", GC.gated_conv_1x1),
                       (GC, "gated_conv_1x1_cat", GC.gated_conv_1x1_cat)]
@@ -222,7 +241,7 @@ def phase_zbuffer(report, dev):
     import torch
     from read_tpu_torch import kernel_bench as KB
     from read_tpu_torch.frame import frame_inputs
-    from read_tpu_torch.kernel_bench import event_ms
+    from read_tpu_torch.kernel_bench import event_ms, graph_ms
     from read_tpu_torch.ops import rasterize_kernels as RK
     for b in (1, 2):
         xyz, ms = frame_inputs(b, N_POINTS, HW)
@@ -239,12 +258,13 @@ def phase_zbuffer(report, dev):
             raise SmokeFailure(f"zbuffer B={b}: point depths differ")
         filled = float((buf_k != RK.INT32_MAX).float().mean())
         t_k = event_ms(lambda: RK.zbuffer(xyz, ms, *HW), iters=20)
+        g_k = graph_ms(lambda: RK.zbuffer(xyz, ms, *HW))
         t_p = event_ms(lambda: RK.zbuffer_plain(xyz, ms, *HW), iters=20)
         print(f"[zbuffer] B={b} N={N_POINTS} {HW[1]}x{HW[0]}: bit-equal, "
-              f"{filled:.3f} of pixels covered; kernel {t_k:.4f} ms, "
-              f"twin {t_p:.4f} ms")
+              f"{filled:.3f} of pixels covered; kernel {t_k:.4f} ms (in a "
+              f"CUDA graph {g_k:.4f}), twin {t_p:.4f} ms")
         if b == 1:
-            report["zbuffer"].update(ms=t_k, plain_ms=t_p,
+            report["zbuffer"].update(ms=t_k, graph_ms=g_k, plain_ms=t_p,
                                      shape=f"B=1 N={N_POINTS} {HW[1]}x"
                                            f"{HW[0]}")
             library_and_bound(report["zbuffer"], *KB.zbuffer_yardsticks(
@@ -253,10 +273,14 @@ def phase_zbuffer(report, dev):
 
 
 def phase_zbuffer_exact(report, dev):
+    """K5 bit-equal to its twin, and the pyramid (K1 or K5 and the pass)
+    in all four combinations of z-buffer and pool bit-equal to its twin
+    at every level: 1M points at 1216x368 B=1 and 2, with heavy ties, and
+    at the training step's 256x256 B=8."""
     import torch
     from read_tpu_torch import kernel_bench as KB
     from read_tpu_torch.frame import frame_inputs, train_inputs
-    from read_tpu_torch.kernel_bench import event_ms
+    from read_tpu_torch.kernel_bench import event_ms, graph_ms
     from read_tpu_torch.ops import rasterize_kernels as RK
     cases = []
     for b in (1, 2):
@@ -280,17 +304,48 @@ def phase_zbuffer_exact(report, dev):
             raise SmokeFailure(f"zbuffer_exact {label}: depth differs")
         filled = float((i_k >= 0).float().mean())
         t_k = event_ms(lambda: RK.zbuffer_exact(xyz, ms, *hw), iters=20)
+        g_k = graph_ms(lambda: RK.zbuffer_exact(xyz, ms, *hw))
         t_p = event_ms(lambda: RK.zbuffer_exact_plain(xyz, ms, *hw),
                        iters=20)
         print(f"[zbuffer_exact] {label} N={xyz.shape[0]} {hw[1]}x{hw[0]}: "
               f"bit-equal, {filled:.3f} of pixels covered; kernel "
-              f"{t_k:.4f} ms, twin {t_p:.4f} ms")
+              f"{t_k:.4f} ms (in a CUDA graph {g_k:.4f}), twin {t_p:.4f} ms")
+        check_pyramids(label, xyz, ms, hw)
     # the training step's shape (the last case)
-    report["zbuffer_exact"].update(ms=t_k, plain_ms=t_p, max_abs_err=0.0,
+    report["zbuffer_exact"].update(ms=t_k, graph_ms=g_k, plain_ms=t_p,
+                                   max_abs_err=0.0,
                                    shape=f"{label} N={xyz.shape[0]} "
                                          f"{hw[1]}x{hw[0]}")
     library_and_bound(report["zbuffer_exact"], *KB.zbuffer_yardsticks(
         xyz, ms, hw)[2]["zbuffer_exact"])
+
+
+def check_pyramids(label, xyz, ms, hw):
+    """``RK.zbuffer_pyramid`` to 4 levels in every combination of
+    z-buffer and pool against its twin, every level bit-equal; each call
+    launches one projection and one pass."""
+    import torch
+    from read_tpu_torch.ops import rasterize_kernels as RK
+    for method, pool in itertools.product(("pallas", "sort"),
+                                          ("packed", "exact")):
+        before = dict(RK.launches)
+        got = RK.zbuffer_pyramid(xyz, ms, *hw, 4, method, pool)
+        ran = {k: v - before[k] for k, v in RK.launches.items()
+               if v != before[k]}
+        proj = "zbuffer_exact" if method == "sort" else "zbuffer"
+        if ran != {proj: 1, "zbuffer_pyramid": 1}:
+            raise SmokeFailure(f"pyramid {method}+{pool} {label}: launches "
+                               f"{ran}")
+        want = RK.zbuffer_pyramid_plain(xyz, ms, *hw, 4, method, pool)
+        torch.cuda.synchronize()
+        for lv, ((ig, dg), (iw, dw)) in enumerate(zip(got, want)):
+            if not (torch.equal(ig, iw) and torch.equal(dg, dw)):
+                raise SmokeFailure(
+                    f"pyramid {method}+{pool} {label} level {lv}: differs "
+                    f"from the twin at {int((ig != iw).sum())} indices, "
+                    f"{int((dg != dw).sum())} depths")
+    print(f"[zbuffer_pyramid] {label} {hw[1]}x{hw[0]}: pallas/sort x "
+          "packed/exact, 4 levels each, bit-equal to the twin")
 
 
 def train_setup(dev):
@@ -377,8 +432,7 @@ def phase_train(report, ctx):
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise SmokeFailure(f"train: losses {losses} not finite or not "
                            "lower at the end")
-    if counts["zbuffer_exact"] == 0:
-        raise SmokeFailure("train: K5 never ran on the training path")
+    pyramid_ran("train", counts, "zbuffer_exact", None)
     report["zbuffer_exact"]["launches"] = counts["zbuffer_exact"]
     print(f"[train] {TRAIN_B}x{TRAIN_HW}^2 crops, {N_POINTS} points, "
           f"full-width UNet, VGG on: {seconds * 1e3:.2f} ms/step, "
@@ -483,6 +537,7 @@ def phase_serve_sort(ctx, dev, workdir):
         raise SmokeFailure("serve_sort: K4 did not launch 3 times per "
                            "request")
     routed_loops_ran(ctx, "serve_sort", counts, len(imgs))
+    pyramid_ran("serve_sort", counts, "zbuffer_exact", len(imgs))
     print(f"[serve_sort] trained checkpoint, default config (sort): "
           f"{len(imgs)} requests at {w}x{h}, "
           f"{seconds * 1e3 / len(imgs):.2f} ms/request (first included); "
@@ -847,6 +902,8 @@ def phase_serve(report, ctx, dev, workdir):
         if img.shape != (h, w, 3) or not np.isfinite(img).all():
             raise SmokeFailure(f"request {i}: bad frame {img.shape}")
     routed_loops_ran(ctx, "serve", counts, len(imgs))
+    pyramid_ran("serve", counts, "zbuffer", len(imgs))
+    report["zbuffer_pyramid"]["launches"] = counts["zbuffer_pyramid"]
     for name in ("gated_conv_kxk_wgmma", "gated_conv_1x1_wgmma"):
         report[name]["launches"] = counts[name]
     if not any(float(np.abs(a - b).max()) > 0
@@ -892,6 +949,7 @@ def phase_serve_bf16(report, ctx, dev):
     if not float(np.abs(imgs[0] - imgs[1]).max()) > 0:
         raise SmokeFailure("serve_bf16: the 2 requests rendered the same")
     routed_loops_ran(ctx, "serve_bf16", counts, len(imgs))
+    pyramid_ran("serve_bf16", counts, "zbuffer", len(imgs))
     report["gated_conv_kxk_wgmma"]["bf16_launches"] = counts[
         "gated_conv_kxk_wgmma"]
     with Twins():
@@ -912,6 +970,18 @@ def _routed(ctx):
             ("gated_conv_1x1_wgmma", ctx["conv1x1_per_frame"]))
 
 
+def pyramid_ran(what, counts, proj, calls):
+    """Fail unless the z-buffer ``proj`` (``zbuffer``: K1, or
+    ``zbuffer_exact``: K5) and the pyramid pass each launched ``calls``
+    times (``None``: at least once, as often as each other)."""
+    ran = (counts[proj], counts["zbuffer_pyramid"])
+    if (calls is None and not ran[0] == ran[1] > 0) or \
+            (calls is not None and ran != (calls, calls)):
+        raise SmokeFailure(f"{what}: {proj} launched {ran[0]} times, the "
+                           f"pyramid pass {ran[1]}, want "
+                           f"{calls or 'as often, at least once'}")
+
+
 def routed_loops_ran(ctx, what, counts, requests):
     """Fail unless both wgmma loops ran exactly as often as their routes
     predict for ``requests`` frames."""
@@ -922,16 +992,21 @@ def routed_loops_ran(ctx, what, counts, requests):
 
 
 def loops_ran(ctx, what, fn):
-    """Run ``fn()``; fail unless both wgmma loops ran at least as often
-    as their routes predict for one frame call."""
+    """Run ``fn()`` (one frame call); fail unless both wgmma loops ran at
+    least as often as their routes predict for it, and K1 and the
+    pyramid pass once each."""
     from read_tpu_torch.ops import gated_conv as GC
+    from read_tpu_torch.ops import rasterize_kernels as RK
     before = dict(GC.launches)
+    before_rk = dict(RK.launches)
     out = fn()
     for name, want in _routed(ctx):
         ran = GC.launches[name] - before[name]
         if ran < want:
             raise SmokeFailure(f"{what}: {name} ran {ran} times, the "
                                f"route predicts {want}")
+    pyramid_ran(what, {k: v - before_rk[k] for k, v in RK.launches.items()},
+                "zbuffer", 1)
     return out
 
 
@@ -1073,6 +1148,30 @@ def phase_kernel_bench(report, dev):
             report[name]["launches"] = counts[name]
     fill("zbuffer_keys", select("zbuffer_keys", ["B=1"]),
          f"B=1 N={N_POINTS} {HW[1]}x{HW[0]}, the frame's packed keys")
+    report["zbuffer_keys"]["graph_ms"] = select("zbuffer_keys",
+                                                ["B=1"])[0]["graph_ms"]
+    # the pyramid rows: each one projection and one pass; the entry is
+    # the serving frame's (K1, packed pool), train_*: the training
+    # step's (K5, exact pool); library: the parent's chain
+    for r in [r for r in rows if r["kernel"] == "zbuffer_pyramid"]:
+        proj = "zbuffer_exact" if r["label"].startswith("sort") else \
+            "zbuffer"
+        if r["launches"] != {proj: 1, "zbuffer_pyramid": 1}:
+            raise SmokeFailure(f"kernel_bench: zbuffer_pyramid {r['label']} "
+                               f"launched {r['launches']}")
+    frame = f"pallas+packed B=1 {HW[1]}x{HW[0]} L=4"
+    train = f"sort+exact B={TRAIN_B} {TRAIN_HW}x{TRAIN_HW} L=4"
+    (pf,), (pt,) = (select("zbuffer_pyramid", [frame]),
+                    select("zbuffer_pyramid", [train]))
+    fill("zbuffer_pyramid", [pf], f"{frame}, N={N_POINTS} (library: the "
+         "parent's chain, K1 and the plain pools)")
+    keys = ("graph_ms", "device_ops", "library_graph_ms",
+            "library_device_ops")
+    report["zbuffer_pyramid"].update({k: pf[k] for k in keys})
+    report["zbuffer_pyramid"].update(
+        {f"train_{k}": pt[k] for k in keys + ("ms", "plain_ms",
+                                              "library_ms", "bound_ms")})
+    report["zbuffer_pyramid"]["train_shape"] = f"{train}, N={N_POINTS}"
     levels = "the 4 bench shapes (368x1216x32 .. 46x152x256), summed"
     for k7 in ("gated_conv3x3_r2", "gated_conv1x1_r2"):
         # every gated K7 row on its wgmma loop, the band rows on the band

@@ -195,27 +195,33 @@ def graph_ms(fn: Callable, iters: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ops(fn: Callable) -> Optional[int]:
+def device_ops(fn: Callable, traces: int = 3) -> Optional[int]:
     """Device operations (kernels, memsets, copies) that one ``fn()``
-    queues, counted in a ``torch.profiler`` trace of one call after a
-    warm-up call; None where the trace holds no device activity."""
+    queues: the most that ``traces`` ``torch.profiler`` traces of one
+    call each hold (a trace can come back without its device activity);
+    None where none holds any."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    n = sum(1 for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA)
-    return n or None
+    counts = []
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts.append(sum(1 for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA))
+    return max(counts) or None
 
 
 def max_err(name: str, got, want, tols) -> float:
     """Max |got - want|; raises unless finite, same shape and within
-    every tolerance in ``tols`` (``None``: bit-equal); tuples of outputs
-    are compared element by element."""
-    if isinstance(got, tuple):
+    every tolerance in ``tols`` (``None``: bit-equal); tuples or lists of
+    outputs (a pyramid's levels) are compared element by element."""
+    if isinstance(got, (tuple, list)):   # outputs, or pyramid levels
+        if len(got) != len(want):
+            raise BenchFailure(f"{name}: {len(got)} outputs, want "
+                               f"{len(want)}")
         return max(max_err(name, g, w, tols) for g, w in zip(got, want))
     if tuple(got.shape) != tuple(want.shape):
         raise BenchFailure(f"{name}: shape {tuple(got.shape)} != "
@@ -376,11 +382,32 @@ def pyramid_cost(b, n, hw, levels):
     return PROJECT_FLOPS * b * n, 12 * n + 64 * b + out
 
 
+def parent_chain(xyz, ms, hw, levels, method, pool_impl):
+    """The pyramid as the port built it before the pyramid pass: K1 (and
+    the winner-depth gather) or K5 (with its unpack), then the plain
+    pools, one level after another."""
+    b, n = ms.shape[0], xyz.shape[0]
+    if method == "sort":
+        index, depth = RK.zbuffer_exact(xyz, ms, *hw)
+    else:
+        buf, depth0 = RK.zbuffer(xyz, ms, *hw)
+        index, depth = RK.unpack_packed(buf, RK.key_bits(n)[0], depth0)
+    index, depth = index.view(b, *hw), depth.view(b, *hw)
+    if pool_impl == "packed":
+        return RK.pool_pyramid_plain(index, depth, levels, "packed", n)
+    out = [(index, depth)]
+    for _ in range(1, levels):
+        index, depth = R._pool2x2_zbuffer(index, depth)
+        out.append((index, depth))
+    return out
+
+
 def pyramid_rows(dev) -> List[Row]:
-    """``rasterize_pyramid_pooled`` to ``PYRAMID_LEVELS`` levels for each
+    """:func:`RK.zbuffer_pyramid` to ``PYRAMID_LEVELS`` levels for each
     z-buffer (``method``) and pool, at the serving frame's shape (B=1)
-    and the training step's, in a CUDA graph too and with its device
-    operations counted."""
+    and the training step's, held bit-equal to its twin at every level;
+    its library yardstick is :func:`parent_chain`. Both also run in a
+    CUDA graph, with their device operations counted."""
     rows = []
     shapes = [("B=1", *frame_inputs(1, N_POINTS, HW), HW),
               (f"B={TRAIN_B}",
@@ -390,14 +417,14 @@ def pyramid_rows(dev) -> List[Row]:
         ms = torch.from_numpy(ms).to(dev)
         for method, pool in itertools.product(("pallas", "sort"),
                                               ("packed", "exact")):
-            label = (f"{method}+{pool} {tag} {hw[1]}x{hw[0]} "
-                     f"L={PYRAMID_LEVELS}")
+            args = (xyz, ms, *hw, PYRAMID_LEVELS, method, pool)
             rows.append(Row(
-                "zbuffer", "rasterize_pyramid_pooled", label,
-                lambda xyz=xyz, ms=ms, hw=hw, m=method, p=pool:
-                    R.rasterize_pyramid_pooled(xyz, ms, hw, PYRAMID_LEVELS,
-                                               method=m, pool_impl=p),
-                None, None, None,
+                "zbuffer", "zbuffer_pyramid",
+                f"{method}+{pool} {tag} {hw[1]}x{hw[0]} L={PYRAMID_LEVELS}",
+                lambda a=args: RK.zbuffer_pyramid(*a),
+                lambda a=args: RK.zbuffer_pyramid_plain(*a),
+                lambda a=args: parent_chain(a[0], a[1], a[2:4], *a[4:]),
+                None,
                 *pyramid_cost(ms.shape[0], xyz.shape[0], hw, PYRAMID_LEVELS),
                 False, graph=True))
     return rows

@@ -4,19 +4,22 @@ Counterpart of ``read_tpu/ops/rasterize.py``: ``project_points``
 (:81-120), ``_pixel_ids`` (:123-131), ``rasterize_batch`` with
 ``point_radius=0`` for ``method='sort'`` (:497-515, ``_zbuffer_sort``
 :153-177: here K5) and ``method in ('pallas', 'scatter1')`` (:516-545,
-``_zbuffer_scatter1`` :244-284: here ``RK.pack_keys`` ->
-``RK.scatter_min`` -> ``_unpack``, K1), ``_pool2x2_zbuffer``
-(:574-599), ``_pool2x2_packed`` (:602-634) and
-``rasterize_pyramid_pooled`` (:637-669).
+``_zbuffer_scatter1`` :244-284: here K1), and ``rasterize_pyramid_pooled``
+(:637-669) with its pools ``_pool2x2_zbuffer`` (:574-599) and
+``_pool2x2_packed`` (:602-634).
 
-Everything here is plain PyTorch except the z-buffers themselves, K1
-and K5 (:mod:`read_tpu_torch.ops.rasterize_kernels`). Semantics are the
-JAX package's, bit for bit: 'sort' keeps per pixel the least depth, ties
-to the least id; 'pallas'/'scatter1' the min packed key, ties within one
-depth bin broken by the least id, the winner's depth re-gathered
-exactly; empty pixels are -1 with depth 0. Raster methods and options
-the port does not have yet raise ``NotImplementedError`` instead of
-switching to other semantics.
+Both entry points run :func:`read_tpu_torch.ops.rasterize_kernels.
+zbuffer_pyramid`: on the card K1 or K5 and one pass that writes every
+level (``rasterize_batch`` is its one-level case); on the CPU its plain
+twin. The pass pools each level as the 2x2 minimum of one key, which is
+``_pool2x2_zbuffer``'s pair pool for the exact 64-bit key; that pair
+pool stays here as the reference the tests and the kernel bench hold it
+to. Semantics are the JAX package's, bit for bit: 'sort' keeps per pixel
+the least depth, ties to the least id; 'pallas'/'scatter1' the min
+packed key, ties within one depth bin broken by the least id, the
+winner's depth exact; empty pixels are -1 with depth 0. Raster methods
+and options the port does not have yet raise ``NotImplementedError``
+instead of switching to other semantics.
 """
 
 from __future__ import annotations
@@ -83,16 +86,6 @@ def _pixel_ids(ndc: torch.Tensor, valid: torch.Tensor, h: int, w: int):
     return pix, depth
 
 
-def _unpack(buf: torch.Tensor, idb: int, depth_by_id: torch.Tensor):
-    """Min-key buffer -> ``(index, depth)``: -1/0 where empty, else the
-    id bits and the winner's exact depth gathered from ``depth_by_id``
-    (same leading dims as ``buf``)."""
-    empty = buf == RK.INT32_MAX
-    index = torch.where(empty, -1, buf & ((1 << idb) - 1))
-    depth = torch.gather(depth_by_id, -1, index.clamp(min=0).long())
-    return index, torch.where(empty, 0.0, depth)
-
-
 def _unported_options(point_radius, ndc_jitter, point_sizes,
                       relative_size) -> None:
     if point_radius or point_sizes is not None or relative_size:
@@ -113,20 +106,10 @@ def rasterize_batch(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
     """``total_m [B, 4, 4]`` -> ``(index [B, h, w] int32, depth [B, h, w]
     float32)``: 'sort' (the default) through K5, 'pallas' or 'scatter1'
     through K1."""
-    del min_point_size  # only meaningful with relative_size
-    _check_method(method)
-    _unported_options(point_radius, ndc_jitter, point_sizes, relative_size)
-    b = total_m.shape[0]
-    xyz = xyz.to(torch.float32).contiguous()
-    total_m = total_m.to(device=xyz.device, dtype=torch.float32
-                         ).contiguous()
-    if method == "sort":
-        index, depth = RK.zbuffer_exact(xyz, total_m, h, w)
-        return index.view(b, h, w), depth.view(b, h, w)
-    buf, depth0 = RK.zbuffer(xyz, total_m, h, w)
-    idb, _ = RK.key_bits(xyz.shape[0])
-    index, depth = _unpack(buf, idb, depth0)
-    return index.view(b, h, w), depth.view(b, h, w)
+    (level0,) = rasterize_pyramid_pooled(
+        xyz, total_m, (h, w), 1, point_radius, method, ndc_jitter,
+        point_sizes, relative_size, min_point_size)
+    return level0
 
 
 def _pool2x2_zbuffer(index: torch.Tensor, depth: torch.Tensor):
@@ -145,29 +128,6 @@ def _pool2x2_zbuffer(index: torch.Tensor, depth: torch.Tensor):
     return oi, torch.where(oi < 0, 0.0, od)
 
 
-def _pool2x2_packed(index: torch.Tensor, depth: torch.Tensor, n_ids: int,
-                    num_scales: int):
-    """Coarse levels by 2x2 min-pooling ONE packed int32 key; ties within
-    one depth bin break by id (the fine level's own rule), coarse depths
-    are bin values ``q / qmax``, level 0 stays exact."""
-    idb, qmax = RK.key_bits(n_ids)
-    q = torch.clamp(depth * qmax, 0, qmax - 1).to(torch.int32)
-    key = torch.where(index < 0, RK.INT32_MAX, (q << idb) | index)
-    out = [(index, depth)]
-    for _ in range(1, num_scales):
-        b, hh, ww = key.shape
-        key = key.reshape(b, hh // 2, 2, ww // 2, 2).amin(dim=(2, 4))
-        empty = key == RK.INT32_MAX
-        ix = torch.where(empty, -1, key & ((1 << idb) - 1))
-        # divide by a full tensor: PyTorch's CUDA division by a scalar
-        # multiplies by its reciprocal, which rounds differently from
-        # JAX's (and the CPU's) true division
-        qf = (key >> idb).to(torch.float32)
-        dq = torch.where(empty, 0.0, qf / torch.full_like(qf, qmax))
-        out.append((ix, dq))
-    return out
-
-
 def rasterize_pyramid_pooled(xyz: torch.Tensor, total_m: torch.Tensor,
                              target_shape: Sequence[int],
                              num_scales: int = 5, point_radius: int = 0,
@@ -178,17 +138,16 @@ def rasterize_pyramid_pooled(xyz: torch.Tensor, total_m: torch.Tensor,
                              pool_impl: str = "exact"):
     """One full-resolution raster + 2x2 pooling to ``num_scales``
     levels: a list of ``(index [B, h_i, w_i], depth)``. ``pool_impl``
-    'exact' pools the (depth, id) pair, 'packed' one packed key."""
-    if pool_impl not in ("exact", "packed"):
-        raise ValueError(f"unknown pool_impl {pool_impl!r}")
+    'exact' pools the (depth, id) pair, 'packed' one packed key. On the
+    card: K1 or K5 and one pyramid pass, no plain-PyTorch pool."""
+    del min_point_size  # only meaningful with relative_size
+    _check_method(method)
+    _unported_options(point_radius, ndc_jitter, point_sizes, relative_size)
     h0, w0 = target_shape
-    idx, dep = rasterize_batch(xyz, total_m, h0, w0, point_radius, method,
-                               ndc_jitter, point_sizes, relative_size,
-                               min_point_size)
-    if pool_impl == "packed":
-        return _pool2x2_packed(idx, dep, xyz.shape[0], num_scales)
-    out = [(idx, dep)]
-    for _ in range(1, num_scales):
-        idx, dep = _pool2x2_zbuffer(idx, dep)
-        out.append((idx, dep))
-    return out
+    xyz = xyz.to(torch.float32).contiguous()
+    total_m = total_m.to(device=xyz.device, dtype=torch.float32
+                         ).contiguous()
+    # 'sort' is K5's exact key, 'pallas' and 'scatter1' K1's packed key
+    return RK.zbuffer_pyramid(xyz, total_m, h0, w0, num_scales,
+                              "sort" if method == "sort" else "pallas",
+                              pool_impl)

@@ -12,17 +12,28 @@ K5, the exact 64-bit key: counterpart of ``rasterize_pallas.py``
 least id, empty pixels -1 with depth 0.
 
 Both CUDA kernels also fuse the projection and pixel mapping that feed
-them (see the source's header note).
+them, one thread a point over all views (see the source's header note).
+
+The pyramid pass turns K1's or K5's key buffer into every level of
+``rasterize.py``'s ``rasterize_pyramid_pooled`` (:637-669) in one
+launch: level 0's index and exact depth (K1's winner depth re-projected
+from its point), and each coarser level as the 2x2 minimum of one key,
+the 64-bit exact key for the exact pool (``_pool2x2_zbuffer``
+:574-599: the lexicographic (depth, id) minimum) or the packed int32 key
+for the packed pool (``_pool2x2_packed`` :602-634). :func:`zbuffer_pyramid`
+runs the projection and the pass, :func:`zbuffer_exact` the same with
+one level.
 
 K6, the packed int32 key on keys the caller made: counterpart of
 ``rasterize_pallas.py`` ``zbuffer_pallas3`` / ``_kernel3`` (:234-292)
 and of ``zbuffer_pallas2``'s contract on given keys: K1 without the
 fused projection.
 
-:func:`zbuffer`, :func:`zbuffer_exact` and :func:`zbuffer_keys` are the
-wrappers: a CPU tensor goes to the plain twin, a CUDA tensor to the
-kernel, anything else raises. ``launches[<wrapper name>]`` counts kernel
-launches.
+:func:`zbuffer`, :func:`zbuffer_exact`, :func:`zbuffer_pyramid` and
+:func:`zbuffer_keys` are the wrappers: a CPU tensor goes to the plain
+twin, a CUDA tensor to the kernel, anything else raises.
+``launches[<name>]`` counts kernel launches: ``zbuffer`` and
+``zbuffer_exact`` a projection (K1, K5), ``zbuffer_pyramid`` a pass.
 """
 
 from __future__ import annotations
@@ -33,16 +44,23 @@ import torch
 
 from read_tpu_torch import _build
 
-__all__ = ["INT32_MAX", "INT64_MAX", "key_bits", "pack_keys",
-           "pack_exact_keys", "unpack_exact", "scatter_min", "zbuffer",
-           "zbuffer_plain", "zbuffer_exact", "zbuffer_exact_plain",
-           "zbuffer_keys", "zbuffer_keys_plain", "launches"]
+__all__ = ["INT32_MAX", "INT64_MAX", "MAX_LEVELS", "key_bits",
+           "pack_keys", "pack_exact_keys", "unpack_exact", "unpack_packed",
+           "scatter_min", "pool_pyramid_plain", "zbuffer", "zbuffer_plain",
+           "zbuffer_exact", "zbuffer_exact_plain", "zbuffer_pyramid",
+           "zbuffer_pyramid_plain", "zbuffer_keys", "zbuffer_keys_plain",
+           "launches"]
 
 INT32_MAX = 2 ** 31 - 1
 INT64_MAX = 2 ** 63 - 1
+# pyramid levels the pass takes: a coarse pixel of 8 levels spans 128 x
+# 128 pixels of level 0, the largest tile whose keys fit a block's shared
+# memory
+MAX_LEVELS = 8
 
 # kernel launches (a CPU call runs the twin and counts nothing)
-launches = {"zbuffer": 0, "zbuffer_exact": 0, "zbuffer_keys": 0}
+launches = {"zbuffer": 0, "zbuffer_exact": 0, "zbuffer_keys": 0,
+            "zbuffer_pyramid": 0}
 
 
 def key_bits(n_ids: int):
@@ -92,6 +110,16 @@ def unpack_exact(buf: torch.Tensor):
     return index, torch.where(empty, 0.0, depth)
 
 
+def unpack_packed(buf: torch.Tensor, idb: int, depth_by_id: torch.Tensor):
+    """Min packed-key buffer -> ``(index, depth)``: -1/0 where empty
+    (``INT32_MAX``), else the id bits and the winner's exact depth
+    gathered from ``depth_by_id`` (same leading dims as ``buf``)."""
+    empty = buf == INT32_MAX
+    index = torch.where(empty, -1, buf & ((1 << idb) - 1))
+    depth = torch.gather(depth_by_id, -1, index.clamp(min=0).long())
+    return index, torch.where(empty, 0.0, depth)
+
+
 def scatter_min(pix: torch.Tensor, key: torch.Tensor, n_pixels: int):
     """Per-pixel minimum of ``key`` (int32 or int64) over the last dim of
     ``pix [..., N]`` (the dtype's max = empty): ``[..., n_pixels]``.
@@ -136,6 +164,55 @@ def zbuffer_exact_plain(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
     return unpack_exact(scatter_min(pix, key, h * w))
 
 
+def pool_pyramid_plain(index: torch.Tensor, depth: torch.Tensor,
+                       num_scales: int, pool_impl: str, n_ids: int):
+    """Level 0 ``(index, depth [B, h, w])`` and ``num_scales - 1`` coarser
+    levels, each the 2x2 minimum of one key: for ``pool_impl`` 'exact'
+    :func:`pack_exact_keys`' (the least depth, ties to the least id), for
+    'packed' :func:`pack_keys`' (ties within one depth bin to the least
+    id; coarse depths are the bins ``q / qmax``). Empty pixels are -1
+    with depth 0 at every level."""
+    if pool_impl == "exact":
+        bits = depth.view(torch.int32).to(torch.int64)
+        key = torch.where(index < 0, INT64_MAX,
+                          (bits << 32) | index.to(torch.int64))
+    else:
+        idb, qmax = key_bits(n_ids)
+        q = torch.clamp(depth * qmax, 0, qmax - 1).to(torch.int32)
+        key = torch.where(index < 0, INT32_MAX, (q << idb) | index)
+    out = [(index, depth)]
+    for _ in range(1, num_scales):
+        b, hh, ww = key.shape
+        key = key.reshape(b, hh // 2, 2, ww // 2, 2).amin(dim=(2, 4))
+        if pool_impl == "exact":
+            out.append(unpack_exact(key))
+            continue
+        empty = key == INT32_MAX
+        ix = torch.where(empty, -1, key & ((1 << idb) - 1))
+        # divide by a full tensor: PyTorch's CUDA division by a scalar
+        # multiplies by its reciprocal, which rounds differently from
+        # JAX's (and the CPU's) true division
+        qf = (key >> idb).to(torch.float32)
+        out.append((ix, torch.where(empty, 0.0,
+                                    qf / torch.full_like(qf, qmax))))
+    return out
+
+
+def zbuffer_pyramid_plain(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
+                          w: int, num_scales: int, method: str = "sort",
+                          pool_impl: str = "exact"):
+    """Plain PyTorch twin of :func:`zbuffer_pyramid` (same contract):
+    K5's or K1's twin, then :func:`pool_pyramid_plain`."""
+    b, n = total_m.shape[0], xyz.shape[0]
+    if method == "sort":
+        index, depth = zbuffer_exact_plain(xyz, total_m, h, w)
+    else:
+        buf, depth0 = zbuffer_plain(xyz, total_m, h, w)
+        index, depth = unpack_packed(buf, key_bits(n)[0], depth0)
+    return pool_pyramid_plain(index.view(b, h, w), depth.view(b, h, w),
+                              num_scales, pool_impl, n)
+
+
 def _on_cpu(name: str, xyz: torch.Tensor, total_m: torch.Tensor) -> bool:
     """Check the wrappers' inputs; True for CPU tensors (the twin runs),
     False for contiguous CUDA tensors (the kernel runs); raise else."""
@@ -159,10 +236,8 @@ def _on_cpu(name: str, xyz: torch.Tensor, total_m: torch.Tensor) -> bool:
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-_EXACT_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
+_PYRAMID_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 9 \
+    + [ctypes.c_void_p] * 4
 
 
 def zbuffer(xyz: torch.Tensor, total_m: torch.Tensor, h: int, w: int):
@@ -197,23 +272,95 @@ def zbuffer_exact(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
 
     Returns ``(index [B, h*w] int32, depth [B, h*w] float32)``: the
     winning point id and its depth ``(ndc_z + 1) / 2``, -1 and 0 where
-    no point lands."""
+    no point lands. On the card: K5 and a one-level pyramid pass."""
     if xyz.shape[0] >= 2 ** 31:
         raise ValueError("zbuffer_exact: point ids must fit in 31 bits")
     if _on_cpu("zbuffer_exact", xyz, total_m):
         return zbuffer_exact_plain(xyz, total_m, h, w)
+    (index, depth), = _pyramid_launch("zbuffer_exact", xyz, total_m, h, w,
+                                      1, "sort", "exact")
+    b = total_m.shape[0]
+    return index.view(b, h * w), depth.view(b, h * w)
+
+
+def _check_pyramid(xyz: torch.Tensor, h: int, w: int, num_scales: int,
+                   method: str, pool_impl: str) -> None:
+    """The pyramid's refusals, alike on every device."""
+    if method not in ("sort", "pallas"):
+        raise ValueError(f"zbuffer_pyramid: method {method!r} is not "
+                         "'sort' (K5) or 'pallas' (K1)")
+    if pool_impl not in ("exact", "packed"):
+        raise ValueError(f"unknown pool_impl {pool_impl!r}")
+    if not 1 <= num_scales <= MAX_LEVELS:
+        raise ValueError(f"zbuffer_pyramid: num_scales {num_scales} not "
+                         f"in 1..{MAX_LEVELS}")
+    span = 1 << (num_scales - 1)
+    if h % span or w % span:
+        raise ValueError(f"zbuffer_pyramid: {h}x{w} is not divisible by "
+                         f"2^(num_scales - 1) = {span}")
+    if xyz.shape[0] >= 2 ** 31:
+        raise ValueError("zbuffer_pyramid: point ids must fit in 31 bits")
+    if method == "pallas" or pool_impl == "packed":
+        key_bits(xyz.shape[0])   # raises above 2^23 ids
+
+
+def _pyramid_launch(name: str, xyz: torch.Tensor, total_m: torch.Tensor,
+                    h: int, w: int, num_scales: int, method: str,
+                    pool_impl: str):
+    """K1 (``method`` 'pallas') or K5 ('sort') and the pyramid pass on
+    the card: the levels as views of one buffer (every level's index,
+    then every level's depth, then the key scratch, each part 16-byte
+    aligned)."""
     n, b = xyz.shape[0], total_m.shape[0]
-    dev = xyz.device
-    keys = torch.empty((b, h * w), dtype=torch.int64, device=dev)
-    index = torch.empty((b, h * w), dtype=torch.int32, device=dev)
-    depth = torch.empty((b, h * w), dtype=torch.float32, device=dev)
-    fn = _build.function("zbuffer", "zbuffer_exact_project",
-                         _EXACT_ARGTYPES)
-    _build.call(fn, dev, "zbuffer_exact", xyz.data_ptr(),
-                total_m.data_ptr(), n, b, h, w, keys.data_ptr(),
-                index.data_ptr(), depth.data_ptr())
-    launches["zbuffer_exact"] += 1
-    return index, depth
+    exact_in = method == "sort"
+    idb, qmax = (key_bits(n) if not exact_in or pool_impl == "packed"
+                 else (0, 0))
+    sizes = [(h >> i, w >> i) for i in range(num_scales)]
+    counts = [b * hh * ww for hh, ww in sizes]
+    part = -(-sum(counts) // 4) * 4     # int32 words, a multiple of 16 B
+    buf = torch.empty(2 * part + b * h * w * (2 if exact_in else 1),
+                      dtype=torch.int32, device=xyz.device)
+    fn = _build.function("zbuffer", "zbuffer_pyramid", _PYRAMID_ARGTYPES)
+    base = buf.data_ptr()
+    _build.call(fn, xyz.device, name, xyz.data_ptr(), total_m.data_ptr(), n,
+                b, h, w, num_scales, int(exact_in),
+                int(pool_impl == "exact"), idb, qmax, base + 8 * part,
+                base, base + 4 * part)
+    launches["zbuffer_exact" if exact_in else "zbuffer"] += 1
+    launches["zbuffer_pyramid"] += 1
+    # one as_strided a view: the cheapest on the host
+    depth = buf.view(torch.float32)
+    out, off = [], 0
+    for (hh, ww), c in zip(sizes, counts):
+        shape, stride = (b, hh, ww), (hh * ww, ww, 1)
+        out.append((buf.as_strided(shape, stride, off),
+                    depth.as_strided(shape, stride, part + off)))
+        off += c
+    return out
+
+
+def zbuffer_pyramid(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
+                    w: int, num_scales: int, method: str = "sort",
+                    pool_impl: str = "exact"):
+    """Project ``xyz [N, 3]`` by ``total_m [B, 4, 4]`` (float32,
+    contiguous), z-buffer every view at ``h x w`` (``method`` 'sort':
+    K5's exact key; 'pallas': K1's packed key) and pool it to
+    ``num_scales`` levels (``pool_impl`` 'exact': the least (depth, id);
+    'packed': the least packed key, coarse depths ``q / qmax``).
+
+    Returns ``rasterize_pyramid_pooled``'s list of ``(index [B, h_i,
+    w_i] int32, depth float32)``, ``h_i = h >> i``: -1 and 0 where
+    empty; level 0's depth is the winner's exact depth. ``h`` and ``w``
+    must be divisible by ``2^(num_scales - 1)``, ``num_scales <=
+    MAX_LEVELS``; K1 or a packed pool takes at most 2^23 points. On the
+    card: K1 or K5 and one pass for every level (three device
+    operations: the fill, the projection, the pass)."""
+    _check_pyramid(xyz, h, w, num_scales, method, pool_impl)
+    if _on_cpu("zbuffer_pyramid", xyz, total_m):
+        return zbuffer_pyramid_plain(xyz, total_m, h, w, num_scales, method,
+                                     pool_impl)
+    return _pyramid_launch("zbuffer_pyramid", xyz, total_m, h, w,
+                           num_scales, method, pool_impl)
 
 
 def zbuffer_keys_plain(pix: torch.Tensor, key: torch.Tensor,

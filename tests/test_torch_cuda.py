@@ -6,7 +6,8 @@ every test skips. On a GPU machine, which need not have JAX installed::
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 TF32 is switched off for the twins (full float32 convolutions and
-matmuls). K1, K5, K6 and K8 ``packonly`` must be bit-equal; K2/K3/K4,
+matmuls). K1, K5, the pyramid pass (every level), K6 and K8
+``packonly`` must be bit-equal; K2/K3/K4,
 K7 and K8 within ``atol 2e-5, rtol 1e-4`` (f32 operands; K8's modes on
 both of K2's loops, the wgmma loop's f32 as three TF32 products, up to K
 = 9 * 256) and K2-K4
@@ -93,6 +94,108 @@ def test_zbuffer_exact_kernel_bit_equal(dev, batch, n, hw, dup):
     assert (index >= 0).float().mean() > 0.2
     if dup > 1:
         assert int(index.max()) < n // dup
+
+
+_PYRAMID_CASES = [(1, 5000, (48, 80), 1),      # ragged tiles both ways
+                  (2, 200_000, (96, 160), 1),
+                  (8, 100_000, (64, 64), 8)]   # exact ties
+
+
+@pytest.mark.parametrize("num_scales", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("batch,n,hw,dup", _PYRAMID_CASES)
+@pytest.mark.parametrize("pool_impl", ["exact", "packed"])
+@pytest.mark.parametrize("method", ["sort", "pallas"])
+def test_zbuffer_pyramid_kernel_bit_equal(dev, method, pool_impl, batch, n,
+                                          hw, dup, num_scales):
+    """K1 or K5 and the pyramid pass vs the twin, every level bit-equal;
+    one call launches one projection and one pass."""
+    xyz, ms = frame_inputs(batch, n // dup, hw, focal=hw[1] * 0.6)
+    xyz = np.tile(xyz, (dup, 1))
+    xyz, ms = torch.from_numpy(xyz).to(dev), torch.from_numpy(ms).to(dev)
+    proj = "zbuffer_exact" if method == "sort" else "zbuffer"
+    before = dict(RK.launches)
+    got = RK.zbuffer_pyramid(xyz, ms, *hw, num_scales, method, pool_impl)
+    assert RK.launches["zbuffer_pyramid"] == before["zbuffer_pyramid"] + 1
+    assert RK.launches[proj] == before[proj] + 1
+    want = RK.zbuffer_pyramid_plain(xyz, ms, *hw, num_scales, method,
+                                    pool_impl)
+    torch.cuda.synchronize()
+    assert len(got) == num_scales
+    for (ig, dg), (iw, dw) in zip(got, want):
+        assert torch.equal(ig, iw) and torch.equal(dg, dw)
+    assert (got[0][0] >= 0).float().mean() > 0.2
+    if dup > 1:
+        assert int(got[0][0].max()) < n // dup
+
+
+@pytest.mark.parametrize("hw,num_scales", [((25, 41), 1), ((24, 42), 1),
+                                           ((128, 256), 8)])
+@pytest.mark.parametrize("pool_impl", ["exact", "packed"])
+@pytest.mark.parametrize("method", ["sort", "pallas"])
+def test_zbuffer_pyramid_odd_widths_and_deep_tiles(dev, method, pool_impl,
+                                                   hw, num_scales):
+    """Rows that are not 16-byte aligned (the scalar loads), and 8
+    levels (128 x 128 tiles, more than 48 KB of shared memory)."""
+    xyz, ms = frame_inputs(2, 20000, hw, focal=hw[1] * 0.6)
+    xyz, ms = torch.from_numpy(xyz).to(dev), torch.from_numpy(ms).to(dev)
+    got = RK.zbuffer_pyramid(xyz, ms, *hw, num_scales, method, pool_impl)
+    want = RK.zbuffer_pyramid_plain(xyz, ms, *hw, num_scales, method,
+                                    pool_impl)
+    torch.cuda.synchronize()
+    for (ig, dg), (iw, dw) in zip(got, want):
+        assert torch.equal(ig, iw) and torch.equal(dg, dw)
+
+
+@pytest.mark.parametrize("method,pool_impl", [("pallas", "packed"),
+                                              ("sort", "exact")])
+def test_pyramid_on_cuda_runs_no_plain_pool(dev, monkeypatch, method,
+                                            pool_impl):
+    """``rasterize_pyramid_pooled`` on a CUDA tensor: the projection and
+    the pass (three device operations: fill, projection, pass), no
+    twin, no plain pool."""
+    from read_tpu_torch.kernel_bench import device_ops
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain pool or twin ran on the card")
+
+    for mod, name in ((R, "_pool2x2_zbuffer"), (RK, "pool_pyramid_plain"),
+                      (RK, "zbuffer_pyramid_plain"), (RK, "unpack_packed"),
+                      (RK, "zbuffer_plain"), (RK, "zbuffer_exact_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    xyz, ms = frame_inputs(2, 20000, (48, 64), focal=40.0)
+    xyz, ms = torch.from_numpy(xyz).to(dev), torch.from_numpy(ms).to(dev)
+    before = dict(RK.launches)
+    R.rasterize_pyramid_pooled(xyz, ms, (48, 64), 4, method=method,
+                               pool_impl=pool_impl)
+    ran = {k: v - before[k] for k, v in RK.launches.items() if v != before[k]}
+    proj = "zbuffer_exact" if method == "sort" else "zbuffer"
+    assert ran == {proj: 1, "zbuffer_pyramid": 1}
+    assert device_ops(lambda: R.rasterize_pyramid_pooled(
+        xyz, ms, (48, 64), 4, method=method, pool_impl=pool_impl)) == 3
+
+
+def test_pyramid_replays_in_a_cuda_graph(dev):
+    """A captured ``rasterize_pyramid_pooled`` replays bit-equal to the
+    twin, for new points copied into its inputs."""
+    xyz, ms = frame_inputs(2, 20000, (48, 64), focal=40.0)
+    xyz, ms = torch.from_numpy(xyz).to(dev), torch.from_numpy(ms).to(dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        R.rasterize_pyramid_pooled(xyz, ms, (48, 64), 4, method="pallas",
+                                   pool_impl="packed")
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        levels = R.rasterize_pyramid_pooled(xyz, ms, (48, 64), 4,
+                                            method="pallas",
+                                            pool_impl="packed")
+    xyz.copy_(xyz.flip(0) * 0.9)
+    graph.replay()
+    want = RK.zbuffer_pyramid_plain(xyz, ms, 48, 64, 4, "pallas", "packed")
+    torch.cuda.synchronize()
+    for (ig, dg), (iw, dw) in zip(levels, want):
+        assert torch.equal(ig, iw) and torch.equal(dg, dw)
 
 
 def test_train_step_on_cuda_matches_cpu(dev):
@@ -436,16 +539,16 @@ def test_small_frame_kernels_match_twins(dev, operands):
     before = GC.launches["gated_conv_1x1_cat"]
     got = frame_fn(*args)
     assert GC.launches["gated_conv_1x1_cat"] == before + 3  # the SCMs
-    saved = (RK.zbuffer, GC.gated_conv_kxk, GC.gated_conv_1x1,
+    saved = (RK.zbuffer_pyramid, GC.gated_conv_kxk, GC.gated_conv_1x1,
              GC.gated_conv_1x1_cat)
-    RK.zbuffer = RK.zbuffer_plain
+    RK.zbuffer_pyramid = RK.zbuffer_pyramid_plain
     GC.gated_conv_kxk = GC.gated_conv_kxk_plain
     GC.gated_conv_1x1 = GC.gated_conv_1x1_plain
     GC.gated_conv_1x1_cat = GC.gated_conv_1x1_cat_plain
     try:
         want = frame_fn(*args)
     finally:
-        (RK.zbuffer, GC.gated_conv_kxk, GC.gated_conv_1x1,
+        (RK.zbuffer_pyramid, GC.gated_conv_kxk, GC.gated_conv_1x1,
          GC.gated_conv_1x1_cat) = saved
     torch.cuda.synchronize()
     assert np.isfinite(got.cpu().numpy()).all()

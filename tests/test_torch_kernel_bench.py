@@ -68,7 +68,7 @@ def test_rows_run_and_compare_at_a_tiny_size(monkeypatch):
     # band kernel called directly, per shape and dtype; K8: its modes on
     # the wgmma loop and on the tile loop, per shape and dtype
     assert by == {"zbuffer": 4, "zbuffer_exact": 4, "zbuffer_keys": 4,
-                  "rasterize_pyramid_pooled": 8,
+                  "zbuffer_pyramid": 8,
                   "gated_conv_kxk": 4, "gated_conv3x3_r2": 8,
                   "gated_conv3x3_r2_band": 4, "gated_conv_1x1": 4,
                   "gated_conv1x1_r2": 8, "gated_conv1x1_r2_band": 4,
@@ -78,7 +78,7 @@ def test_rows_run_and_compare_at_a_tiny_size(monkeypatch):
     assert sum(r["label"].startswith("packs per call") for r in rows) == 8
     assert sum(r["label"].startswith("tile ") for r in rows) == 12
     assert all(r["max_abs_err"] == 0.0 for r in rows
-               if r["group"] == "zbuffer" and r["plain_ms"] is not None)
+               if r["group"] == "zbuffer")
     # every z-buffer row also in a CUDA graph, with its device operations
     assert all(r["graph_ms"] == 0.5 and r["device_ops"] == 3 for r in rows
                if r["group"] == "zbuffer")

@@ -31,7 +31,8 @@ def _twin_scatter1(pix, depth, ids, n_pixels, depth_by_id, n_ids):
     """JAX ``_zbuffer_scatter1``'s contract from the pieces K1's twin
     runs: pack_keys -> scatter_min -> unpack."""
     key, idb = RK.pack_keys(pix, depth, ids, n_pixels, n_ids)
-    return R._unpack(RK.scatter_min(pix, key, n_pixels), idb, depth_by_id)
+    return RK.unpack_packed(RK.scatter_min(pix, key, n_pixels), idb,
+                            depth_by_id)
 
 
 @pytest.mark.parametrize("n,h,w", [(5000, 24, 40), (1024, 8, 16)])
