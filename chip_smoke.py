@@ -54,7 +54,7 @@ without a device it exits non-zero at once. It
    (bit-equal, ties included) at 1M points, 1216x368, B=1 and 2, and
    256x256, B=8, each also in a CUDA graph; the pyramid in its four
    combinations at the frame's and the training step's shapes beside
-   the parent's chain (K1/K5 and the plain pools); K7
+   the same projection followed by the plain pools; K7
    beside K2 and K3, and K8's four modes, at the four level shapes; K4
    at the frame's SCM sites and the two concat probes; f32 and bf16;
    each against its twin, with its library yardstick and bound. Per
@@ -87,8 +87,9 @@ launches as ``tile_launches``; K2's loop also on the bf16 requests,
 its bound (``shape`` says what they were measured on); K1, K5, K6 and
 the pyramid add their device time in a CUDA graph (``graph_ms``), the
 pyramid its device operations and the training step's numbers
-(``train_*``) beside the serving frame's, with the parent's chain as
-its library; the K2, K3, K4
+(``train_*``) beside the serving frame's, with the projection
+followed by the plain pools as its library; K5 adds the ``sort``
+requests' launches (``sort_launches``); the K2, K3, K4
 and wgmma-loop entries add their bf16 per-frame times (``bf16_ms``,
 ``bf16_plain_ms``, ``bf16_library_ms``, ``bf16_bound_ms``), K7's four
 entries (``gated_conv{3x3,1x1}_r2_wgmma``: the loops; ``..._band``: the
@@ -495,7 +496,7 @@ def timed_steps(step, state, xyz, batch):
     return (time.perf_counter() - t0) / TIMED, losses, state
 
 
-def phase_serve_sort(ctx, dev, workdir):
+def phase_serve_sort(report, ctx, dev, workdir):
     """The trained state saved with the default config (``sort``) and
     served through ``NeuralRenderer``: K5, K2 and K3 must all run."""
     import torch
@@ -538,6 +539,7 @@ def phase_serve_sort(ctx, dev, workdir):
                            "request")
     routed_loops_ran(ctx, "serve_sort", counts, len(imgs))
     pyramid_ran("serve_sort", counts, "zbuffer_exact", len(imgs))
+    report["zbuffer_exact"]["sort_launches"] = counts["zbuffer_exact"]
     print(f"[serve_sort] trained checkpoint, default config (sort): "
           f"{len(imgs)} requests at {w}x{h}, "
           f"{seconds * 1e3 / len(imgs):.2f} ms/request (first included); "
@@ -1152,7 +1154,8 @@ def phase_kernel_bench(report, dev):
                                                 ["B=1"])[0]["graph_ms"]
     # the pyramid rows: each one projection and one pass; the entry is
     # the serving frame's (K1, packed pool), train_*: the training
-    # step's (K5, exact pool); library: the parent's chain
+    # step's (K5, exact pool); library: the projection, then the plain
+    # pools
     for r in [r for r in rows if r["kernel"] == "zbuffer_pyramid"]:
         proj = "zbuffer_exact" if r["label"].startswith("sort") else \
             "zbuffer"
@@ -1163,8 +1166,8 @@ def phase_kernel_bench(report, dev):
     train = f"sort+exact B={TRAIN_B} {TRAIN_HW}x{TRAIN_HW} L=4"
     (pf,), (pt,) = (select("zbuffer_pyramid", [frame]),
                     select("zbuffer_pyramid", [train]))
-    fill("zbuffer_pyramid", [pf], f"{frame}, N={N_POINTS} (library: the "
-         "parent's chain, K1 and the plain pools)")
+    fill("zbuffer_pyramid", [pf], f"{frame}, N={N_POINTS} (library: K1 "
+         "and the plain pools)")
     keys = ("graph_ms", "device_ops", "library_graph_ms",
             "library_device_ops")
     report["zbuffer_pyramid"].update({k: pf[k] for k in keys})
@@ -1299,7 +1302,8 @@ def main() -> int:
               ("train_setup", lambda: ctx.update(train=train_setup(dev))),
               ("train_vs_twin", lambda: phase_train_vs_twin(ctx)),
               ("train", lambda: phase_train(report, ctx)),
-              ("serve_sort", lambda: phase_serve_sort(ctx, dev, workdir)),
+              ("serve_sort",
+               lambda: phase_serve_sort(report, ctx, dev, workdir)),
               ("free", lambda: (ctx.pop("train"), ctx.pop("trained"),
                                 torch.cuda.empty_cache())),
               ("frame_vs_twin", lambda: phase_frame_vs_twin(ctx, dev)),

@@ -54,14 +54,13 @@
 // scalar branch (K5) for invalid points, while here min is
 // order-independent, so the result is deterministic with no lock, and
 // invalid points simply skip (no dump slot: a million atomics on one
-// address would serialize). `kFilterAtomics` would load the current key
-// first and issue the atomic only where the new key is smaller; it is
-// off: slower at both the frame's and the training step's shapes
-// (`python -m read_tpu_torch.ab zbuffer`, PERF.md). The
-// projection uses the _rn intrinsics so nvcc cannot contract the
-// expanded product into FMAs: the result is bit-equal to the
-// element-wise PyTorch twin, which keeps JAX's order ((m0*x + m1*y) +
-// m2*z) + m3.
+// address would serialize). Loading the current key first and issuing
+// the atomic only where the new key is smaller was slower at both the
+// frame's and the training step's shapes (PERF.md), so every valid
+// (view, point) issues its atomicMin. The projection uses the _rn
+// intrinsics so nvcc cannot contract the expanded product into FMAs: the
+// result is bit-equal to the element-wise PyTorch twin, which keeps JAX's
+// order ((m0*x + m1*y) + m2*z) + m3.
 // Pyramid pass: one block per (tile of level 0, view). The block reads
 // its keys once, 16 bytes a thread where the row is aligned, writes level
 // 0's (index, depth) and the pooling key of each pixel into shared
@@ -82,7 +81,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kViewsPerStage = 32;   // matrices staged in shared memory
-constexpr bool kFilterAtomics = false;
 constexpr int kTileH = 32, kTileW = 64;
 constexpr unsigned kEmpty32 = 0x7fffffffu;   // INT32_MAX
 constexpr unsigned long long kEmpty64 = ~0ull;
@@ -136,14 +134,6 @@ __device__ __forceinline__ unsigned long long exact_key(float depth,
   return ((unsigned long long)__float_as_uint(depth) << 32) | (unsigned)id;
 }
 
-// Lowers *addr to key. Both key types are unsigned here: K1's keys are
-// non-negative int32, which order alike signed or unsigned.
-template <typename Key>
-__device__ __forceinline__ void min_into(Key* addr, Key key) {
-  if (kFilterAtomics && key >= __ldcg(addr)) return;
-  atomicMin(addr, key);
-}
-
 // K1 (EXACT false: packed int32 keys, and each point's depth into depth0
 // where it is not null) and K5 (EXACT true: 64-bit keys). keys [B, h*w].
 template <bool EXACT>
@@ -180,12 +170,13 @@ __global__ void __launch_bounds__(kThreads)
         depth0[(size_t)b * n + i] = valid ? depth : 0.0f;
       }
       if (!valid || pix < 0) continue;
+      // K1's keys are non-negative int32: they order alike as unsigned.
       if (EXACT) {
-        min_into((unsigned long long*)keys + b * npx + pix,
-                 exact_key(depth, i));
+        atomicMin((unsigned long long*)keys + b * npx + pix,
+                  exact_key(depth, i));
       } else {
-        min_into((unsigned*)keys + b * npx + pix,
-                 (depth_bin(depth, qmax) << idb) | (unsigned)i);
+        atomicMin((unsigned*)keys + b * npx + pix,
+                  (depth_bin(depth, qmax) << idb) | (unsigned)i);
       }
     }
   }

@@ -382,10 +382,12 @@ def pyramid_cost(b, n, hw, levels):
     return PROJECT_FLOPS * b * n, 12 * n + 64 * b + out
 
 
-def parent_chain(xyz, ms, hw, levels, method, pool_impl):
-    """The pyramid as the port built it before the pyramid pass: K1 (and
-    the winner-depth gather) or K5 (with its unpack), then the plain
-    pools, one level after another."""
+def plain_pool_chain(xyz, ms, hw, levels, method, pool_impl):
+    """This tree's projection followed by the plain pools, in the order
+    the port ran them before the pyramid pass: K1 and the winner-depth
+    gather, or K5 (with a one-level pass), then the plain pools one
+    level after another. Its projection is this tree's, so it is not
+    the earlier code's time (PERF.md section 5 has that)."""
     b, n = ms.shape[0], xyz.shape[0]
     if method == "sort":
         index, depth = RK.zbuffer_exact(xyz, ms, *hw)
@@ -406,7 +408,7 @@ def pyramid_rows(dev) -> List[Row]:
     """:func:`RK.zbuffer_pyramid` to ``PYRAMID_LEVELS`` levels for each
     z-buffer (``method``) and pool, at the serving frame's shape (B=1)
     and the training step's, held bit-equal to its twin at every level;
-    its library yardstick is :func:`parent_chain`. Both also run in a
+    its library yardstick is :func:`plain_pool_chain`. Both also run in a
     CUDA graph, with their device operations counted."""
     rows = []
     shapes = [("B=1", *frame_inputs(1, N_POINTS, HW), HW),
@@ -423,7 +425,8 @@ def pyramid_rows(dev) -> List[Row]:
                 f"{method}+{pool} {tag} {hw[1]}x{hw[0]} L={PYRAMID_LEVELS}",
                 lambda a=args: RK.zbuffer_pyramid(*a),
                 lambda a=args: RK.zbuffer_pyramid_plain(*a),
-                lambda a=args: parent_chain(a[0], a[1], a[2:4], *a[4:]),
+                lambda a=args: plain_pool_chain(a[0], a[1], a[2:4],
+                                                 *a[4:]),
                 None,
                 *pyramid_cost(ms.shape[0], xyz.shape[0], hw, PYRAMID_LEVELS),
                 False, graph=True))

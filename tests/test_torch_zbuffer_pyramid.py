@@ -16,7 +16,6 @@ import pytest
 import torch
 
 from read_tpu.ops import rasterize as JR
-from read_tpu_torch import _build, ab
 from read_tpu_torch.ops import rasterize as R
 from read_tpu_torch.ops import rasterize_kernels as RK
 
@@ -139,33 +138,16 @@ def test_pyramid_refusals():
         R.rasterize_pyramid_pooled(xyz, ms, (36, 48), 4)
 
 
-def test_ab_variant_changes_one_constant(monkeypatch):
-    """The A/B's ``filter`` variant is the source with ``kFilterAtomics``
-    on and nothing else changed; without a card neither mode runs."""
-    with open(f"{_build.CSRC}/zbuffer.cu") as f:
-        src = f.read()
-    assert ab.variant_source(src, "base") == src
-    var = ab.variant_source(src, "filter")
-    diff = [(a, b) for a, b in zip(src.splitlines(), var.splitlines())
-            if a != b]
-    assert diff == [("constexpr bool kFilterAtomics = false;",
-                     "constexpr bool kFilterAtomics = true;")]
-    with pytest.raises(ValueError):
-        ab.variant_source(var, "filter")
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for argv in (["zbuffer"], ["e2e", "--against", "."]):
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            ab.main(argv)
-
-
-def test_ab_e2e_measures_at_a_tiny_size(tmp_path, monkeypatch):
-    """The end-to-end A/B's metrics on the CPU at a tiny size (its
-    control flow; the numbers are CPU times)."""
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
-    got = ab.measure_e2e(str(tmp_path), dev="cpu", n=2000, hw=(16, 32),
-                         train_hw=16)
-    assert sorted(got) == sorted(
-        [f"frame B={b} {ops} ms/call" for b in (1, 4)
-         for ops in ("bf16", "f32")]
-        + ["request pallas f32 ms", "request sort ms", "train step ms"])
-    assert all(v > 0 for v in got.values())
+@pytest.mark.parametrize("pool_impl", ["exact", "packed"])
+@pytest.mark.parametrize("method", ["sort", "pallas"])
+def test_bench_library_chain_is_the_pyramid(method, pool_impl):
+    """The kernel bench's library yardstick for the pyramid rows (the
+    projection, then the plain pools level by level) computes the same
+    levels as the pyramid's twin, bit for bit, ties included."""
+    from read_tpu_torch import kernel_bench as KB
+    xyz, ms = (torch.from_numpy(a) for a in _scene(3000, 2, True))
+    want = RK.zbuffer_pyramid(xyz, ms, 32, 48, 4, method, pool_impl)
+    got = KB.plain_pool_chain(xyz, ms, (32, 48), 4, method, pool_impl)
+    assert len(got) == len(want) == 4
+    for (ig, dg), (iw, dw) in zip(got, want):
+        assert torch.equal(ig, iw) and torch.equal(dg, dw)
