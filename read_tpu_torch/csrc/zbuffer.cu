@@ -57,7 +57,7 @@
 // address would serialize). Loading the current key first and issuing
 // the atomic only where the new key is smaller was slower at both the
 // frame's and the training step's shapes (PERF.md), so every valid
-// (view, point) issues its atomicMin. The projection uses the _rn
+// (view, point) does its atomicMin. The projection uses the _rn
 // intrinsics so nvcc cannot contract the expanded product into FMAs: the
 // result is bit-equal to the element-wise PyTorch twin, which keeps JAX's
 // order ((m0*x + m1*y) + m2*z) + m3.
