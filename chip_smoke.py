@@ -42,12 +42,28 @@ without a device it exits non-zero at once. It
 6. saves the trained state as a ``read_tpu`` checkpoint with the
    default config (``sort``) and serves 2 requests from it at 1216x368,
    through K5, K2 and K3;
-7. times ``read_tpu_torch.frame.make_frame`` at B=1 and B=4 with bf16
+7. runs the train/eval CLI (``read_tpu_torch.train.main``, in this
+   process) on two drives it builds on disk (1M points each at
+   1216x368, 20 poses, PNG targets rendered through K1 and the gather,
+   JSON manifests): the ``configs/demo_drive.yaml`` recipe (256x256
+   crops, batch 2 x inner 4, VGG with random weights, ``split_by_step``)
+   for 2 epochs of 8 steps with ``--max-scenes-hbm 1`` (the texture
+   swap), ``--resume`` for one more epoch, ``--eval --eval-all`` from the
+   best checkpoint, and one ``sort`` request from it through
+   ``NeuralRenderer``. Every run must return 0 with finite losses, the
+   checkpoints must be those ``read_tpu``'s rules leave (rotation to 3,
+   ``best_<scene>``), the resumed step must continue the saved one, the
+   val loss must fall from epoch 0 to 1, the eval PNGs must be written,
+   and K5 and the pyramid pass must launch once per train step and val
+   batch (K5's ``cli_launches``). It prints the CLI's ms/step beside the
+   bare step's, the share of a step spent waiting for data, and val
+   ms/view;
+8. times ``read_tpu_torch.frame.make_frame`` at B=1 and B=4 with bf16
    and f32 operands, and compares one B=1 frame (f32 and bf16 operands)
    with the same frame with every kernel swapped for its twin; a frame
    that runs either wgmma loop fewer times than its route predicts
    fails;
-8. holds K7's band kernel against its twin on its own route (a
+9. holds K7's band kernel against its twin on its own route (a
    ``gated=False`` call and a width the wgmma loops do not take, 3x3 and
    1x1, f32 and bf16), then runs the kernel bench
    (``read_tpu_torch.kernel_bench``) in-process: K1, K5 and K6
@@ -89,8 +105,8 @@ the pyramid add their device time in a CUDA graph (``graph_ms``), the
 pyramid its device operations and the training step's numbers
 (``train_*``) beside the serving frame's, with the projection
 followed by the plain pools as its library; K5 adds the ``sort``
-requests' launches (``sort_launches``); the K2, K3, K4
-and wgmma-loop entries add their bf16 per-frame times (``bf16_ms``,
+requests' launches (``sort_launches``) and the CLI's
+(``cli_launches``); the K2, K3, K4 and wgmma-loop entries add their bf16 per-frame times (``bf16_ms``,
 ``bf16_plain_ms``, ``bf16_library_ms``, ``bf16_bound_ms``), K7's four
 entries (``gated_conv{3x3,1x1}_r2_wgmma``: the loops; ``..._band``: the
 band kernel) and K8's (``full`` on K2's wgmma loop; ``tile_*``: on the
@@ -106,6 +122,7 @@ import contextlib
 import itertools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -435,6 +452,7 @@ def phase_train(report, ctx):
                            "lower at the end")
     pyramid_ran("train", counts, "zbuffer_exact", None)
     report["zbuffer_exact"]["launches"] = counts["zbuffer_exact"]
+    ctx["train_ms"] = seconds * 1e3
     print(f"[train] {TRAIN_B}x{TRAIN_HW}^2 crops, {N_POINTS} points, "
           f"full-width UNet, VGG on: {seconds * 1e3:.2f} ms/step, "
           f"{1.0 / seconds:.3f} steps/s (mean of {TIMED} "
@@ -1259,6 +1277,375 @@ def phase_kernel_bench(report, dev):
           f"tolerance of its twin; first-pass launches {counts}")
 
 
+# ---------------------------------------------------------------------------
+# The train/eval CLI (read_tpu_torch.train) on two 1M-point drives
+# ---------------------------------------------------------------------------
+
+# configs/demo_drive.yaml, carried here as data so no YAML reader is needed
+DEMO_DRIVE = {
+    "paths_file": "data/demo_scene/paths.yaml",
+    "dataset_names": ["demo_drive"],
+    "crop_size": "256x256", "batch_size": 2, "epochs": 6, "save_freq": 2,
+    "save_dir": "data/logs", "name": "demo_drive", "log_freq": 25,
+    "criterion": "vgg", "splitter": "split_by_step",
+    "splitter_args": {"val_step": 10},
+    "train_dataset_args": {"random_zoom": [0.2, 2.0],
+                           "random_shift": [-1.0, 1.0], "num_samples": 2,
+                           "inner_batch": 4},
+    "val_dataset_args": {},
+}
+CLI_SCENES = ("drive_a", "drive_b")
+CLI_POSES, CLI_EPOCHS, CLI_STEPS = 20, 2, 8
+
+
+def write_ply(path, xyz, rgb8):
+    """A binary little-endian PLY of float32 xyz and uchar rgb."""
+    arr = np.empty(len(xyz), np.dtype([
+        ("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+        ("red", "u1"), ("green", "u1"), ("blue", "u1")]))
+    arr["x"], arr["y"], arr["z"] = xyz.T
+    arr["red"], arr["green"], arr["blue"] = rgb8.T
+    header = ("ply\nformat binary_little_endian 1.0\n"
+              f"element vertex {len(xyz)}\n"
+              "property float x\nproperty float y\nproperty float z\n"
+              "property uchar red\nproperty uchar green\n"
+              "property uchar blue\nend_header\n")
+    with open(path, "wb") as f:
+        f.write(header.encode("ascii") + arr.tobytes())
+
+
+def drive_world(rng, n_points):
+    """``(xyz [N, 3], rgb [N, 3])`` float32: a street along -z in the
+    layout of ``scripts/make_demo_scene.py``'s world: road with lane
+    marks, sidewalks, facades with window rows, trees."""
+    def share(f):
+        return int(n_points * f)
+
+    n = share(0.35)
+    x, z = rng.uniform(-4.5, 4.5, n), rng.uniform(-75, 5, n)
+    road = np.stack([x, np.zeros(n), z], 1)
+    c_road = rng.uniform(0.25, 0.35, (n, 1)) * np.ones((1, 3))
+    c_road[(np.abs(x) < 0.08) & ((z % 4) < 2)] = (0.85, 0.85, 0.8)
+    n = share(0.10)
+    walk = np.stack([rng.choice([-1, 1], n) * rng.uniform(4.6, 7.0, n),
+                     np.full(n, 0.12), rng.uniform(-75, 5, n)], 1)
+    c_walk = rng.uniform(0.45, 0.55, (n, 1)) * np.ones((1, 3))
+    n = share(0.40)
+    y, z = rng.uniform(0, 9, n), rng.uniform(-75, 5, n)
+    bld = np.stack([rng.choice([-1, 1], n) * rng.uniform(7.2, 7.5, n), y,
+                    z], 1)
+    c_bld = np.stack([rng.uniform(0.45, 0.75, n), rng.uniform(0.35, 0.55, n),
+                      rng.uniform(0.3, 0.45, n)], 1)
+    block = np.floor(z / 15).astype(int) % 3
+    c_bld[block == 1] *= 0.8
+    c_bld[block == 2] = c_bld[block == 2][:, ::-1]
+    c_bld[((y % 3) > 1.2) & ((y % 3) < 2.4) & ((z % 3) > 1.0)
+          & ((z % 3) < 2.2)] = (0.1, 0.12, 0.2)
+    n = n_points - len(road) - len(walk) - len(bld)
+    centers = np.stack([rng.choice([-1, 1], 24) * rng.uniform(5.5, 6.8, 24),
+                        np.full(24, 3.2), rng.uniform(-70, 0, 24)], 1)
+    tree = centers[rng.integers(0, 24, n)] + rng.normal(0, 0.9, (n, 3)) \
+        * (1, 1.3, 1)
+    g = rng.uniform(0.15, 0.45, (n, 1))
+    c_tree = np.concatenate([g * 0.4, g + 0.25, g * 0.35], 1)
+    xyz = np.concatenate([road, walk, bld, tree]).astype(np.float32)
+    rgb = np.concatenate([c_road, c_walk, c_bld, c_tree]).clip(0, 1)
+    return xyz, rgb.astype(np.float32)
+
+
+def make_drive_scene(root, name, seed, dev, n_points, hw, poses):
+    """A drive on disk: ``drive_world`` of ``n_points``; ``poses``
+    camera poses 2.5 m apart along the road; targets rendered through
+    K1 (``pallas``) and the descriptor gather, written as PNG by
+    ``image_io``; a JSON manifest. Returns the paths-file entry."""
+    import torch
+    from read_tpu_torch.data import image_io
+    from read_tpu_torch.models import texture as T
+    from read_tpu_torch.ops import rasterize as R
+    from read_tpu_torch.scene import camera
+    h, w = hw
+    d = os.path.join(root, name)
+    os.makedirs(os.path.join(d, "images"), exist_ok=True)
+    xyz, colors = drive_world(np.random.default_rng(seed), n_points)
+    rgb8 = (colors * 255).astype(np.uint8)
+    write_ply(os.path.join(d, "pc.ply"), xyz, rgb8)
+    K = np.array([[720.0, 0, w / 2], [0, 720.0, h / 2], [0, 0, 1]])
+    np.savetxt(os.path.join(d, "cam.txt"), np.vstack([[w, h, 0], K]))
+    P = camera.gl_projection(K, (w, h), znear=0.1, zfar=1000.0)
+    views = []
+    for i in range(poses):
+        view = np.eye(4)
+        view[:3, 3] = (0.3 * np.sin(0.4 * i), 1.6, -2.5 * i)
+        views.append(view)
+    np.savetxt(os.path.join(d, "poses.dat"),
+               np.stack(views).reshape(-1, 4))
+    xyz_d = torch.from_numpy(xyz).to(dev)
+    table = torch.from_numpy(rgb8.astype(np.float32) / 255.0).to(dev)
+    ms = torch.from_numpy(np.stack([camera.total_matrix(P, v)
+                                    for v in views]).astype(np.float32))
+    for i in range(poses):
+        index, _ = R.rasterize_batch(xyz_d, ms[i:i + 1].to(dev), h, w,
+                                     method="pallas")
+        img = T.sample_point_texture_unique(table, index)[0]
+        image_io.write_png(os.path.join(d, "images", f"{i:06}.png"),
+                           (img.cpu().numpy() * 255 + 0.5).astype(np.uint8))
+    with open(os.path.join(d, "scene.json"), "w") as f:
+        json.dump({"viewport_size": [w, h], "pointcloud": "pc.ply",
+                   "intrinsic_matrix": "cam.txt",
+                   "view_matrix": "poses.dat"}, f)
+    return {"scene_path": os.path.join(d, "scene.json"),
+            "target_path": os.path.join(d, "images"),
+            "target_name": "{label:06d}.png"}
+
+
+def expected_checkpoints(history, names, save_freq, keep=3):
+    """The checkpoint dirs ``read_tpu.train``'s rules leave after the
+    epochs of ``history``: ``ckpt_<scene>_<epoch>`` at every
+    ``save_freq``-th epoch and at every improvement, the newest ``keep``
+    kept, and ``best_<scene>`` after an improvement."""
+    best, kept, out = float("inf"), [], set()
+    for h in history:
+        if h["epoch"] % save_freq == 0 or h["val_loss"] < best:
+            kept = (kept + [h["epoch"]])[-keep:]
+        if h["val_loss"] < best:
+            best = h["val_loss"]
+            out |= {f"best_{n}" for n in names}
+    return out | {f"ckpt_{n}_{e}" for n in names for e in kept}
+
+
+OPTIONAL = ("yaml", "cv2", "imageio", "matplotlib", "tensorboardX")
+
+
+@contextlib.contextmanager
+def without_modules(names=OPTIONAL):
+    """Inside, importing any of ``names`` fails, as on a machine without
+    them; modules already imported are hidden and put back after."""
+    def ours(mod):
+        return mod.split(".")[0] in names
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if ours(name):
+                raise ImportError(f"{name} is blocked")
+            return None
+
+    hidden = {m: sys.modules.pop(m) for m in list(sys.modules) if ours(m)}
+    finder = Block()
+    sys.meta_path.insert(0, finder)
+    try:
+        yield
+    finally:
+        sys.meta_path.remove(finder)
+        for m in [m for m in sys.modules if ours(m)]:
+            del sys.modules[m]
+        sys.modules.update(hidden)
+
+
+def host_data_ms(paths_file, recipe, hw):
+    """The host data path alone, on this machine's CPU: ms for one
+    training batch (``batch_size`` items of ``inner_batch`` crops, PNG
+    already decoded) and for one val item at the full frame."""
+    import types
+    from read_tpu_torch.data.dataset import BatchIterator
+    from read_tpu_torch.data.scenes import get_datasets
+    args = types.SimpleNamespace(
+        paths_file=paths_file, dataset_names=[CLI_SCENES[0]],
+        exclude_datasets=None, crop_size=recipe["crop_size"],
+        eval_all=False, splitter=recipe["splitter"],
+        splitter_args=recipe["splitter_args"],
+        train_dataset_args=recipe["train_dataset_args"],
+        val_dataset_args=recipe["val_dataset_args"])
+    (tr,), (va,), _ = get_datasets(args)
+    it = iter(BatchIterator(tr, recipe["batch_size"], seed=1))
+    next(it)   # decode the PNGs once, as the cache holds them later
+    t0 = time.perf_counter()
+    for _ in range(4):
+        next(it)
+    train_ms = (time.perf_counter() - t0) * 1e3 / 4
+    va[0]
+    t0 = time.perf_counter()
+    for i in range(4):
+        va[i % len(va)]
+    return train_ms, (time.perf_counter() - t0) * 1e3 / 4
+
+
+def _cli_run(logs, name, flags, dev):
+    """``read_tpu_torch.train.main`` in this process; ``(exp dir,
+    history, launches of K5 and the pyramid pass)``."""
+    from read_tpu_torch import train
+    if dev.type != "cuda":
+        flags = flags + ["--headless-platform", "cpu"]
+    save = os.path.join(logs, name)
+    reset_launches()
+    rc = train.main(flags + ["--save-dir", save, "--name", name])
+    counts = launches()
+    if rc != 0:
+        raise SmokeFailure(f"cli {name}: exit code {rc}")
+    (exp,) = os.listdir(save)
+    exp = os.path.join(save, exp)
+    with open(os.path.join(exp, "history.json")) as f:
+        history = json.load(f)
+    return exp, history, (counts["zbuffer_exact"], counts["zbuffer_pyramid"])
+
+
+def _steady(history):
+    """Mean ms/step after each epoch's first two steps, and the share of
+    those steps spent waiting for the next batch."""
+    step = [ms for h in history for ms in h["train_timing"]["step_ms"][2:]]
+    wait = [ms for h in history for ms in h["train_timing"]["wait_ms"][2:]]
+    return float(np.mean(step)), float(sum(wait) / sum(step)), len(step)
+
+
+def phase_cli(report, ctx, dev, workdir, n_points=N_POINTS, hw=HW,
+              poses=CLI_POSES, recipe=None):
+    """The train/eval CLI on the card: two drives of ``n_points`` at
+    ``hw`` built on disk, then ``read_tpu_torch.train.main`` with the
+    demo_drive recipe (``--epochs 2 --max-steps-per-epoch 8
+    --max-scenes-hbm 1``), ``--resume`` for one more epoch, ``--eval
+    --eval-all`` from the best checkpoint, and one ``sort`` request from
+    it through ``NeuralRenderer``. K5 and the pyramid pass must launch
+    once per train step and val batch."""
+    import torch
+    from read_tpu_torch.data import image_io
+    from read_tpu_torch.render import NeuralRenderer
+    from read_tpu_torch.utils import ckpt as CK
+    t_phase = time.perf_counter()
+    recipe = dict(recipe or DEMO_DRIVE)
+    try:
+        from read_tpu_torch.utils import config_io
+        on_disk = config_io.load("configs/demo_drive.yaml")
+    except Exception:      # no PyYAML here: the carried copy stands
+        on_disk = None
+    if on_disk is not None and on_disk != DEMO_DRIVE:
+        raise SmokeFailure("cli: configs/demo_drive.yaml changed; update "
+                           "DEMO_DRIVE")
+    root = os.path.join(workdir, "cli")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    paths = {"datasets": {name: make_drive_scene(root, name, seed, dev,
+                                                 n_points, hw, poses)
+                          for seed, name in enumerate(CLI_SCENES)}}
+    build_s = time.perf_counter() - t0
+    recipe["paths_file"] = os.path.join(root, "paths.json")
+    recipe["dataset_names"] = list(CLI_SCENES)
+    with open(recipe["paths_file"], "w") as f:
+        json.dump(paths, f)
+    config = os.path.join(root, "demo_drive.json")
+    with open(config, "w") as f:
+        json.dump(recipe, f)
+    logs = os.path.join(root, "logs")
+    check = dev.type == "cuda"
+    base = ["--config", config, "--max-steps-per-epoch", str(CLI_STEPS),
+            "--max-scenes-hbm", "1"]
+
+    # expected work per run, from the recipe alone
+    tda = recipe["train_dataset_args"]
+    n_val = len(range(0, poses, recipe["splitter_args"]["val_step"]))
+    n_batches = (poses - n_val) * tda["num_samples"] // recipe["batch_size"]
+    steps = min(CLI_STEPS, n_batches)
+    val_batches = n_val * len(CLI_SCENES)
+
+    def check_run(name, history, ran, want_steps, want_val):
+        got_steps = sum(len(h["train_timing"]["step_ms"]) for h in history
+                        if "train_timing" in h)
+        got_val = sum(h["val_timing"]["batches"] for h in history)
+        if (got_steps, got_val) != (want_steps, want_val):
+            raise SmokeFailure(f"cli {name}: {got_steps} steps, {got_val} "
+                               f"val batches, want {want_steps}, "
+                               f"{want_val}")
+        losses = [h[k] for h in history for k in ("train_loss", "val_loss")
+                  if k in h]
+        if not np.isfinite(losses).all():
+            raise SmokeFailure(f"cli {name}: losses {losses}")
+        if check and ran != (want_steps + want_val,) * 2:
+            raise SmokeFailure(f"cli {name}: K5 and the pyramid pass "
+                               f"launched {ran}, want "
+                               f"{want_steps + want_val} each")
+        return ran[0]
+
+    # the CLI and the renderer, with none of the optional packages
+    with without_modules():
+        # 1. the demo_drive fit
+        fit, hist, ran = _cli_run(logs, "fit", base + [
+            "--epochs", str(CLI_EPOCHS)], dev)
+        cli_launches = check_run("fit", hist, ran, CLI_EPOCHS * steps,
+                                 CLI_EPOCHS * val_batches)
+        val = [h["val_loss"] for h in hist]
+        if not val[1] < val[0]:
+            raise SmokeFailure(f"cli fit: val loss {val} did not fall")
+        ck = os.path.join(fit, "checkpoints")
+        want = expected_checkpoints(hist, CLI_SCENES, recipe["save_freq"])
+        if set(os.listdir(ck)) != want:
+            raise SmokeFailure(f"cli fit: checkpoints {sorted(os.listdir(ck))}"
+                               f", the reference's rules give {sorted(want)}")
+        ms_step, wait_share, n_timed = _steady(hist)
+
+        # 2. --resume for one more epoch
+        saved = {n: int(CK.load_checkpoint(CK.latest_checkpoint(
+            ck, f"ckpt_{n}"))[0]["step"]) for n in CLI_SCENES}
+        _, rhist, ran = _cli_run(logs, "resume", base + [
+            "--epochs", "1", "--resume", ck], dev)
+        cli_launches += check_run("resume", rhist, ran, steps, val_batches)
+        tt = rhist[0]["train_timing"]
+        if tt["first_step"] != saved[tt["first_scene"]] + 1:
+            raise SmokeFailure(f"cli resume: first step {tt['first_step']} of "
+                               f"{tt['first_scene']}, saved {saved}")
+
+        # 3. --eval --eval-all from the best checkpoint
+        scene = CLI_SCENES[0]
+        ev_dir = os.path.join(root, "eval")
+        _, ehist, ran = _cli_run(logs, "eval", [
+            "--config", config, "--eval", "--eval-all", "--dataset-names",
+            scene, "--resume", os.path.join(ck, f"best_{scene}"),
+            "--eval-dir", ev_dir], dev)
+        cli_launches += check_run("eval", ehist, ran, 0, poses)
+        pngs = sorted(os.listdir(ev_dir))
+        if pngs != [f"{scene}_{i:06}.png" for i in range(poses)]:
+            raise SmokeFailure(f"cli eval: wrote {pngs}")
+        if image_io.imread(os.path.join(ev_dir, pngs[-1])).shape != (*hw, 3):
+            raise SmokeFailure("cli eval: bad PNG")
+        vt = ehist[0]["val_timing"]
+        val_ms = 1e3 * vt["seconds"] / vt["views"]
+
+        # 4. one sort request from the CLI's best checkpoint
+        r = NeuralRenderer(paths["datasets"][scene]["scene_path"],
+                           os.path.join(ck, f"best_{scene}"), device=dev)
+        if r.cfg.raster_method != "sort":
+            raise SmokeFailure(f"cli serve: config says {r.cfg.raster_method}")
+        reset_launches()
+        img = r.infer(r.scene_data["view_matrix"][3])
+        if check:
+            pyramid_ran("cli serve", launches(), "zbuffer_exact", 1)
+        if img.shape != (*hw, 3) or not np.isfinite(img).all():
+            raise SmokeFailure("cli serve: bad frame")
+        del r
+        train_host, val_host = host_data_ms(recipe["paths_file"], recipe,
+                                            hw)
+        if check:
+            torch.cuda.synchronize()
+    report["zbuffer_exact"]["cli_launches"] = cli_launches
+    bare = ctx.get("train_ms")
+    print(f"[cli] demo_drive recipe, {len(CLI_SCENES)} scenes x "
+          f"{n_points} points at {hw[1]}x{hw[0]}, crops "
+          f"{recipe['crop_size']}, batch "
+          f"{recipe['batch_size']} x {tda['inner_batch']}, VGG: train "
+          f"{ms_step:.2f} ms/step over {n_timed} steps (each epoch's first "
+          f"2 left out) beside the bare step's "
+          + (f"{bare:.2f}" if bare else "(not run)")
+          + f" ms/step; {100 * wait_share:.1f}% of each step waiting on "
+          f"PrefetchIterator; val {val_ms:.2f} ms/view at "
+          f"{hw[1]}x{hw[0]} ({vt['views']} views, --eval); val loss "
+          f"{val[0]:.6g} -> {val[1]:.6g}; K5 launches {cli_launches} "
+          f"(train steps + val batches); scenes built in {build_s:.1f} s; "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    print(f"[cli] host data path alone (this machine's CPU, no device): "
+          f"{train_host:.2f} ms a training batch ({recipe['batch_size']} "
+          f"items x {tda['inner_batch']} crops of {recipe['crop_size']}), "
+          f"{val_host:.2f} ms a val item at {hw[1]}x{hw[0]}; the CLI ran "
+          f"without {', '.join(OPTIONAL)}")
+
+
 def check_report(report):
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "max_abs_err")
@@ -1306,6 +1693,7 @@ def main() -> int:
                lambda: phase_serve_sort(report, ctx, dev, workdir)),
               ("free", lambda: (ctx.pop("train"), ctx.pop("trained"),
                                 torch.cuda.empty_cache())),
+              ("cli", lambda: phase_cli(report, ctx, dev, workdir)),
               ("frame_vs_twin", lambda: phase_frame_vs_twin(ctx, dev)),
               ("frames", lambda: phase_frames(ctx, dev)),
               ("r2_band_route", lambda: phase_r2_band_route(dev)),

@@ -32,6 +32,16 @@ statistics and updates the running ones in place (the JAX step returns
 them as its new ``batch_stats``); ``train=False`` uses the running
 statistics, with gradients (the frozen-net training step).
 
+With ``remat`` (the differentiable route under autograd) every EBlock
+and DBlock (``Encoder*``, ``Decoder*``) runs under
+``torch.utils.checkpoint`` (non-reentrant), where ``read_tpu`` wraps
+them in ``nn.remat``: their activations are dropped after the forward
+and recomputed in the backward. The recomputation reads the block's
+parameters and statistics as the forward saw them (they enter the
+checkpoint as inputs, so a ``functional_call`` that has since returned
+does not matter) and leaves the running statistics alone: they move
+once a step, as without ``remat``.
+
 Inputs and outputs are NHWC ``[B, h, w, C]``; ``B > 1`` is a real batch.
 ``operands='bf16'`` (serving only) rounds every conv and matmul operand
 to bfloat16 and accumulates in float32 (JAX's ``bf16_mxu``); activations
@@ -40,11 +50,14 @@ stay float32.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from read_tpu_torch.ops import gated_conv as GC
@@ -54,6 +67,16 @@ __all__ = ["BasicConv", "UNet", "unet_from_state"]
 _BN_EPS = 1e-5
 _BN_MOMENTUM = 0.9  # flax's: running = 0.9 * running + 0.1 * batch
 _OPERANDS = ("f32", "bf16")
+_recompute = threading.local()   # .active: a checkpoint is recomputing
+
+
+@contextlib.contextmanager
+def _recomputing():
+    _recompute.active = True
+    try:
+        yield
+    finally:
+        _recompute.active = False
 
 
 def _nearest_down(x: torch.Tensor, f: int) -> torch.Tensor:
@@ -134,16 +157,17 @@ class _Norm(nn.Module):
         mean and the two-pass **biased** variance (``use_fast_variance=
         False``) and moves the running statistics toward them with
         momentum 0.9; ``nn.BatchNorm2d`` would update with the unbiased
-        variance."""
+        variance. A checkpoint's recomputation does not move them again."""
         if train:
             dims = tuple(range(x.dim() - 1))
             mean = x.mean(dim=dims)
             var = torch.square(x - mean).mean(dim=dims)
-            with torch.no_grad():
-                self.mean.copy_(_BN_MOMENTUM * self.mean
-                                + (1 - _BN_MOMENTUM) * mean)
-                self.var.copy_(_BN_MOMENTUM * self.var
-                               + (1 - _BN_MOMENTUM) * var)
+            if not getattr(_recompute, "active", False):
+                with torch.no_grad():
+                    self.mean.copy_(_BN_MOMENTUM * self.mean
+                                    + (1 - _BN_MOMENTUM) * mean)
+                    self.var.copy_(_BN_MOMENTUM * self.var
+                                   + (1 - _BN_MOMENTUM) * var)
         else:
             mean, var = self.mean, self.var
         return (x - mean) * (torch.rsqrt(var + _BN_EPS) * self.scale) \
@@ -425,36 +449,67 @@ class UNet(nn.Module):
         return self
 
     def forward(self, x, x_2, x_4, x_8, train: Optional[bool] = None,
-                operands: str = "f32") -> Dict[str, torch.Tensor]:
+                operands: str = "f32",
+                remat: bool = False) -> Dict[str, torch.Tensor]:
         """``train=None`` (default): the serving route, no autograd.
         ``train=True``/``False``: the differentiable route with batch /
-        running BN statistics (float32 operands only)."""
+        running BN statistics (float32 operands only); ``remat``
+        checkpoints its EBlocks and DBlocks while autograd records."""
         if operands not in _OPERANDS:
             raise ValueError(f"operands must be one of {_OPERANDS}")
         if train is None:
             with torch.no_grad():
                 return self._forward(x, x_2, x_4, x_8, operands == "bf16",
-                                     None)
+                                     None, False)
         if operands != "f32":
             raise NotImplementedError(
                 "the differentiable (training) route runs float32 "
                 "operands only; bfloat16 training is not ported")
-        return self._forward(x, x_2, x_4, x_8, False, bool(train))
+        return self._forward(x, x_2, x_4, x_8, False, bool(train),
+                             remat and torch.is_grad_enabled())
+
+    def _block(self, name: str, x: torch.Tensor, bf16: bool,
+               train: Optional[bool], remat: bool) -> torch.Tensor:
+        """EBlock/DBlock ``name`` on ``x``; with ``remat`` under a
+        non-reentrant checkpoint whose inputs are ``x`` and the block's
+        current parameters. Its current statistics enter by reference:
+        the forward moves them in place, which a checkpoint input may
+        not see, and no output depends on them in train mode."""
+        block = getattr(self, name)
+        if not remat:
+            return block(x, bf16, train)
+        params = dict(block.named_parameters())
+        stats = dict(block.named_buffers())
+        names = tuple(params)
+
+        def run(x, *values):
+            return torch.func.functional_call(
+                block, {**dict(zip(names, values)), **stats},
+                (x, False, train))
+
+        return torch.utils.checkpoint.checkpoint(
+            run, x, *params.values(), use_reentrant=False,
+            preserve_rng_state=False,
+            context_fn=lambda: (contextlib.nullcontext(), _recomputing()))
 
     def _forward(self, x, x_2, x_4, x_8, bf16: bool,
-                 train: Optional[bool]):
+                 train: Optional[bool], remat: bool):
         r = (bf16, train)
+
+        def block(name, z):
+            return self._block(name, z, bf16, train, remat)
+
         z2 = self.SCM2(x_2, *r)
         z4 = self.SCM1(x_4, *r)
         z8 = self.SCM0(x_8, *r)
 
-        res1 = self.Encoder0(self.feat0(x, *r), *r)
+        res1 = block("Encoder0", self.feat0(x, *r))
         z = self.FAM2(self.feat1(res1, *r), z2, *r)
-        res2 = self.Encoder1(z, *r)
+        res2 = block("Encoder1", z)
         z = self.FAM1(self.feat2(res2, *r), z4, *r)
-        res3 = self.Encoder2(z, *r)
+        res3 = block("Encoder2", z)
         z = self.FAM0(self.feat6(res3, *r), z8, *r)
-        z = self.Encoder3(z, *r)
+        z = block("Encoder3", z)
 
         # AFF cross-scale fusion; the downsamples are cheap picks, the
         # upsamples (serving) happen after each part's low-resolution
@@ -470,13 +525,13 @@ class UNet(nn.Module):
                         (z, "nearest", 2)], *r)
 
         # decoder: stride-2 k4 conv + x4 bilinear = x2 up, then skip
-        z = self.feat7(self.Decoder0(z, *r), *r)
+        z = self.feat7(block("Decoder0", z), *r)
         z = self.Convs0.comb([(z, "bilinear", 4), (r3, "id", 1)], *r)
-        z = self.feat3(self.Decoder1(z, *r), *r)
+        z = self.feat3(block("Decoder1", z), *r)
         z = self.Convs1.comb([(z, "bilinear", 4), (r2, "id", 1)], *r)
-        z = self.feat4(self.Decoder2(z, *r), *r)
+        z = self.feat4(block("Decoder2", z), *r)
         z = self.Convs2.comb([(z, "bilinear", 4), (r1, "id", 1)], *r)
-        feats = self.Decoder3(z, *r)
+        feats = block("Decoder3", z)
         out = {"im_out": self.feat5(feats, *r)}
         if self.num_classes is not None:
             out["seg_out"] = self.seg_head(feats, *r)

@@ -21,14 +21,17 @@ The net's parameters and Adam moments each live in one flat buffer, so
 the guard, Adam and the parameter update are a few kernels a step. A
 step returns a new :class:`TrainState` and leaves the one it was given
 untouched, as the JAX step does without donation. The VGG target
-features run under ``no_grad``; nothing is rematerialized.
+features run under ``no_grad``. With ``remat`` the UNet's EBlocks and
+DBlocks run under ``torch.utils.checkpoint`` (``models.unet.UNet``), as
+``read_tpu``'s run under ``nn.remat``.
 
 A checkpoint's ``conv_impl`` (``xla``/``im2col``/``pallas``) is checked
 and dropped: every name holds the same parameters, and training always
 runs the differentiable route. Configurations that need code the port
 does not have yet raise ``NotImplementedError``: mesh textures, splats
 and z-scaled sizes, extra input modes, supersampling, point dropout and
-jitter, bfloat16 training, ``remat`` and the VGG ensemble; the fields
+jitter (the train dataset's ``drop_points``/``perturb_points``),
+``label_in_input``, bfloat16 training and the VGG ensemble; the fields
 that only those use (``texture_size``, ``min_point_size``,
 ``label_in_input``) are left out.
 """
@@ -169,17 +172,32 @@ def _check_trainable(cfg: PipelineConfig) -> None:
                   "queue 1, item 9")
     if cfg.vgg_ensemble:
         _unported("the VGG ensemble (vgg_ens)", "'Not ported'")
-    if cfg.remat:
-        _unported("remat", "queue 1, item 8")
     if cfg.dtype != "float32":
         _unported("bfloat16 training", "queue 1, item 8")
 
 
-def config_from_dict(d: dict, crop_size: Tuple[int, int]
+def _crop_size(d: dict, crop_size) -> Tuple[int, int]:
+    """``(h, w)``: ``crop_size`` if given, else the dict's (``'WxH'`` or
+    ``(h, w)``), else 256x256."""
+    if crop_size is None:
+        crop_size = d.get("crop_size", (256, 256))
+        if isinstance(crop_size, str):
+            w, h = crop_size.lower().split("x")
+            crop_size = (int(h), int(w))
+    return tuple(int(x) for x in crop_size)
+
+
+def config_from_dict(d: dict, crop_size: Optional[Tuple[int, int]] = None,
+                     train_dataset_args: Optional[dict] = None
                      ) -> PipelineConfig:
-    """A :class:`PipelineConfig` from an args-style dict (a checkpoint's
-    embedded ``config``) at ``crop_size`` ``(h, w)``, as ``read_tpu``
-    builds it; raises for what the port does not have."""
+    """A :class:`PipelineConfig` from an args-style dict (the train CLI's
+    ``vars(args)`` or a checkpoint's embedded ``config``) at
+    ``crop_size`` ``(h, w)`` (default: the dict's ``crop_size``), with
+    the train dataset's ``drop_points``/``perturb_points``, as
+    ``read_tpu`` builds it; raises for what the port does not have."""
+    tda = train_dataset_args or {}
+    if tda.get("label_in_input"):
+        _unported("label_in_input", "queue 1, item 9")
     criterion = d.get("criterion", "vgg")
     if criterion not in _CRITERIA:
         raise ValueError(f"unknown criterion {criterion!r}; expected one "
@@ -194,10 +212,12 @@ def config_from_dict(d: dict, crop_size: Tuple[int, int]
     point_radius, relative_ps, extra_modes = parse_format_geometry(
         d.get("input_format", _DEFAULT_FORMAT))
     cfg = PipelineConfig(
-        crop_size=tuple(int(x) for x in crop_size),
+        crop_size=_crop_size(d, crop_size),
         point_radius=point_radius,
         relative_point_size=relative_ps,
         extra_modes=extra_modes,
+        drop_points=float(tda.get("drop_points", 0.0)),
+        perturb_points=float(tda.get("perturb_points", 0.0)),
         descriptor_size=int(d.get("descriptor_size", 8)),
         supersampling=int(d.get("supersampling", 1) or 1),
         lr=float(d.get("lr", 1e-4)),
@@ -461,7 +481,8 @@ def _forward(net: UNet, cfg: PipelineConfig, params: Tensors,
     if train:
         batch_stats = {k: v.clone() for k, v in batch_stats.items()}
     out = torch.func.functional_call(net, {**params, **batch_stats},
-                                     tuple(pyr), {"train": train})
+                                     tuple(pyr),
+                                     {"train": train, "remat": cfg.remat})
     return out, batch_stats, pyr
 
 

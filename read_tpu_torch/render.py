@@ -10,7 +10,8 @@ rebuilds the pipeline config from its embedded ``config``, and renders
 project -> z-buffer -> exact 2x2 pyramid pool -> descriptor gather ->
 UNet (K2, K3). The z-buffer is the checkpoint's own: the default
 ``sort`` runs K5 (exact), ``pallas``/``scatter1`` K1 (packed key);
-``--raster-method`` overrides it, as the JAX CLI's flag does.
+``--raster-method`` overrides it, as the JAX CLI's flag does. Frames
+are written as PNG by :mod:`read_tpu_torch.data.image_io`.
 
 Usage::
 
@@ -30,6 +31,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from read_tpu_torch.data import image_io
 from read_tpu_torch.scene import camera
 from read_tpu_torch.models.unet import unet_from_state
 from read_tpu_torch.pipelines import texture_pipeline as TP
@@ -42,9 +44,10 @@ __all__ = ["NeuralRenderer", "main"]
 class NeuralRenderer:
     """Render neural frames of one scene from one checkpoint.
 
-    ``scene`` is a scene YAML path (loaded with ``read_tpu_torch.scene.io``,
-    which needs PyYAML) or an already-loaded scene-data dict with the
-    keys ``load_scene_data`` returns (``pointcloud['xyz']``,
+    ``scene`` is a scene manifest path (loaded with
+    ``read_tpu_torch.scene.io``: YAML, or JSON without PyYAML) or an
+    already-loaded scene-data dict with the keys ``load_scene_data``
+    returns (``pointcloud['xyz']``,
     ``intrinsic_matrix``, ``config['viewport_size']``, and optionally
     ``view_matrix`` and ``point_sizes``). ``device`` defaults to CUDA;
     ``'cpu'`` runs the plain twins instead of the kernels."""
@@ -176,8 +179,6 @@ def main(argv=None) -> int:
         p.error("no CUDA device; pass --device cpu to render with the "
                 "plain PyTorch twins")
 
-    import imageio.v2 as imageio
-
     viewport = None
     if args.viewport:
         w, h = args.viewport.lower().split("x")
@@ -200,7 +201,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         img = r.infer(pose)   # ends in a host copy: the frame is done
         times.append(time.perf_counter() - t0)
-        imageio.imwrite(os.path.join(args.out, f"{i:06}.png"),
+        image_io.imwrite(os.path.join(args.out, f"{i:06}.png"),
                         (img * 255).astype(np.uint8))
     if args.fps_report and len(times) > 1:
         steady = float(np.mean(times[1:]))

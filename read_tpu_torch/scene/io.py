@@ -6,7 +6,9 @@ The port's copy of the parts of ``read_tpu/scene/io.py`` that
 the native ascii fast path: ascii clouds go through ``np.loadtxt``),
 ``import_model3d``, the intrinsics and extrinsics readers,
 ``get_valid_matrices`` and ``fix_relative_path``. The manifest keys,
-relative-path resolution and returned dict are the same.
+relative-path resolution and returned dict are the same. Where PyYAML
+is missing the manifest must be JSON, and where cv2 is missing a
+texture image must be PNG.
 """
 
 from __future__ import annotations
@@ -281,14 +283,17 @@ def _extrinsics(apath: str):
 
 
 def load_scene_data(path: str) -> dict:
-    """Load a YAML scene manifest (needs PyYAML) into the scene-data
-    dict: pointcloud, point_sizes, mesh, texture, proj_matrix,
+    """Load a scene manifest (YAML with PyYAML, else JSON; through
+    :mod:`read_tpu_torch.utils.config_io`) into the scene-data dict:
+    pointcloud, point_sizes, mesh, texture, proj_matrix,
     intrinsic_matrix, view_matrix, camera_labels, model3d_origin,
-    config, net_ckpt, tex_ckpt."""
-    import yaml
+    config, net_ckpt, tex_ckpt. A ``texture`` image is read with
+    :func:`read_tpu_torch.data.image_io.imread_color` (PNG without
+    cv2)."""
+    from read_tpu_torch.data import image_io
+    from read_tpu_torch.utils import config_io
 
-    with open(path) as f:
-        config = yaml.safe_load(f)
+    config = config_io.load(path)
 
     def rel(key):
         return fix_relative_path(config[key], path)
@@ -299,10 +304,7 @@ def load_scene_data(path: str) -> dict:
             if config.get("mesh") else None)
     texture = None
     if config.get("texture"):
-        import cv2
-        texture = cv2.imread(rel("texture"))
-        assert texture is not None
-        texture = texture[..., ::-1].copy()
+        texture = image_io.imread_color(rel("texture"))[..., ::-1].copy()
 
     intrinsic_matrix = (_intrinsics(rel("intrinsic_matrix"), config)
                         if "intrinsic_matrix" in config else None)

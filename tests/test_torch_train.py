@@ -252,7 +252,8 @@ def test_eval_step_matches_jax(ref):
 
 
 @pytest.mark.parametrize("change", [
-    dict(drop_points=0.1), dict(perturb_points=1.0), dict(remat=True),
+    dict(drop_points=0.1), dict(perturb_points=1.0),
+    dict(relative_point_size=True),
     dict(vgg_ensemble=3), dict(dtype="bfloat16"), dict(use_mesh=True),
     dict(point_radius=1), dict(supersampling=2),
     dict(extra_modes=(("depth",),) * 4)])
