@@ -43,27 +43,43 @@ without a device it exits non-zero at once. It
    default config (``sort``) and serves 2 requests from it at 1216x368,
    through K5, K2 and K3;
 7. runs the train/eval CLI (``read_tpu_torch.train.main``, in this
-   process) on two drives it builds on disk (1M points each at
-   1216x368, 20 poses, PNG targets rendered through K1 and the gather,
-   JSON manifests): the ``configs/demo_drive.yaml`` recipe (256x256
-   crops, batch 2 x inner 4, VGG with random weights, ``split_by_step``)
-   for 2 epochs of 8 steps with ``--max-scenes-hbm 1`` (the texture
-   swap), ``--resume`` for one more epoch, ``--eval --eval-all`` from the
-   best checkpoint, and one ``sort`` request from it through
-   ``NeuralRenderer``. Every run must return 0 with finite losses, the
-   checkpoints must be those ``read_tpu``'s rules leave (rotation to 3,
-   ``best_<scene>``), the resumed step must continue the saved one, the
-   val loss must fall from epoch 0 to 1, the eval PNGs must be written,
-   and K5 and the pyramid pass must launch once per train step and val
-   batch (K5's ``cli_launches``). It prints the CLI's ms/step beside the
-   bare step's, the share of a step spent waiting for data, and val
-   ms/view;
-8. times ``read_tpu_torch.frame.make_frame`` at B=1 and B=4 with bf16
+   process) on two drives it builds on disk (1M points each at 1216x368,
+   20 poses, PNG targets rendered with ``point_radius=1`` on ``sort``,
+   as ``scripts/make_demo_scene.py`` renders them: the splat projection
+   and the gather; JSON manifests): the ``configs/demo_drive.yaml``
+   recipe (256x256 crops, batch 2 x inner 4, VGG with random weights,
+   ``split_by_step``) for 2 epochs of 8 steps with ``--max-scenes-hbm
+   1`` (the texture swap), ``--resume`` for one more epoch, ``--eval
+   --eval-all`` from the best checkpoint, and one ``sort`` request from
+   it through ``NeuralRenderer``. Every run must return 0 with finite
+   losses, the checkpoints must be those ``read_tpu``'s rules leave
+   (rotation to 3, ``best_<scene>``), the resumed step must continue the
+   saved one, the val loss must fall from epoch 0 to 1, the eval PNGs
+   must be written, and K5 and the pyramid pass must launch once per
+   train step and val batch (K5's ``cli_launches``). It prints the CLI's
+   ms/step beside the bare step's, the share of a step spent waiting for
+   data, and val ms/view;
+8. splats (K6 on its user path, ``rasterize_kernels.zbuffer_splat``:
+   the splat projection and the pyramid pass): bit-equal to its twin at
+   every level at the kernel bench's three splat shapes, (a) the
+   ``uv_1d_p3`` serving frame (``pallas``, packed pool, r=1, B=1, 1M
+   points, 1216x368), (b) the ``uv_1d_p3`` training step (``sort``,
+   exact pool, r=1, B=8, 256x256) and (c) z-scaled manifest sizes
+   capped at r=2 (B=2), each timed (events and a CUDA graph) beside its
+   twin, ``scatter_reduce_`` over the ``[B, N*K]`` arrays the TPU path
+   builds (and the time to build them) and its bound, its peak memory
+   growth below those arrays' size; 3 requests from a full-width
+   ``uv_1d_p3`` checkpoint with manifest ``point_sizes`` (request 0
+   against its all-twin frame, 5e-4/1e-3) and train steps at the bench
+   point with ``uv_1d_p3`` (3 against their twins: pyramids bit-equal,
+   loss rel 1e-6, gradients 2e-4 x max|g|; 7 timed, the loss falling),
+   one splat launch per request and per step;
+9. times ``read_tpu_torch.frame.make_frame`` at B=1 and B=4 with bf16
    and f32 operands, and compares one B=1 frame (f32 and bf16 operands)
    with the same frame with every kernel swapped for its twin; a frame
    that runs either wgmma loop fewer times than its route predicts
    fails;
-9. holds K7's band kernel against its twin on its own route (a
+10. holds K7's band kernel against its twin on its own route (a
    ``gated=False`` call and a width the wgmma loops do not take, 3x3 and
    1x1, f32 and bf16), then runs the kernel bench
    (``read_tpu_torch.kernel_bench``) in-process: K1, K5 and K6
@@ -96,7 +112,9 @@ raises and the script exits non-zero. The last stdout line is ``{"ok":
 true, "device": {...}}``; the line before it lists each kernel's
 launches (counted on the run of the path it serves: K1-K4, the pyramid
 pass and both wgmma loops on the f32 serving path, K5 on the training
-steps, K6-K8 on
+steps, K6's splat projection (``zbuffer_splat``) on the ``uv_1d_p3``
+requests (``train_launches``: its training steps), ``zbuffer_keys``
+(K6's given-key kernel), K7 and K8 on
 the kernel bench's first pass, K8's on K2's wgmma loop with its tile-loop
 launches as ``tile_launches``; K2's loop also on the bf16 requests,
 ``bf16_launches``), error, its time, its twin's, the library call's and
@@ -104,7 +122,10 @@ its bound (``shape`` says what they were measured on); K1, K5, K6 and
 the pyramid add their device time in a CUDA graph (``graph_ms``), the
 pyramid its device operations and the training step's numbers
 (``train_*``) beside the serving frame's, with the projection
-followed by the plain pools as its library; K5 adds the ``sort``
+followed by the plain pools as its library; the splat entry its three
+shapes (``cases``: each with the time to build the ``[B, N*K]``
+arrays, ``expand_ms``, its atomics and its peak memory growth), and its
+ms/request and ms/step; K5 adds the ``sort``
 requests' launches (``sort_launches``) and the CLI's
 (``cli_launches``); the K2, K3, K4 and wgmma-loop entries add their bf16 per-frame times (``bf16_ms``,
 ``bf16_plain_ms``, ``bf16_library_ms``, ``bf16_bound_ms``), K7's four
@@ -119,6 +140,7 @@ bound beside it (``f32_fma_bound_ms``).
 """
 
 import contextlib
+import dataclasses
 import itertools
 import json
 import os
@@ -158,6 +180,10 @@ KERNELS = {
                              "read_tpu/ops/gated_conv_pack.py:509"),
     "zbuffer_keys": ("read_tpu_torch/csrc/zbuffer.cu",
                      "read_tpu/ops/rasterize_pallas.py:234"),
+    # K6 on its user path: the splat projection (and the pass, launched
+    # by the same C entry)
+    "zbuffer_splat": ("read_tpu_torch/csrc/zbuffer.cu",
+                      "read_tpu/ops/rasterize_pallas.py:234"),
     "gated_conv3x3_r2_wgmma": ("read_tpu_torch/csrc/gated_conv_wgmma.cuh",
                                "scripts/gated_conv_pallas_r2.py:73"),
     "gated_conv1x1_r2_wgmma": ("read_tpu_torch/csrc/gated_conv_1x1_wgmma.cuh",
@@ -204,6 +230,7 @@ class Twins:
         self.saved = [(RK, "zbuffer", RK.zbuffer),
                       (RK, "zbuffer_exact", RK.zbuffer_exact),
                       (RK, "zbuffer_pyramid", RK.zbuffer_pyramid),
+                      (RK, "zbuffer_splat", RK.zbuffer_splat),
                       (GC, "gated_conv_kxk", GC.gated_conv_kxk),
                       (GC, "gated_conv_1x1", GC.gated_conv_1x1),
                       (GC, "gated_conv_1x1_cat", GC.gated_conv_1x1_cat)]
@@ -1278,6 +1305,269 @@ def phase_kernel_bench(report, dev):
 
 
 # ---------------------------------------------------------------------------
+# Splats: K6's splat projection on its user path
+# ---------------------------------------------------------------------------
+
+P3_FORMAT = ("uv_1d_p3, uv_1d_p3_ds1, uv_1d_p3_ds2, uv_1d_p3_ds3, "
+             "uv_1d_p3_ds4")
+SPLAT_STEPS, SPLAT_VS_TWIN = 7, 3      # steps timed (2 warm-up), twin checks
+GRAD_ATOL = 2e-4                       # x max|g|, tests/test_torch_train.py
+
+
+def splat_memory(dev, xyz, ms, hw, method, pool, kw):
+    """``(peak growth, bytes of the [B, N*K] arrays it replaces)``: the
+    growth of ``torch.cuda.max_memory_allocated`` over one
+    ``zbuffer_splat`` call, and the pixel ids and keys (int32, and int32
+    or int64) of JAX's expansion."""
+    import torch
+    from read_tpu_torch.ops import rasterize_kernels as RK
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = RK.zbuffer_splat(xyz, ms, *hw, 4, method, pool, **kw)
+    torch.cuda.synchronize()
+    growth = torch.cuda.max_memory_allocated() - base
+    del out
+    copies = ms.shape[0] * xyz.shape[0] * (2 * kw["point_radius"] + 1) ** 2
+    return growth, copies * (4 + (8 if method == "sort" else 4))
+
+
+def phase_splats(report, dev, workdir):
+    """K6 on its user path: the splat projection and the pyramid pass
+    (``rasterize_kernels.zbuffer_splat``) bit-equal to its twin at every
+    level and timed at the kernel bench's three splat shapes (a) the
+    ``uv_1d_p3`` serving frame, (b) the ``uv_1d_p3`` training step, (c)
+    z-scaled manifest sizes capped at r = 2; its peak memory growth below
+    the ``[B, N*K]`` arrays it replaces; then 3 requests from a
+    full-width ``uv_1d_p3`` checkpoint with per-point sizes, and train
+    steps at the bench point with ``uv_1d_p3`` (each of the first
+    ``SPLAT_VS_TWIN`` against its twin, then ``SPLAT_STEPS`` timed), one
+    splat launch per request and per step."""
+    import torch
+    from read_tpu_torch import kernel_bench as KB
+    from read_tpu_torch.ops import rasterize_kernels as RK
+    row = report["zbuffer_splat"]
+    cases = {}
+    for r, case in zip(KB.splat_rows(dev), KB.splat_cases()):
+        label, method, pool, b, hw = case[:5]
+        before = dict(RK.launches)
+        r.out = r.fn()
+        ran = {k: v - before[k] for k, v in RK.launches.items()
+               if v != before[k]}
+        if ran != {"zbuffer_splat": 1, "zbuffer_pyramid": 1}:
+            raise SmokeFailure(f"splats ({label}): launches {ran}")
+        res = r.measure()       # raises unless bit-equal at every level
+        xyz, ms, kw = KB.splat_inputs(case)
+        xyz, ms = torch.from_numpy(xyz).to(dev), torch.from_numpy(ms).to(dev)
+        if "point_sizes" in kw:
+            kw["point_sizes"] = torch.from_numpy(kw["point_sizes"]).to(dev)
+        growth, replaced = splat_memory(dev, xyz, ms, hw, method, pool, kw)
+        if not growth < replaced:
+            raise SmokeFailure(f"splats ({label}): peak memory growth "
+                               f"{growth} B, not below the {replaced} B of "
+                               "the [B, N*K] arrays")
+        res.update(peak_growth_bytes=growth, expanded_bytes=replaced)
+        cases[label] = res
+        print(f"[splats] {r.label}: bit-equal to the twin at 4 "
+              f"levels; kernel {res['ms']:.4f} ms (in a CUDA graph "
+              f"{res['graph_ms']:.4f}, {res['device_ops']} device ops), "
+              f"twin {res['plain_ms']:.4f}, library (scatter_reduce_ over "
+              f"[B, N*K]) {res['library_ms']:.4f} + building those arrays "
+              f"{res['expand_ms']:.4f}, bound {res['bound_ms']:.4f} "
+              f"({res['bound_by']}), kernel/bound "
+              f"{res['kernel_over_bound']:.1f}; {res['atomics']} atomics "
+              f"({res['atomics'] / res['graph_ms'] / 1e6:.1f} G/s in the "
+              f"graph); peak memory growth {growth / 2 ** 20:.2f} MiB "
+              f"against {replaced / 2 ** 20:.1f} MiB of [B, N*K] arrays")
+        del r
+    a = cases["a"]
+    row.update({k: a[k] for k in ("ms", "graph_ms", "plain_ms",
+                                  "library_ms", "bound_ms", "bound_by",
+                                  "max_abs_err", "expand_ms", "atomics")},
+               shape=f"{a['label']}, N={N_POINTS}; library: "
+                     "scatter_reduce_ amin over the [B, N*K] arrays, "
+                     "expand_ms: building them",
+               cases={k: {key: c[key] for key in (
+                   "label", "ms", "graph_ms", "plain_ms", "library_ms",
+                   "expand_ms", "bound_ms", "bound_by", "atomics",
+                   "peak_growth_bytes", "expanded_bytes")}
+                   for k, c in cases.items()})
+    torch.cuda.empty_cache()
+    splat_serve(report, dev, workdir)
+    torch.cuda.empty_cache()
+    splat_train(report, dev)
+
+
+def splat_serve(report, dev, workdir):
+    """3 requests from a full-width ``uv_1d_p3`` checkpoint (random
+    weights) over the 1M-point frame scene with manifest sizes, through
+    ``NeuralRenderer``: one splat projection and one pass per request,
+    K2/K3/K4 as on the serving path; request 0 matches its all-twin
+    frame."""
+    import torch
+    from read_tpu_torch.frame import frame_inputs
+    from read_tpu_torch.kernel_bench import manifest_sizes, max_err
+    from read_tpu_torch.models import texture as T
+    from read_tpu_torch.models.unet import UNet
+    from read_tpu_torch.render import NeuralRenderer
+    from read_tpu_torch.utils import ckpt as CK
+    from read_tpu_torch.utils import convert as CV
+    xyz, _ = frame_inputs(1, N_POINTS, HW)
+    h, w = HW
+    K = np.array([[720.0, 0, w / 2], [0, 720.0, h / 2], [0, 0, 1]])
+    poses = []
+    for i in range(3):
+        pose = np.eye(4)
+        pose[0, 3] = 0.05 * i
+        poses.append(pose)
+    scene = {"pointcloud": {"xyz": xyz}, "intrinsic_matrix": K,
+             "view_matrix": poses, "point_sizes": manifest_sizes(N_POINTS),
+             "config": {"viewport_size": (w, h)}}
+    net = UNet().init_weights(torch.Generator().manual_seed(1))
+    table = T.init_point_texture(N_POINTS, 8, "rand",
+                                 generator=torch.Generator().manual_seed(0))
+    ckpt = os.path.join(workdir, "ckpt_full_width_p3")
+    CK.save_checkpoint(ckpt, CV.flat_from_variables(net.state_dict(),
+                                                    table),
+                       config={"raster_method": "pallas",
+                               "input_format": P3_FORMAT,
+                               "dtype": "float32"})
+    r = NeuralRenderer(scene, ckpt, device=dev)
+    if (r.cfg.point_radius, r.cfg.raster_method) != (1, "pallas"):
+        raise SmokeFailure(f"splat serve: radius {r.cfg.point_radius}, "
+                           f"{r.cfg.raster_method}")
+    torch.cuda.synchronize()
+    reset_launches()
+    imgs, each = [], []
+    for p in poses:
+        t0 = time.perf_counter()
+        imgs.append(r.infer(p))
+        each.append((time.perf_counter() - t0) * 1e3)
+    counts = launches()
+    for i, img in enumerate(imgs):
+        if img.shape != (h, w, 3) or not np.isfinite(img).all():
+            raise SmokeFailure(f"splat serve request {i}: bad frame")
+    if (counts["zbuffer_splat"], counts["zbuffer_pyramid"], counts["zbuffer"],
+            counts["zbuffer_exact"]) != (len(imgs), len(imgs), 0, 0):
+        raise SmokeFailure(f"splat serve: z-buffer launches {counts}, want "
+                           f"one splat projection and pass per request")
+    if counts["gated_conv_1x1_cat"] != 3 * len(imgs) or \
+            counts["gated_conv_kxk"] == 0 or counts["gated_conv_1x1"] == 0:
+        raise SmokeFailure(f"splat serve: conv launches {counts}")
+    report["zbuffer_splat"]["launches"] = counts["zbuffer_splat"]
+    with Twins():
+        twin = r.infer(poses[0])
+    err = max_err("splat serve request 0 vs twins", torch.from_numpy(imgs[0]),
+                  torch.from_numpy(twin), (FRAME_TOL,))
+    steady = sum(each[1:]) / (len(each) - 1)
+    # the same requests at r = 0 (K1, the unique gather), same window
+    r.set_point_radius(0)
+    r.infer(poses[0])
+    p1 = []
+    for p in poses[1:]:
+        t0 = time.perf_counter()
+        r.infer(p)
+        p1.append((time.perf_counter() - t0) * 1e3)
+    p1 = sum(p1) / len(p1)
+    report["zbuffer_splat"].update(serve_ms_per_request=steady,
+                                   serve_p1_ms_per_request=p1)
+    print(f"[splats] serve: uv_1d_p3 checkpoint, manifest point_sizes, "
+          f"{len(imgs)} requests at {w}x{h}, {N_POINTS} points: "
+          f"{steady:.2f} ms/request after the first ({each[0]:.2f}); the "
+          f"same requests after set_point_radius(0) {p1:.2f}; vs "
+          f"all-twin max |err| {err:.3g} (atol {FRAME_TOL['atol']}, rtol "
+          f"{FRAME_TOL['rtol']}); launches {counts}")
+
+
+def splat_train(report, dev):
+    """The bench training point with ``uv_1d_p3`` (r = 1, 'sort': the
+    splat projection with K5's exact key, the exact pool, the summing
+    gather): each of ``SPLAT_VS_TWIN`` steps has bit-equal pyramids and
+    its loss (rel 1e-6) and gradients (``GRAD_ATOL * max|g|``; the
+    gather's backward adds duplicate rows in float atomics, in no fixed
+    order) against the same step with the twins; then ``SPLAT_STEPS``
+    steps, 2 warm-up, one splat launch each, the loss falling."""
+    import torch
+    from read_tpu_torch.criterions import vgg as V
+    from read_tpu_torch.frame import train_inputs
+    from read_tpu_torch.ops import rasterize as R
+    from read_tpu_torch.pipelines import texture_pipeline as TP
+    xyz, ms, target = train_inputs(TRAIN_B, N_POINTS, TRAIN_HW)
+    cfg = TP.config_from_dict({"input_format": P3_FORMAT},
+                              crop_size=(TRAIN_HW, TRAIN_HW))
+    if (cfg.point_radius, cfg.raster_method) != (1, "sort"):
+        raise SmokeFailure(f"splat train: {cfg}")
+    vgg = V.random_vgg_params(torch.Generator().manual_seed(0), device=dev)
+    state, net = TP.create_state(torch.Generator().manual_seed(0), cfg,
+                                 N_POINTS, device=dev)
+    xyz = torch.from_numpy(xyz).to(dev)
+    batch = {"total_m": torch.from_numpy(ms).to(dev),
+             "target": torch.from_numpy(target).to(dev)}
+    step = TP.make_train_step(net, cfg, vgg)
+    worst = 0.0
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for i in range(SPLAT_VS_TWIN):
+        runs = []
+        for twin in (False, True):
+            with Twins() if twin else contextlib.nullcontext():
+                levels = R.rasterize_pyramid_pooled(
+                    xyz, batch["total_m"], cfg.crop_size, cfg.num_scales,
+                    point_radius=cfg.point_radius, method=cfg.raster_method)
+                metrics, _, _, g_net, g_tex = TP._loss_and_grads(
+                    net, cfg, vgg, state, xyz, batch, False)
+            runs.append(([t for lv in levels for t in lv], metrics["loss"],
+                         {**state.layout.views(g_net), "texture": g_tex}))
+        torch.cuda.synchronize()
+        (maps_k, loss_k, g_k), (maps_p, loss_p, g_p) = runs
+        if not all(torch.equal(a, b) for a, b in zip(maps_k, maps_p)):
+            raise SmokeFailure(f"splat train step {i}: pyramids differ")
+        rel = float((loss_k - loss_p).abs() / loss_p.abs())
+        off = max(float((g_k[k] - g).abs().max() / g.abs().max().clamp(
+            min=1e-30)) for k, g in g_p.items())
+        if not rel <= 1e-6 or not off <= GRAD_ATOL:
+            raise SmokeFailure(f"splat train step {i}: loss rel {rel:.3g}, "
+                               f"worst gradient {off:.3g} x max|g| (bounds "
+                               f"1e-6, {GRAD_ATOL})")
+        worst = max(worst, off)
+        state, _ = step(state, xyz, batch)
+    torch.backends.cudnn.deterministic = saved
+    torch.cuda.synchronize()
+    reset_launches()
+    losses = []
+    for i in range(SPLAT_STEPS):
+        if i == WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, metrics = step(state, xyz, batch)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) * 1e3 / (SPLAT_STEPS - WARMUP)
+    counts = launches()
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SmokeFailure(f"splat train: losses {losses}")
+    if (counts["zbuffer_splat"], counts["zbuffer_pyramid"],
+            counts["zbuffer_exact"]) != (SPLAT_STEPS, SPLAT_STEPS, 0):
+        raise SmokeFailure(f"splat train: z-buffer launches {counts}, want "
+                           f"one splat projection and pass per step")
+    # the same steps at r = 0 (K5, the unique gather), same window
+    p1_cfg = dataclasses.replace(cfg, point_radius=0)
+    p1_s, _, _ = timed_steps(TP.make_train_step(net, p1_cfg, vgg), state,
+                             xyz, batch)
+    report["zbuffer_splat"].update(train_launches=counts["zbuffer_splat"],
+                                   train_ms_per_step=ms_step,
+                                   train_p1_ms_per_step=p1_s * 1e3)
+    print(f"[splats] train: uv_1d_p3 at {TRAIN_B}x{TRAIN_HW}^2 crops, "
+          f"{N_POINTS} points, VGG on, sort: {SPLAT_VS_TWIN} steps against "
+          f"the twins (pyramids bit-equal, worst gradient {worst:.3g} x "
+          f"max|g|, bound {GRAD_ATOL}); {ms_step:.2f} ms/step (mean of "
+          f"{SPLAT_STEPS - WARMUP} after {WARMUP} warm-up), the same steps "
+          f"at r = 0 after them {p1_s * 1e3:.2f}; loss {losses[0]:.6g} -> "
+          f"{losses[-1]:.6g}; launches {counts}")
+
+
+# ---------------------------------------------------------------------------
 # The train/eval CLI (read_tpu_torch.train) on two 1M-point drives
 # ---------------------------------------------------------------------------
 
@@ -1355,9 +1645,11 @@ def drive_world(rng, n_points):
 
 def make_drive_scene(root, name, seed, dev, n_points, hw, poses):
     """A drive on disk: ``drive_world`` of ``n_points``; ``poses``
-    camera poses 2.5 m apart along the road; targets rendered through
-    K1 (``pallas``) and the descriptor gather, written as PNG by
-    ``image_io``; a JSON manifest. Returns the paths-file entry."""
+    camera poses 2.5 m apart along the road; targets rendered with
+    ``point_radius=1`` on ``sort`` (the splat projection with K5's key),
+    as ``scripts/make_demo_scene.py`` renders its targets, and the
+    descriptor gather, written as PNG by ``image_io``; a JSON manifest.
+    Returns the paths-file entry."""
     import torch
     from read_tpu_torch.data import image_io
     from read_tpu_torch.models import texture as T
@@ -1385,8 +1677,8 @@ def make_drive_scene(root, name, seed, dev, n_points, hw, poses):
                                     for v in views]).astype(np.float32))
     for i in range(poses):
         index, _ = R.rasterize_batch(xyz_d, ms[i:i + 1].to(dev), h, w,
-                                     method="pallas")
-        img = T.sample_point_texture_unique(table, index)[0]
+                                     point_radius=1)
+        img = T.sample_point_texture(table, index)[0]
         image_io.write_png(os.path.join(d, "images", f"{i:06}.png"),
                            (img.cpu().numpy() * 255 + 0.5).astype(np.uint8))
     with open(os.path.join(d, "scene.json"), "w") as f:
@@ -1693,6 +1985,7 @@ def main() -> int:
                lambda: phase_serve_sort(report, ctx, dev, workdir)),
               ("free", lambda: (ctx.pop("train"), ctx.pop("trained"),
                                 torch.cuda.empty_cache())),
+              ("splats", lambda: phase_splats(report, dev, workdir)),
               ("cli", lambda: phase_cli(report, ctx, dev, workdir)),
               ("frame_vs_twin", lambda: phase_frame_vs_twin(ctx, dev)),
               ("frames", lambda: phase_frames(ctx, dev)),

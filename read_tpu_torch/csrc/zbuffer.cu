@@ -31,11 +31,25 @@
 // K6 replaces read_tpu/ops/rasterize_pallas.py `_kernel3` (via
 // `zbuffer_pallas3`, and `_kernel2`'s contract on given keys): the
 // per-pixel minimum of keys the caller packed, pix [N] or [B, N] -> [B,
-// n_pixels], empty INT32_MAX. It is K1 without the fused projection: one
-// thread per key, one atomicMin; a pix outside [0, n_pixels) returns at
-// once (no dump slot). The TPU kernel's (8, 128)-tiled framebuffer, a
-// layout for VMEM row read-modify-writes, has no use here. Bound: 8 bytes
-// read per key and the atomics (the framebuffer stays in L2).
+// n_pixels], empty INT32_MAX. Its one user path in the JAX package is the
+// splat (read_tpu/ops/rasterize.py `rasterize` :346-401 and
+// `_rasterize_batch_pallas_splat` :404-463): every point expanded into
+// (2r+1)^2 offset copies along the point axis, [B, N*K] pixel ids and
+// keys written out and handed to the given-key kernel (or sorted, for
+// 'sort'). On Hopper that path is the splat projection below: one thread
+// a point over all views, as K1/K5, that projects the point once a view,
+// computes its splat radius and does one atomicMin for each pixel of its
+// square that lies in the frame and passes the coverage test, with K5's
+// exact key or K1's packed key (id bits from N points, not N*K). The
+// [B, N*K] arrays (72 MB at r=1, 1M points, one view) are never written;
+// the pyramid pass takes the key buffer as it takes K1's or K5's. Bound:
+// 12 bytes a point (16 with per-point sizes) and the levels written once;
+// up to (2r+1)^2 atomics a (view, point) into an L2-resident key buffer,
+// which more likely set the pace (PERF.md). `zbuffer_keys` keeps the
+// literal given-key contract: one thread per key, one atomicMin; a pix
+// outside [0, n_pixels) returns at once (no dump slot). The TPU kernel's
+// (8, 128)-tiled framebuffer, a layout for VMEM row read-modify-writes,
+// has no use here.
 //
 // What bounds them on this card. Bytes: K1 and K5 read 12 bytes of xyz
 // a point and do at most one atomicMin a (view, point) into a key buffer
@@ -82,6 +96,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kViewsPerStage = 32;   // matrices staged in shared memory
 constexpr int kTileH = 32, kTileW = 64;
+constexpr int kMaxRadius = 16;       // the splat's largest half-width
 constexpr unsigned kEmpty32 = 0x7fffffffu;   // INT32_MAX
 constexpr unsigned long long kEmpty64 = ~0ull;
 
@@ -94,20 +109,21 @@ __device__ __forceinline__ float row_dot(const float* r, float x, float y,
 }
 
 // Projects point (x, y, z) by the row-major world->clip matrix m. Sets
-// *depth to (ndc_z + 1) * 0.5 and returns true when the point lies in
-// the clip cube; then sets *pix to its flat pixel id, or to -1 when its
-// pixel falls outside the h x w frame.
-__device__ __forceinline__ bool project_point(const float* m, float x,
-                                              float y, float z, int h,
-                                              int w, int* pix,
-                                              float* depth) {
+// *depth to (ndc_z + 1) * 0.5 and *cz to the clip-space z before the
+// divide, and returns true when the point lies in the clip cube; then
+// sets (*u, *v) to its pixel, which may lie one past the frame's last
+// column or row (ndc x = 1 or y = -1).
+__device__ __forceinline__ bool project_uv(const float* m, float x, float y,
+                                           float z, int h, int w, int* u,
+                                           int* v, float* depth,
+                                           float* cz) {
   const float cx = row_dot(m, x, y, z);
   const float cy = row_dot(m + 4, x, y, z);
-  const float cz = row_dot(m + 8, x, y, z);
+  *cz = row_dot(m + 8, x, y, z);
   const float cw = row_dot(m + 12, x, y, z);
   const float nx = __fdiv_rn(cx, cw);
   const float ny = __fdiv_rn(cy, cw);
-  const float nz = __fdiv_rn(cz, cw);
+  const float nz = __fdiv_rn(*cz, cw);
   *depth = __fmul_rn(__fadd_rn(nz, 1.0f), 0.5f);
   // NaN fails every comparison, so a NaN coordinate is invalid, as in JAX
   if (!(fabsf(nx) <= 1.0f && fabsf(ny) <= 1.0f && fabsf(nz) <= 1.0f &&
@@ -115,10 +131,21 @@ __device__ __forceinline__ bool project_point(const float* m, float x,
     return false;
   }
   // u = floor((w * (x + 1)) * 0.5), v = floor((h * (1 - y)) * 0.5)
-  const int u = (int)floorf(
+  *u = (int)floorf(
       __fmul_rn(__fmul_rn((float)w, __fadd_rn(nx, 1.0f)), 0.5f));
-  const int v = (int)floorf(
+  *v = (int)floorf(
       __fmul_rn(__fmul_rn((float)h, __fsub_rn(1.0f, ny)), 0.5f));
+  return true;
+}
+
+// project_uv's point as a flat pixel id in *pix, -1 off the h x w frame.
+__device__ __forceinline__ bool project_point(const float* m, float x,
+                                              float y, float z, int h,
+                                              int w, int* pix,
+                                              float* depth) {
+  int u, v;
+  float cz;
+  if (!project_uv(m, x, y, z, h, w, &u, &v, depth, &cz)) return false;
   *pix = (u < 0 || u >= w || v < 0 || v >= h) ? -1 : v * w + u;
   return true;
 }
@@ -177,6 +204,111 @@ __global__ void __launch_bounds__(kThreads)
       } else {
         atomicMin((unsigned*)keys + b * npx + pix,
                   (depth_bin(depth, qmax) << idb) | (unsigned)i);
+      }
+    }
+  }
+}
+
+// The splat's arguments (K6 on its user path).
+struct SplatArgs {
+  const float* sizes;   // [N] per-point sizes, or null: 2r+1 each
+  int radius;           // r: the square's half-width, every size's cap
+  int varying;          // sizes or `relative`: the coverage test runs
+  int relative;         // z-scaled: max(min_size, size / max(cz, 1e-6))
+  float min_size;
+  float thr[kMaxRadius + 1];   // thr[k] = float32(k - 1e-4), k >= 1
+};
+
+// jnp.maximum and jnp.minimum: a NaN operand gives NaN (fmaxf and fminf
+// return the other operand)
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+
+// The half-width of the square a point covers: r, or with per-point or
+// z-scaled sizes the largest k <= r with rad >= thr[k], rad = (min(size,
+// 2r+1) - 1) * 0.5 as JAX computes it (the centre is always covered; a
+// NaN size covers the centre alone). thr rises with k, so the offsets
+// that pass JAX's test `rad >= max(|dy|, |dx|) - 1e-4` are exactly that
+// square.
+__device__ __forceinline__ int splat_reach(const SplatArgs& s, float base,
+                                           float cz) {
+  if (!s.varying) return s.radius;
+  float size = base;
+  if (s.relative) {
+    size = nan_max(s.min_size, __fdiv_rn(base, nan_max(cz, 1e-6f)));
+  }
+  size = nan_min(size, (float)(2 * s.radius + 1));
+  const float rad = __fmul_rn(__fsub_rn(size, 1.0f), 0.5f);
+  int k = 0;
+#pragma unroll
+  for (int j = 1; j <= kMaxRadius; ++j) {
+    if (j <= s.radius && rad >= s.thr[j]) k = j;
+  }
+  return k;
+}
+
+// K6 on its user path: the splat projection (EXACT true: K5's 64-bit
+// key, for 'sort'; false: K1's packed int32 key, id bits from N points).
+// Every pixel of a valid point's square that lies in the frame gets one
+// atomicMin of the point's key: the centre pixel may itself lie off the
+// frame (u == w or v == h) while its left or upper neighbours do not.
+template <bool EXACT>
+__global__ void __launch_bounds__(kThreads)
+    splat_kernel(const float* __restrict__ xyz,
+                 const float* __restrict__ mats, int n, int nviews, int h,
+                 int w, int idb, int qmax, void* __restrict__ keys,
+                 const SplatArgs s) {
+  __shared__ float m[kViewsPerStage * 16];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = i < n;
+  float x = 0.0f, y = 0.0f, z = 0.0f;
+  float base = (float)(2 * s.radius + 1);
+  if (live) {
+    x = xyz[3 * (size_t)i];
+    y = xyz[3 * (size_t)i + 1];
+    z = xyz[3 * (size_t)i + 2];
+    if (s.sizes != nullptr) base = s.sizes[i];
+  }
+  const size_t npx = (size_t)h * w;
+  for (int b0 = 0; b0 < nviews; b0 += kViewsPerStage) {
+    const int nb = min(kViewsPerStage, nviews - b0);
+    __syncthreads();
+    for (int j = threadIdx.x; j < 16 * nb; j += blockDim.x) {
+      m[j] = mats[16 * (size_t)b0 + j];
+    }
+    __syncthreads();
+    if (!live) continue;
+    for (int vb = 0; vb < nb; ++vb) {
+      const int b = b0 + vb;
+      int u, v;
+      float depth, cz;
+      if (!project_uv(m + 16 * vb, x, y, z, h, w, &u, &v, &depth, &cz)) {
+        continue;
+      }
+      const int k = splat_reach(s, base, cz);
+      const int y0 = max(v - k, 0), y1 = min(v + k, h - 1);
+      const int x0 = max(u - k, 0), x1 = min(u + k, w - 1);
+      if (EXACT) {
+        const unsigned long long key = exact_key(depth, i);
+        unsigned long long* row = (unsigned long long*)keys + b * npx;
+        for (int yy = y0; yy <= y1; ++yy) {
+          for (int xx = x0; xx <= x1; ++xx) {
+            atomicMin(row + (size_t)yy * w + xx, key);
+          }
+        }
+      } else {
+        const unsigned key = (depth_bin(depth, qmax) << idb) | (unsigned)i;
+        unsigned* row = (unsigned*)keys + b * npx;
+        for (int yy = y0; yy <= y1; ++yy) {
+          for (int xx = x0; xx <= x1; ++xx) {
+            atomicMin(row + (size_t)yy * w + xx, key);
+          }
+        }
       }
     }
   }
@@ -411,23 +543,33 @@ extern "C" int zbuffer_project(const float* xyz, const float* mats, int n,
                       (cudaStream_t)stream);
 }
 
-// K1 (exact_in 0) or K5 (exact_in 1), then the pyramid pass, on one
-// stream: keys [B, h*w] scratch (uint32 or uint64, 16-byte aligned,
-// filled here with ~0); index and depth [total] 16-byte aligned, the
-// levels one after another, level l [B, h >> l, w >> l]. h and w are
-// multiples of 2^(levels - 1); levels <= 8. idb and qmax: the packed
-// key's (K1's input or the packed pool). Returns the first CUDA error.
-extern "C" int zbuffer_pyramid(const float* xyz, const float* mats, int n,
-                               int b, int h, int w, int levels,
-                               int exact_in, int exact_pool, int idb,
-                               int qmax, void* keys, int* index,
-                               float* depth, void* stream) {
+namespace {
+
+// The fill, the projection (K1 or K5; the splat projection where splat
+// is not null) and the pyramid pass, on one stream.
+int fill_project_pyramid(const float* xyz, const float* mats, int n, int b,
+                         int h, int w, int levels, int exact_in,
+                         int exact_pool, int idb, int qmax, void* keys,
+                         int* index, float* depth, const SplatArgs* splat,
+                         cudaStream_t s) {
   const long long npx = (long long)b * h * w;
   if (npx <= 0) return (int)cudaGetLastError();
-  cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(keys, 0xff, npx * (exact_in ? 8 : 4), s);
   if (err != cudaSuccess) return (int)err;
-  err = project(exact_in, xyz, mats, n, b, h, w, idb, qmax, keys, nullptr, s);
+  if (splat == nullptr) {
+    err = project(exact_in, xyz, mats, n, b, h, w, idb, qmax, keys, nullptr,
+                  s);
+  } else if (n > 0) {
+    const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+    if (exact_in) {
+      splat_kernel<true><<<blocks, kThreads, 0, s>>>(xyz, mats, n, b, h, w,
+                                                     0, 0, keys, *splat);
+    } else {
+      splat_kernel<false><<<blocks, kThreads, 0, s>>>(
+          xyz, mats, n, b, h, w, idb, qmax, keys, *splat);
+    }
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return (int)err;
   const int span = 1 << (levels - 1);
   PyramidArgs a;
@@ -445,4 +587,47 @@ extern "C" int zbuffer_pyramid(const float* xyz, const float* mats, int n,
   a.index = index;
   a.depth = depth;
   return (int)pyramid(a, exact_in, exact_pool, s);
+}
+
+}  // namespace
+
+// K1 (exact_in 0) or K5 (exact_in 1), then the pyramid pass, on one
+// stream: keys [B, h*w] scratch (uint32 or uint64, 16-byte aligned,
+// filled here with ~0); index and depth [total] 16-byte aligned, the
+// levels one after another, level l [B, h >> l, w >> l]. h and w are
+// multiples of 2^(levels - 1); levels <= 8. idb and qmax: the packed
+// key's (K1's input or the packed pool). Returns the first CUDA error.
+extern "C" int zbuffer_pyramid(const float* xyz, const float* mats, int n,
+                               int b, int h, int w, int levels,
+                               int exact_in, int exact_pool, int idb,
+                               int qmax, void* keys, int* index,
+                               float* depth, void* stream) {
+  return fill_project_pyramid(xyz, mats, n, b, h, w, levels, exact_in,
+                              exact_pool, idb, qmax, keys, index, depth,
+                              nullptr, (cudaStream_t)stream);
+}
+
+// K6 on its user path: zbuffer_pyramid's contract with the splat
+// projection in place of K1 (exact_in 0) or K5 (exact_in 1). radius in
+// 1..16; sizes [N] float32 or null; relative: z-scaled sizes; thr: a host
+// array of radius + 1 floats, thr[k] = float32(k - 1e-4).
+extern "C" int zbuffer_splat_pyramid(const float* xyz, const float* mats,
+                                     int n, int b, int h, int w, int levels,
+                                     int exact_in, int exact_pool, int idb,
+                                     int qmax, void* keys, int* index,
+                                     float* depth, const float* sizes,
+                                     int radius, int relative,
+                                     float min_size, const float* thr,
+                                     void* stream) {
+  if (radius < 1 || radius > kMaxRadius) return (int)cudaErrorInvalidValue;
+  SplatArgs sp;
+  sp.sizes = sizes;
+  sp.radius = radius;
+  sp.varying = sizes != nullptr || relative != 0;
+  sp.relative = relative;
+  sp.min_size = min_size;
+  for (int k = 0; k <= kMaxRadius; ++k) sp.thr[k] = k <= radius ? thr[k] : 0;
+  return fill_project_pyramid(xyz, mats, n, b, h, w, levels, exact_in,
+                              exact_pool, idb, qmax, keys, index, depth, &sp,
+                              (cudaStream_t)stream);
 }

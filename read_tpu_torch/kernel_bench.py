@@ -8,6 +8,11 @@ The counterpart of the JAX package's kernel benches, one group each:
 - ``zbuffer`` (``scripts/bench_r4_probe.py`` ``probe_pzb2``): K1 (fused
   projection), K5 and K6 (on the frame's packed keys, and on keys with
   every position 4 times: heavy ties), 1M points, 1216x368, B=1 and 2;
+  the pyramid (K1 or K5 and the pass); and K6 on its user path, the
+  splat projection and the pass (``zbuffer_splat``) at
+  :func:`splat_cases`, beside ``scatter_reduce_`` amin over the
+  ``[B, N*K]`` arrays the TPU path builds (``expand_ms``: building them)
+  and with the atomics the case needs (``atomics``);
 - ``convs`` (``scripts/bench_gated_conv.py``): K7 3x3 beside K2 and K7
   1x1 beside K3 at ``(368, 1216, 32->32)``, ``(184, 608, 64->64)``,
   ``(92, 304, 128->128)``, ``(46, 152, 256->256)``, f32 and bf16 (x, w
@@ -73,7 +78,8 @@ from read_tpu_torch.ops import rasterize as R
 from read_tpu_torch.ops import rasterize_kernels as RK
 
 __all__ = ["bound", "conv_cost", "event_ms", "graph_ms", "device_ops",
-           "library_conv", "zbuffer_yardsticks", "run", "main"]
+           "library_conv", "zbuffer_yardsticks", "splat_cases",
+           "manifest_sizes", "splat_inputs", "splat_yardsticks", "run", "main"]
 
 F32_TOL = dict(atol=2e-5, rtol=1e-4)     # tests/test_unet_pallas.py
 BF16_TOL = dict(atol=0.35, rtol=0.05)    # same file, bf16 operands
@@ -259,6 +265,9 @@ class Row:
         self.graph = graph
         self.out = None
         self.launches = {}  # counter -> launches of the first pass's call
+        # more keys of the row: a value, or a callable measured after the
+        # kernel
+        self.extra = {}
 
     def measure(self) -> Dict:
         name = f"{self.kernel} {self.label}"
@@ -282,6 +291,8 @@ class Row:
                "launches": self.launches}
         if self.tf32x3:
             row["f32_fma_bound_ms"] = bound(self.flops, self.nbytes)[0]
+        row.update({k: v() if callable(v) else v
+                    for k, v in self.extra.items()})
         if self.graph:
             row.update(graph_ms=graph_ms(self.fn),
                        device_ops=device_ops(self.fn))
@@ -370,7 +381,7 @@ def zbuffer_rows(dev) -> List[Row]:
             library, flops, nbytes = lib[name]
             rows.append(Row("zbuffer", name, label, fn, twin, library, None,
                             flops, nbytes, False, graph=True))
-    return rows + pyramid_rows(dev)
+    return rows + pyramid_rows(dev) + splat_rows(dev)
 
 
 def pyramid_cost(b, n, hw, levels):
@@ -430,6 +441,101 @@ def pyramid_rows(dev) -> List[Row]:
                 None,
                 *pyramid_cost(ms.shape[0], xyz.shape[0], hw, PYRAMID_LEVELS),
                 False, graph=True))
+    return rows
+
+
+def splat_cases():
+    """K6's splat shapes, ``N_POINTS`` points, ``PYRAMID_LEVELS`` levels:
+    ``(label, method, pool, B, hw, radius, z-scaled manifest sizes)``.
+    (a) the ``uv_1d_p3`` serving frame, (b) the ``uv_1d_p3`` training
+    step, (c) z-scaled per-point sizes capped at r = 2 on a close-up
+    scene (:func:`splat_inputs`)."""
+    return (("a", "pallas", "packed", 1, HW, 1, False),
+            ("b", "sort", "exact", TRAIN_B, TRAIN_HW, 1, False),
+            ("c", "pallas", "packed", 2, HW, 2, True))
+
+
+def manifest_sizes(n: int) -> np.ndarray:
+    """A scene manifest's per-point sizes, float32 ``[n]``: a third 3.0,
+    the rest 1.0, every 101st NaN."""
+    ps = np.where(np.arange(n) % 3 == 0, 3.0, 1.0).astype(np.float32)
+    ps[::101] = np.nan
+    return ps
+
+
+def splat_inputs(case, seed: int = 0):
+    """``(xyz [N, 3], total_m [B, 4, 4], kwargs)`` of one of
+    :func:`splat_cases`: the serving frame's or the training step's
+    points and views; case (c) moves the frame's points to 0.2-2.2 units
+    before the camera (scaled by 0.1), so that its z-scaled sizes (a
+    third 3.0, the rest 1.0, every 101st NaN) cover every ring of the
+    r = 2 square, and gives them as ``point_sizes``."""
+    label, method, pool, b, hw, radius, sizes = case
+    if hw == TRAIN_HW:
+        xyz, ms, _ = train_inputs(b, N_POINTS, hw[0], seed=seed)
+    else:
+        xyz, ms = frame_inputs(b, N_POINTS, hw, seed=seed)
+    kw = dict(point_radius=radius, relative_size=sizes)
+    if sizes:
+        xyz = xyz * np.float32(0.1)
+        xyz[:, 2] += np.float32(1.3)
+        kw["point_sizes"] = manifest_sizes(len(xyz))
+    return xyz, ms, kw
+
+
+def splat_yardsticks(xyz, ms, hw, method, levels, kw):
+    """For one splat case: ``(library call, expand call, atomics, flops,
+    bytes)``. The library call is ``scatter_reduce_`` amin of the keys
+    over JAX's ``[B, N*K]`` expansion (built here once; copies off the
+    frame aim at one dump slot, as in JAX); the expand call builds those
+    arrays (:func:`RK.splat_keys`); atomics counts the copies that land
+    in the frame (one atomicMin each); flops are the projection's, bytes
+    xyz (and the sizes) read once and every level written once."""
+    b, n, npx = ms.shape[0], xyz.shape[0], hw[0] * hw[1]
+    sizes = kw.get("point_sizes")
+
+    def expand():
+        return RK.splat_keys(xyz, ms, *hw, method, **kw)[:2]
+
+    pix, key = expand()
+    atomics = int((pix < npx).sum())
+    dump = pix.clamp(max=npx).long()
+    del pix
+    buf = torch.full((b, npx + 1), torch.iinfo(key.dtype).max,
+                     dtype=key.dtype, device=xyz.device)
+    flops, nbytes = pyramid_cost(b, n, hw, levels)
+    if sizes is not None:
+        nbytes += 4 * n
+    return (lambda: buf.scatter_reduce_(-1, dump, key, "amin"), expand,
+            atomics, flops, nbytes)
+
+
+def splat_rows(dev) -> List[Row]:
+    """K6 on its user path (:func:`RK.zbuffer_splat`) at each of
+    :func:`splat_cases`, bit-equal to its twin at every level, also in
+    a CUDA graph; its library is ``scatter_reduce_`` over the expanded
+    arrays, beside which ``expand_ms`` times building them."""
+    rows = []
+    for case in splat_cases():
+        label, method, pool, b, hw = case[:5]
+        xyz, ms, kw = splat_inputs(case)
+        xyz = torch.from_numpy(xyz).to(dev)
+        ms = torch.from_numpy(ms).to(dev)
+        if "point_sizes" in kw:
+            kw["point_sizes"] = torch.from_numpy(kw["point_sizes"]).to(dev)
+        library, expand, atomics, flops, nbytes = splat_yardsticks(
+            xyz, ms, hw, method, PYRAMID_LEVELS, kw)
+        args = (xyz, ms, *hw, PYRAMID_LEVELS, method, pool)
+        row = Row("zbuffer", "zbuffer_splat",
+                  f"({label}) {method}+{pool} r={kw['point_radius']}"
+                  + (" z-scaled sizes" if "point_sizes" in kw else "")
+                  + f" B={b} {hw[1]}x{hw[0]} L={PYRAMID_LEVELS}",
+                  lambda a=args, kw=kw: RK.zbuffer_splat(*a, **kw),
+                  lambda a=args, kw=kw: RK.zbuffer_splat_plain(*a, **kw),
+                  library, None, flops, nbytes, False, graph=True)
+        row.extra = {"atomics": atomics,
+                     "expand_ms": lambda f=expand: event_ms(f, iters=5)}
+        rows.append(row)
     return rows
 
 
@@ -647,6 +753,9 @@ def format_row(r: Dict) -> str:
         if "library_graph_ms" in r:
             graph += (f" (library {ms(r['library_graph_ms'])} ms, "
                       f"{r['library_device_ops']} ops)")
+    if "expand_ms" in r:
+        graph += (f"; building the library's [B, N*K] arrays "
+                  f"{ms(r['expand_ms'])} ms, {r['atomics']} atomics")
     return (f"[{r['group']}] {r['kernel']} {r['label']}: kernel "
             f"{ms(r['ms'])} ms, twin {ms(r['plain_ms'])}, library "
             f"{ms(r['library_ms'])}, bound {ms(r['bound_ms'])} "

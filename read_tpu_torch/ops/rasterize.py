@@ -1,17 +1,23 @@
 """Point projection, the z-buffer paths and the index pyramid.
 
 Counterpart of ``read_tpu/ops/rasterize.py``: ``project_points``
-(:81-120), ``_pixel_ids`` (:123-131), ``rasterize_batch`` with
-``point_radius=0`` for ``method='sort'`` (:497-515, ``_zbuffer_sort``
-:153-177: here K5) and ``method in ('pallas', 'scatter1')`` (:516-545,
-``_zbuffer_scatter1`` :244-284: here K1), and ``rasterize_pyramid_pooled``
+(:81-120), ``_pixel_ids`` (:123-131), ``rasterize_batch`` for
+``method='sort'`` (:497-515, ``_zbuffer_sort`` :153-177: here K5) and
+``method in ('pallas', 'scatter1')`` (:516-545, ``_zbuffer_scatter1``
+:244-284: here K1), with splats and per-point or z-scaled sizes
+(``rasterize`` :346-401, ``_rasterize_batch_pallas_splat`` :404-463:
+here K6's splat projection), and ``rasterize_pyramid_pooled``
 (:637-669) with its pools ``_pool2x2_zbuffer`` (:574-599) and
 ``_pool2x2_packed`` (:602-634).
 
 Both entry points run :func:`read_tpu_torch.ops.rasterize_kernels.
-zbuffer_pyramid`: on the card K1 or K5 and one pass that writes every
-level (``rasterize_batch`` is its one-level case); on the CPU its plain
-twin. The pass pools each level as the 2x2 minimum of one key, which is
+zbuffer_pyramid` (``point_radius`` 0) or :func:`~read_tpu_torch.ops.
+rasterize_kernels.zbuffer_splat` (``point_radius`` > 0): on the card K1,
+K5 or the splat projection and one pass that writes every level
+(``rasterize_batch`` is the one-level case); on the CPU their plain
+twins. With ``point_radius`` 0 JAX's offsets are ``(0, 0)`` alone, so
+per-point and z-scaled sizes change nothing and K1 or K5 runs. The pass
+pools each level as the 2x2 minimum of one key, which is
 ``_pool2x2_zbuffer``'s pair pool for the exact 64-bit key; that pair
 pool stays here as the reference the tests and the kernel bench hold it
 to. Semantics are the JAX package's, bit for bit: 'sort' keeps per pixel
@@ -54,8 +60,11 @@ def _check_method(method: str) -> None:
             "alternates, ROADMAP 'Not ported')")
 
 
-def project_points(xyz: torch.Tensor, total_m: torch.Tensor):
-    """World points to NDC: ``(ndc [..., N, 3], valid [..., N])``.
+def project_points(xyz: torch.Tensor, total_m: torch.Tensor,
+                   return_clip_z: bool = False):
+    """World points to NDC: ``(ndc [..., N, 3], valid [..., N])``, with
+    ``return_clip_z`` also the clip-space z before the divide (what
+    z-scaled splat sizes divide by).
 
     ``total_m`` is ``[4, 4]`` or ``[B, 4, 4]`` (row-major world->clip).
     The product is expanded element-wise in JAX's order, ``((m0*x +
@@ -69,9 +78,11 @@ def project_points(xyz: torch.Tensor, total_m: torch.Tensor):
         return (m[..., i, 0, None] * x + m[..., i, 1, None] * y
                 + m[..., i, 2, None] * z + m[..., i, 3, None])
 
-    w = row(3)
-    ndc = torch.stack([row(0) / w, row(1) / w, row(2) / w], dim=-1)
+    w, clip_z = row(3), row(2)
+    ndc = torch.stack([row(0) / w, row(1) / w, clip_z / w], dim=-1)
     valid = torch.all(ndc.abs() <= 1.0, dim=-1) & (w > 0)
+    if return_clip_z:
+        return ndc, valid, clip_z
     return ndc, valid
 
 
@@ -86,16 +97,13 @@ def _pixel_ids(ndc: torch.Tensor, valid: torch.Tensor, h: int, w: int):
     return pix, depth
 
 
-def _unported_options(point_radius, ndc_jitter, point_sizes,
-                      relative_size) -> None:
-    if point_radius or point_sizes is not None or relative_size:
-        raise NotImplementedError(
-            "splats and per-point sizes are not ported (ROADMAP queue 1, "
-            "item 9)")
+def _check_options(point_radius: int, ndc_jitter) -> None:
     if ndc_jitter is not None:
         raise NotImplementedError(
             "screen-space point jitter is not ported (ROADMAP queue 1, "
             "item 9, ops/augment.py)")
+    if point_radius < 0:
+        raise ValueError(f"point_radius {point_radius} < 0")
 
 
 def rasterize_batch(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
@@ -105,7 +113,10 @@ def rasterize_batch(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
                     min_point_size: float = 1.0):
     """``total_m [B, 4, 4]`` -> ``(index [B, h, w] int32, depth [B, h, w]
     float32)``: 'sort' (the default) through K5, 'pallas' or 'scatter1'
-    through K1."""
+    through K1; with ``point_radius`` r > 0 each point covers the
+    ``(2r+1)^2`` square around its pixel (per-point ``point_sizes [N]``
+    or ``relative_size`` sizes, floored at ``min_point_size``, capped at
+    ``2r+1``; JAX's coverage rule) through the splat projection."""
     (level0,) = rasterize_pyramid_pooled(
         xyz, total_m, (h, w), 1, point_radius, method, ndc_jitter,
         point_sizes, relative_size, min_point_size)
@@ -138,16 +149,21 @@ def rasterize_pyramid_pooled(xyz: torch.Tensor, total_m: torch.Tensor,
                              pool_impl: str = "exact"):
     """One full-resolution raster + 2x2 pooling to ``num_scales``
     levels: a list of ``(index [B, h_i, w_i], depth)``. ``pool_impl``
-    'exact' pools the (depth, id) pair, 'packed' one packed key. On the
-    card: K1 or K5 and one pyramid pass, no plain-PyTorch pool."""
-    del min_point_size  # only meaningful with relative_size
+    'exact' pools the (depth, id) pair, 'packed' one packed key. Splats
+    (``point_radius`` > 0, see :func:`rasterize_batch`) cover level 0
+    only; the coarser levels pool it. On the card: K1, K5 or the splat
+    projection and one pyramid pass, no plain-PyTorch pool."""
     _check_method(method)
-    _unported_options(point_radius, ndc_jitter, point_sizes, relative_size)
+    _check_options(point_radius, ndc_jitter)
     h0, w0 = target_shape
     xyz = xyz.to(torch.float32).contiguous()
     total_m = total_m.to(device=xyz.device, dtype=torch.float32
                          ).contiguous()
     # 'sort' is K5's exact key, 'pallas' and 'scatter1' K1's packed key
-    return RK.zbuffer_pyramid(xyz, total_m, h0, w0, num_scales,
-                              "sort" if method == "sort" else "pallas",
-                              pool_impl)
+    zmethod = "sort" if method == "sort" else "pallas"
+    if point_radius == 0:
+        return RK.zbuffer_pyramid(xyz, total_m, h0, w0, num_scales, zmethod,
+                                  pool_impl)
+    return RK.zbuffer_splat(xyz, total_m, h0, w0, num_scales, zmethod,
+                            pool_impl, point_radius, point_sizes,
+                            relative_size, min_point_size)

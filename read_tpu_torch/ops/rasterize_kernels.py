@@ -27,19 +27,29 @@ one level.
 K6, the packed int32 key on keys the caller made: counterpart of
 ``rasterize_pallas.py`` ``zbuffer_pallas3`` / ``_kernel3`` (:234-292)
 and of ``zbuffer_pallas2``'s contract on given keys: K1 without the
-fused projection.
+fused projection (:func:`zbuffer_keys`). Its user path in the JAX
+package is the splat (``rasterize.py`` ``rasterize`` :346-401,
+``_rasterize_batch_pallas_splat`` :404-463): each point expanded into
+``(2r+1)^2`` offset copies, ``[B, N*K]`` pixel ids and keys handed to
+the given-key kernel ('pallas') or sorted ('sort'). Here that path is
+:func:`zbuffer_splat`: the splat projection, which expands the square
+inside the kernel and z-buffers it with K5's exact key or K1's packed
+key, then the pyramid pass; :func:`zbuffer_splat_plain` builds JAX's
+expansion as JAX does (:func:`splat_expand`).
 
-:func:`zbuffer`, :func:`zbuffer_exact`, :func:`zbuffer_pyramid` and
-:func:`zbuffer_keys` are the wrappers: a CPU tensor goes to the plain
-twin, a CUDA tensor to the kernel, anything else raises.
-``launches[<name>]`` counts kernel launches: ``zbuffer`` and
-``zbuffer_exact`` a projection (K1, K5), ``zbuffer_pyramid`` a pass.
+:func:`zbuffer`, :func:`zbuffer_exact`, :func:`zbuffer_pyramid`,
+:func:`zbuffer_splat` and :func:`zbuffer_keys` are the wrappers: a CPU
+tensor goes to the plain twin, a CUDA tensor to the kernel, anything
+else raises. ``launches[<name>]`` counts kernel launches: ``zbuffer``
+and ``zbuffer_exact`` a projection (K1, K5), ``zbuffer_splat`` a splat
+projection, ``zbuffer_pyramid`` a pass.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from read_tpu_torch import _build
@@ -48,8 +58,9 @@ __all__ = ["INT32_MAX", "INT64_MAX", "MAX_LEVELS", "key_bits",
            "pack_keys", "pack_exact_keys", "unpack_exact", "unpack_packed",
            "scatter_min", "pool_pyramid_plain", "zbuffer", "zbuffer_plain",
            "zbuffer_exact", "zbuffer_exact_plain", "zbuffer_pyramid",
-           "zbuffer_pyramid_plain", "zbuffer_keys", "zbuffer_keys_plain",
-           "launches"]
+           "zbuffer_pyramid_plain", "MAX_SPLAT_RADIUS", "splat_expand",
+           "splat_keys", "zbuffer_splat", "zbuffer_splat_plain", "zbuffer_keys",
+           "zbuffer_keys_plain", "launches"]
 
 INT32_MAX = 2 ** 31 - 1
 INT64_MAX = 2 ** 63 - 1
@@ -57,10 +68,15 @@ INT64_MAX = 2 ** 63 - 1
 # 128 pixels of level 0, the largest tile whose keys fit a block's shared
 # memory
 MAX_LEVELS = 8
+# the splat projection's largest half-width (zbuffer.cu kMaxRadius)
+MAX_SPLAT_RADIUS = 16
+# JAX's coverage thresholds, ``max(|dy|, |dx|) - 1e-4`` rounded once to
+# float32 (a weakly typed Python float against a float32 radius)
+_SPLAT_THR = [float(np.float32(k - 1e-4)) for k in range(MAX_SPLAT_RADIUS + 1)]
 
 # kernel launches (a CPU call runs the twin and counts nothing)
 launches = {"zbuffer": 0, "zbuffer_exact": 0, "zbuffer_keys": 0,
-            "zbuffer_pyramid": 0}
+            "zbuffer_pyramid": 0, "zbuffer_splat": 0}
 
 
 def key_bits(n_ids: int):
@@ -238,6 +254,11 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 _PYRAMID_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 9 \
     + [ctypes.c_void_p] * 4
+# zbuffer_pyramid's, less its stream, then sizes, radius, relative,
+# min_size, the thresholds and the stream
+_SPLAT_ARGTYPES = _PYRAMID_ARGTYPES[:-1] + [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+    ctypes.POINTER(ctypes.c_float), ctypes.c_void_p]
 
 
 def zbuffer(xyz: torch.Tensor, total_m: torch.Tensor, h: int, w: int):
@@ -306,11 +327,12 @@ def _check_pyramid(xyz: torch.Tensor, h: int, w: int, num_scales: int,
 
 def _pyramid_launch(name: str, xyz: torch.Tensor, total_m: torch.Tensor,
                     h: int, w: int, num_scales: int, method: str,
-                    pool_impl: str):
+                    pool_impl: str, splat=None):
     """K1 (``method`` 'pallas') or K5 ('sort') and the pyramid pass on
     the card: the levels as views of one buffer (every level's index,
     then every level's depth, then the key scratch, each part 16-byte
-    aligned)."""
+    aligned). ``splat``: ``(sizes or None, radius, relative, min_size)``
+    runs the splat projection in place of K1 or K5."""
     n, b = xyz.shape[0], total_m.shape[0]
     exact_in = method == "sort"
     idb, qmax = (key_bits(n) if not exact_in or pool_impl == "packed"
@@ -320,13 +342,23 @@ def _pyramid_launch(name: str, xyz: torch.Tensor, total_m: torch.Tensor,
     part = -(-sum(counts) // 4) * 4     # int32 words, a multiple of 16 B
     buf = torch.empty(2 * part + b * h * w * (2 if exact_in else 1),
                       dtype=torch.int32, device=xyz.device)
-    fn = _build.function("zbuffer", "zbuffer_pyramid", _PYRAMID_ARGTYPES)
     base = buf.data_ptr()
-    _build.call(fn, xyz.device, name, xyz.data_ptr(), total_m.data_ptr(), n,
-                b, h, w, num_scales, int(exact_in),
-                int(pool_impl == "exact"), idb, qmax, base + 8 * part,
-                base, base + 4 * part)
-    launches["zbuffer_exact" if exact_in else "zbuffer"] += 1
+    args = (xyz.data_ptr(), total_m.data_ptr(), n, b, h, w, num_scales,
+            int(exact_in), int(pool_impl == "exact"), idb, qmax,
+            base + 8 * part, base, base + 4 * part)
+    if splat is None:
+        fn = _build.function("zbuffer", "zbuffer_pyramid", _PYRAMID_ARGTYPES)
+        _build.call(fn, xyz.device, name, *args)
+        launches["zbuffer_exact" if exact_in else "zbuffer"] += 1
+    else:
+        point_sizes, radius, relative, min_size = splat
+        fn = _build.function("zbuffer", "zbuffer_splat_pyramid",
+                             _SPLAT_ARGTYPES)
+        thr = (ctypes.c_float * (radius + 1))(*_SPLAT_THR[:radius + 1])
+        _build.call(fn, xyz.device, name, *args,
+                    None if point_sizes is None else point_sizes.data_ptr(),
+                    radius, int(relative), min_size, thr)
+        launches["zbuffer_splat"] += 1
     launches["zbuffer_pyramid"] += 1
     # one as_strided a view: the cheapest on the host
     depth = buf.view(torch.float32)
@@ -361,6 +393,127 @@ def zbuffer_pyramid(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
                                      pool_impl)
     return _pyramid_launch("zbuffer_pyramid", xyz, total_m, h, w,
                            num_scales, method, pool_impl)
+
+
+def _splat_sizes(point_sizes, xyz: torch.Tensor):
+    """``point_sizes`` as a float32 ``[N]`` tensor on ``xyz``'s device
+    (``jnp.asarray(point_sizes, float32)``), or None."""
+    if point_sizes is None:
+        return None
+    sizes = torch.as_tensor(point_sizes).to(device=xyz.device,
+                                            dtype=torch.float32)
+    if sizes.numel() != xyz.shape[0]:
+        raise ValueError(f"point_sizes: {sizes.numel()} sizes for "
+                         f"{xyz.shape[0]} points")
+    return sizes.reshape(-1).contiguous()
+
+
+def splat_expand(xyz: torch.Tensor, total_m: torch.Tensor, h: int, w: int,
+                 point_radius: int, point_sizes=None,
+                 relative_size: bool = False, min_point_size: float = 1.0):
+    """JAX's splat expansion (``rasterize.py`` ``rasterize`` :368-397):
+    ``(pix [B, N*K] int32, depth0 [B, N], valid [B, N])``, ``K =
+    (2r+1)^2`` offset copies, dy-major then dx-minor, concatenated along
+    the point axis (copy ``j`` of point ``i`` at ``j*N + i``); a copy off
+    the frame, of an invalid point or failing the coverage test has
+    ``pix = h*w``. With ``point_sizes`` or ``relative_size`` a copy at
+    ``k = max(|dy|, |dx|) > 0`` needs ``rad >= float32(k - 1e-4)``,
+    ``rad = (min(size, 2r+1) - 1) * 0.5``, ``size`` the point's size
+    (``2r+1`` without ``point_sizes``), z-scaled as ``max(min_point_size,
+    size / max(clip_z, 1e-6))`` with ``relative_size``; NaN propagates
+    (``torch.maximum``/``minimum``, as ``jnp``'s)."""
+    from read_tpu_torch.ops.rasterize import project_points
+    ndc, valid, clip_z = project_points(xyz, total_m, return_clip_z=True)
+    u = torch.floor(w * (ndc[..., 0] + 1.0) * 0.5).to(torch.int32)
+    v = torch.floor(h * (1.0 - ndc[..., 1]) * 0.5).to(torch.int32)
+    depth0 = (ndc[..., 2] + 1.0) * 0.5
+    rad = None
+    sizes = _splat_sizes(point_sizes, xyz)
+    if sizes is not None or relative_size:
+        cap = torch.full_like(clip_z, float(2 * point_radius + 1))
+        size = cap if sizes is None else sizes.expand_as(clip_z)
+        if relative_size:
+            size = torch.maximum(
+                torch.full_like(clip_z, min_point_size),
+                size / torch.maximum(clip_z, torch.full_like(clip_z, 1e-6)))
+        rad = (torch.minimum(size, cap) - 1.0) * 0.5
+    pix = []
+    for dy in range(-point_radius, point_radius + 1):
+        for dx in range(-point_radius, point_radius + 1):
+            uu, vv = u + dx, v + dy
+            inside = valid & (uu >= 0) & (uu < w) & (vv >= 0) & (vv < h)
+            if rad is not None and (dy or dx):
+                inside &= rad >= _SPLAT_THR[max(abs(dy), abs(dx))]
+            pix.append(torch.where(inside, vv * w + uu, h * w))
+    return torch.cat(pix, dim=-1), depth0, valid
+
+
+def splat_keys(xyz: torch.Tensor, total_m: torch.Tensor, h: int, w: int,
+               method: str, point_radius: int, point_sizes=None,
+               relative_size: bool = False, min_point_size: float = 1.0):
+    """The ``[B, N*K]`` arrays JAX's splat z-buffers take: ``(pix, key,
+    depth0)``, :func:`splat_expand`'s pixel ids, each copy's K5 exact key
+    ('sort') or K1 packed key ('pallas', id bits from N points), and each
+    point's depth (0 where it is invalid), which 'pallas' gathers by
+    id."""
+    b, n, npx = total_m.shape[0], xyz.shape[0], h * w
+    pix, depth0, valid = splat_expand(xyz, total_m, h, w, point_radius,
+                                      point_sizes, relative_size,
+                                      min_point_size)
+    depth0 = torch.where(valid, depth0, 0.0)
+    k = pix.shape[-1] // n
+    ids = torch.arange(n, dtype=torch.int32, device=xyz.device).repeat(k)
+    ids, dep = ids.expand(b, n * k), depth0.repeat(1, k)
+    if method == "sort":
+        return pix, pack_exact_keys(pix, dep, ids, npx), depth0
+    return pix, pack_keys(pix, dep, ids, npx, n)[0], depth0
+
+
+def zbuffer_splat_plain(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
+                        w: int, num_scales: int, method: str,
+                        pool_impl: str, point_radius: int, point_sizes=None,
+                        relative_size: bool = False,
+                        min_point_size: float = 1.0):
+    """Plain PyTorch twin of :func:`zbuffer_splat` (same contract): JAX's
+    ``[B, N*K]`` arrays (:func:`splat_keys`), their per-pixel minimum key
+    (:func:`scatter_min`), unpacked (the 'pallas' winner's depth gathered
+    by id), then :func:`pool_pyramid_plain`."""
+    b, n = total_m.shape[0], xyz.shape[0]
+    pix, key, depth0 = splat_keys(xyz, total_m, h, w, method, point_radius,
+                                  point_sizes, relative_size, min_point_size)
+    buf = scatter_min(pix, key, h * w)
+    index, depth = (unpack_exact(buf) if method == "sort" else
+                    unpack_packed(buf, key_bits(n)[0], depth0))
+    return pool_pyramid_plain(index.view(b, h, w), depth.view(b, h, w),
+                              num_scales, pool_impl, n)
+
+
+def zbuffer_splat(xyz: torch.Tensor, total_m: torch.Tensor, h: int, w: int,
+                  num_scales: int, method: str, pool_impl: str,
+                  point_radius: int, point_sizes=None,
+                  relative_size: bool = False, min_point_size: float = 1.0):
+    """:func:`zbuffer_pyramid` with every point splatted over the
+    ``(2r+1)^2`` square around its pixel, ``r = point_radius`` in
+    ``1..MAX_SPLAT_RADIUS``, with JAX's coverage rule (see
+    :func:`splat_expand`; ``point_sizes [N]`` per-point sizes,
+    ``relative_size`` z-scaled sizes floored at ``min_point_size``, both
+    capped at ``2r+1``). Returns ``rasterize_pyramid_pooled``'s levels;
+    level 0 is splatted, the coarser ones pooled from it. On the card:
+    the fill, the splat projection and the pyramid pass, no ``[B, N*K]``
+    array."""
+    _check_pyramid(xyz, h, w, num_scales, method, pool_impl)
+    if not 1 <= point_radius <= MAX_SPLAT_RADIUS:
+        raise ValueError(f"zbuffer_splat: point_radius {point_radius} not "
+                         f"in 1..{MAX_SPLAT_RADIUS}")
+    if _on_cpu("zbuffer_splat", xyz, total_m):
+        return zbuffer_splat_plain(xyz, total_m, h, w, num_scales, method,
+                                   pool_impl, point_radius, point_sizes,
+                                   relative_size, min_point_size)
+    sizes = _splat_sizes(point_sizes, xyz)
+    return _pyramid_launch("zbuffer_splat", xyz, total_m, h, w, num_scales,
+                           method, pool_impl,
+                           (sizes, point_radius, relative_size,
+                            float(min_point_size)))
 
 
 def zbuffer_keys_plain(pix: torch.Tensor, key: torch.Tensor,

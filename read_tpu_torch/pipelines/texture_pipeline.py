@@ -6,15 +6,18 @@ Counterpart of ``read_tpu/pipelines/texture_pipeline.py``:
 optimizers (:218-250), ``create_state`` (:253-299, point texture), a
 whole ``TrainState`` to and from its checkpoint leaves
 (``state_from_flat``/``flat_from_state``), ``_build_pyramid``
-(:345-415, the point-texture radius-0 branch),
+(:345-415, the point-texture branch: 1-px points, splats and per-point
+or z-scaled sizes),
 ``_forward`` (:418-449), ``_losses`` (:452-518), ``make_train_step``
 (:521-632), ``make_eval_step`` (:635-659) and ``ReduceLROnPlateau``
 (:662-684).
 
 A train step is eager PyTorch under autograd: z-buffer (K5 for the
-default 'sort', K1 for 'pallas'/'scatter1'; no gradient flows into the
+default 'sort', K1 for 'pallas'/'scatter1', K6's splat projection for
+either with ``point_radius > 0``; no gradient flows into the
 projection) -> exact pyramid pool -> descriptor gather with the
-per-image scatter-add backward -> the UNet's differentiable route
+per-image scatter-add backward (1-px points) or the summing one
+(splats) -> the UNet's differentiable route
 (``F.conv2d``, flax's BatchNorm) -> losses -> gradients -> the gradient
 guard -> Adam (net) and RMS (texture) updates that reproduce optax's.
 The net's parameters and Adam moments each live in one flat buffer, so
@@ -28,12 +31,11 @@ DBlocks run under ``torch.utils.checkpoint`` (``models.unet.UNet``), as
 A checkpoint's ``conv_impl`` (``xla``/``im2col``/``pallas``) is checked
 and dropped: every name holds the same parameters, and training always
 runs the differentiable route. Configurations that need code the port
-does not have yet raise ``NotImplementedError``: mesh textures, splats
-and z-scaled sizes, extra input modes, supersampling, point dropout and
-jitter (the train dataset's ``drop_points``/``perturb_points``),
-``label_in_input``, bfloat16 training and the VGG ensemble; the fields
-that only those use (``texture_size``, ``min_point_size``,
-``label_in_input``) are left out.
+does not have yet raise ``NotImplementedError``: mesh textures, extra
+input modes, supersampling, point dropout and jitter (the train
+dataset's ``drop_points``/``perturb_points``), ``label_in_input``,
+bfloat16 training and the VGG ensemble; the fields that only those use
+(``texture_size``, ``label_in_input``) are left out.
 """
 
 from __future__ import annotations
@@ -72,7 +74,7 @@ _CRITERIA = ("vgg", "vgg_pytorch", "vgg_mix", "vgg_partial", "vgg_ens",
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """Static experiment hyperparameters: ``read_tpu``'s fields and
-    defaults (less the three named in the module docstring), with
+    defaults (less the two named in the module docstring), with
     ``dtype`` named 'float32' or 'bfloat16'."""
     crop_size: Tuple[int, int] = (256, 256)      # (h, w)
     descriptor_size: int = 8
@@ -92,7 +94,8 @@ class PipelineConfig:
     masked_background: bool = False
     num_classes: Optional[int] = None
     point_radius: int = 0
-    relative_point_size: bool = False
+    relative_point_size: bool = False   # 'ps': z-scaled splat sizes
+    min_point_size: float = 1.0         # the z-scaled sizes' floor
     grad_clip: float = 1e3
     use_mesh: bool = False
     temporal_average: bool = False
@@ -155,9 +158,6 @@ def _check_geometry(cfg: PipelineConfig) -> None:
     """Raise for the pyramid configurations the port does not have."""
     if cfg.use_mesh:
         _unported("the mesh-texture path (use_mesh)", "queue 1, item 9")
-    if cfg.point_radius > 0 or cfg.relative_point_size:
-        _unported("splat point sizes (input_format p>1 / ps)",
-                  "queue 1, item 9")
     if cfg.extra_modes:
         _unported("extra input modes", "queue 1, item 9")
     if cfg.supersampling > 1:
@@ -248,19 +248,22 @@ def config_from_dict(d: dict, crop_size: Optional[Tuple[int, int]] = None,
 def build_pyramid(cfg: PipelineConfig, texture: torch.Tensor,
                   xyz: torch.Tensor, total_m: torch.Tensor, shape=None,
                   point_sizes=None):
-    """Rasterize the pyramid (one full-resolution z-buffer, exact 2x2
-    pair pools) and gather descriptors: ``cfg.num_scales`` maps ``[B,
-    h_i, w_i, C]``. The gather's backward is the per-image scatter-add
-    (1-px points)."""
+    """Rasterize the pyramid (one full-resolution z-buffer, splatted
+    where ``cfg.point_radius > 0``, exact 2x2 pair pools) and gather
+    descriptors: ``cfg.num_scales`` maps ``[B, h_i, w_i, C]``.
+    ``point_sizes`` is the scene manifest's per-point size buffer. The
+    gather's backward is the per-image scatter-add for 1-px points and
+    the summing one for splats, as ``read_tpu`` picks them."""
     _check_geometry(cfg)
     h, w = shape or cfg.crop_size
     levels = R.rasterize_pyramid_pooled(
         xyz, total_m, (h, w), num_scales=cfg.num_scales,
-        method=cfg.raster_method, point_sizes=point_sizes,
-        pool_impl="exact")
-    return [T.sample_point_texture_unique(texture, ix,
-                                          cfg.texture_activation)
-            for ix, _ in levels]
+        point_radius=cfg.point_radius, method=cfg.raster_method,
+        point_sizes=point_sizes, relative_size=cfg.relative_point_size,
+        min_point_size=cfg.min_point_size, pool_impl="exact")
+    sample = (T.sample_point_texture_unique if cfg.point_radius == 0
+              else T.sample_point_texture)
+    return [sample(texture, ix, cfg.texture_activation) for ix, _ in levels]
 
 
 # --------------------------------------------------------------------------
@@ -564,7 +567,8 @@ def make_train_step(net: UNet, cfg: PipelineConfig, vgg_params,
     (``+ im_out [B, h, w, 3]`` with ``return_images``).
 
     ``batch``: ``'total_m' [B, 4, 4]`` and ``'target' [B, h, w, 3]``
-    (+ ``'mask' [B, h, w, 1]``, ``'label' [B, h, w]``). ``vgg_params``
+    (+ ``'mask' [B, h, w, 1]``, ``'label' [B, h, w]``, the scene's
+    per-point sizes ``'point_sizes' [N]``). ``vgg_params``
     is a list of 13 ``(w, b)`` (a ``(pytorch, caffe)`` pair for the
     'mix' backend) or None. ``freeze_net`` fits the texture alone with
     the net in eval mode (running BatchNorm statistics, unchanged).

@@ -1,17 +1,21 @@
 """Checkpoint-driven neural rendering on PyTorch (CUDA kernels on a GPU).
 
 Counterpart of ``read_tpu/render.py``: ``NeuralRenderer`` (:64-300, the
-neural path: /16 viewport, ``rescale_K``, ``gl_projection``, ``infer``,
-``infer_device``, temporal average) and ``main`` (:336-410,
-``--mode neural``, ``--fps-report``).
+neural path: /16 viewport, ``rescale_K``, ``gl_projection``, the scene's
+per-point sizes, ``infer``, ``infer_device``, ``set_point_radius``,
+temporal average) and ``main`` (:336-410, ``--mode neural``,
+``--fps-report``).
 
 The renderer loads a ``read_tpu`` checkpoint directory (numpy only),
 rebuilds the pipeline config from its embedded ``config``, and renders
 project -> z-buffer -> exact 2x2 pyramid pool -> descriptor gather ->
 UNet (K2, K3). The z-buffer is the checkpoint's own: the default
 ``sort`` runs K5 (exact), ``pallas``/``scatter1`` K1 (packed key);
-``--raster-method`` overrides it, as the JAX CLI's flag does. Frames
-are written as PNG by :mod:`read_tpu_torch.data.image_io`.
+``--raster-method`` overrides it, as the JAX CLI's flag does. A
+checkpoint whose ``input_format`` splats (``p3`` and up, or ``ps``), or
+a scene with per-point ``point_sizes``, runs K6's splat projection in
+their place. Frames are written as PNG by
+:mod:`read_tpu_torch.data.image_io`.
 
 Usage::
 
@@ -22,6 +26,7 @@ Usage::
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -72,10 +77,6 @@ class NeuralRenderer:
                          ("supersampling", supersampling)):
             if val is not None:            # explicit overrides only
                 self.config[key] = val
-        if scene.get("point_sizes") is not None:
-            raise NotImplementedError(
-                "per-point sizes are not ported (ROADMAP queue 1, item 9)")
-
         vw, vh = viewport or scene["config"]["viewport_size"]
         self.vw, self.vh = (vw // 16) * 16, (vh // 16) * 16
         self.cfg = TP.config_from_dict(self.config,
@@ -92,6 +93,11 @@ class NeuralRenderer:
 
         xyz = np.asarray(scene["pointcloud"]["xyz"], np.float32)
         self.xyz = torch.from_numpy(xyz).to(self.device)
+        self.point_sizes = None
+        if scene.get("point_sizes") is not None:
+            self.point_sizes = torch.from_numpy(np.asarray(
+                scene["point_sizes"], np.float32).reshape(-1)).to(
+                    self.device)
         state, texture = CV.variables_from_flat(flat)
         if texture.shape[0] != xyz.shape[0]:
             raise ValueError(f"texture rows {texture.shape[0]} != points "
@@ -116,7 +122,17 @@ class NeuralRenderer:
         """The net's input pyramid for one view (``[1, h_i, w_i, C]``)."""
         return TP.build_pyramid(self.cfg, self.texture, self.xyz,
                                 self._matrix(view_matrix, K),
-                                shape=(self.vh, self.vw))
+                                shape=(self.vh, self.vw),
+                                point_sizes=self.point_sizes)
+
+    def set_point_radius(self, radius: int) -> None:
+        """Change the splat radius live (the viewer's point-size keys);
+        clamped at 0, and nothing changes when it is the current one."""
+        radius = max(0, int(radius))
+        if radius == self.cfg.point_radius:
+            return
+        self.cfg = dataclasses.replace(self.cfg, point_radius=radius)
+        self._last_pyr = None
 
     def _net(self, pyr) -> torch.Tensor:
         return self.net(*pyr, operands=self.cfg.operands)["im_out"]

@@ -12,6 +12,9 @@ experiment directory with ``args.yaml``, a ``log.txt`` copy of the
 console and ``splits.json`` (``setup_experiment``), and ``main``:
 
 - one state per scene, all sharing one net (``--net-ckpt`` loads it);
+  splatted input formats (``uv_1d_p3...``, ``uv_1d_ps...``) and a
+  scene manifest's per-point ``point_sizes`` go to every step's
+  z-buffer;
   ``--resume`` restores whole states (net, textures, both optimizers,
   step) from ``read_tpu``-format checkpoints; ``--freeze-net`` fits the
   textures alone;
@@ -43,8 +46,8 @@ PyYAML, ``cv2``, ``imageio``, ``matplotlib`` or ``tensorboardX``:
 configs may be JSON (:mod:`read_tpu_torch.utils.config_io`), images PNG
 (:mod:`read_tpu_torch.data.image_io`). What the port does not have yet
 (``--pipeline pix2pix|rgb_texture``, ``--mesh``, ``--use-mesh``,
-``--dtype bfloat16``, splats, extra modes, supersampling, point
-dropout) exits with the ``ROADMAP.md`` item that will bring it.
+``--dtype bfloat16``, extra modes, supersampling, point dropout) exits
+with the ``ROADMAP.md`` item that will bring it.
 """
 
 from __future__ import annotations
@@ -411,10 +414,6 @@ def _run(args, exp_dir: str, device: torch.device) -> int:
         print(f"scene {tr.name}: {tr.n_points} points, "
               f"{len(tr.view_list)} train views, "
               f"{len(va.view_list)} val views")
-        if tr.scene_data.get("point_sizes") is not None:
-            raise SystemExit(f"scene {tr.name}: per-point sizes are not "
-                             "ported to read_tpu_torch (ROADMAP queue 1, "
-                             "item 9)")
     # split lists saved for reproducibility
     with open(os.path.join(exp_dir, "splits.json"), "w") as f:
         json.dump({tr.name: {"train": tr.target_list,
@@ -504,6 +503,19 @@ def _run(args, exp_dir: str, device: torch.device) -> int:
 
     def to_dev(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    psize_cache: Dict[int, Optional[torch.Tensor]] = {}
+
+    def add_point_sizes(dev_batch: dict, sid: int) -> None:
+        """The scene manifest's per-point sizes (``point_sizes`` key),
+        on the device once a scene, into the batch where there are
+        any."""
+        if sid not in psize_cache:
+            ps = scene_by_id[sid].scene_data.get("point_sizes")
+            psize_cache[sid] = None if ps is None else to_dev(
+                np.asarray(ps, np.float32).reshape(-1))
+        if psize_cache[sid] is not None:
+            dev_batch["point_sizes"] = psize_cache[sid]
 
     def dump_train_composite(k: int, im, batch, dev_batch, xyz):
         """out | target | depth (viridis) grids stacked, ``comp_{k %
@@ -595,6 +607,7 @@ def _run(args, exp_dir: str, device: torch.device) -> int:
                 dev_batch["mask"] = to_dev(batch["mask"])
             if args.num_classes:
                 dev_batch["label"] = to_dev(batch["label"])
+            add_point_sizes(dev_batch, sid)
             st, metrics, im = train_step(states.activate(sid),
                                          xyz_cache[sid], dev_batch)
             states[sid] = st
@@ -666,6 +679,7 @@ def _run(args, exp_dir: str, device: torch.device) -> int:
                              "target": to_dev(batch["target"])}
                 if cfg.use_mask:
                     dev_batch["mask"] = to_dev(batch["mask"])
+                add_point_sizes(dev_batch, ds.id)
                 img, metrics = eval_step(st, xyz, dev_batch)
                 n_batches += 1
                 # per-item [B] metrics; the padded tail is dropped below

@@ -6,7 +6,10 @@ every test skips. On a GPU machine, which need not have JAX installed::
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 TF32 is switched off for the twins (full float32 convolutions and
-matmuls). K1, K5, the pyramid pass (every level), K6 and K8
+matmuls). K1, K5, the pyramid pass (every level), K6 (its given-key
+kernel, and on its user path the splat projection, every level, plain,
+per-point and z-scaled sizes and the edge cases of
+tests/test_torch_splat.py) and K8
 ``packonly`` must be bit-equal; K2/K3/K4,
 K7 and K8 within ``atol 2e-5, rtol 1e-4`` (f32 operands; K8's modes on
 both of K2's loops, the wgmma loop's f32 as three TF32 products, up to K
@@ -237,6 +240,156 @@ def test_rasterize_on_cuda_matches_cpu(dev):
                                      4, method="pallas", pool_impl="packed")
     for (ic, dc), (ig, dg) in zip(cpu, gpu):
         assert torch.equal(ic, ig.cpu()) and torch.equal(dc, dg.cpu())
+
+
+def _splat_scene(batch, n=20_000, hw=(64, 96), seed=3):
+    """Points 0.5 to 6.5 units before a perspective camera (z-scaled sizes
+    reach every ring), ``batch`` poses, sizes in [0.5, 6), every 17th
+    NaN (tests/test_torch_splat.py's scene, larger)."""
+    from read_tpu_torch.scene import camera
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    xyz = rng.uniform(-2, 2, size=(n, 3)).astype(np.float32)
+    xyz[:, 2] = rng.uniform(-6.5, -0.5, n)
+    K = np.array([[60.0, 0, w / 2], [0, 60.0, h / 2], [0, 0, 1]])
+    P = camera.gl_projection(K, (w, h), 0.1, 50.0)
+    ms = []
+    for i in range(batch):
+        view = np.eye(4)
+        view[0, 3] = 0.3 * i
+        ms.append(camera.total_matrix(P, view))
+    sizes = rng.uniform(0.5, 6.0, n).astype(np.float32)
+    sizes[::17] = np.nan
+    return xyz, np.stack(ms).astype(np.float32), sizes
+
+
+def _splat_edge_scene(n=3000, seed=4):
+    """Orthographic views of points at ndc x, y = +-1 exactly (centres
+    one past the frame), a third on other points' positions (ties), and
+    NaN, +-inf, negative, fractional and over-cap sizes."""
+    rng = np.random.default_rng(seed)
+    xyz = rng.uniform(-1.05, 1.05, size=(n, 3)).astype(np.float32)
+    xyz[:, 2] = rng.uniform(-1.0, 1.0, n)
+    xyz[0:150, 0] = 1.0
+    xyz[150:300, 1] = -1.0
+    xyz[300:450, 0] = -1.0
+    xyz[450:600, 1] = 1.0
+    xyz[2000:] = xyz[rng.integers(0, 2000, n - 2000)]
+    ms = np.stack([np.eye(4, dtype=np.float32)] * 2)
+    ms[1, 2, 3] = 0.1
+    sizes = np.array([np.nan, np.inf, -np.inf, -2.0, 0.0, 0.5, 1.0, 2.5,
+                      2.9998, 2.9999, 3.0, 3.0001, 4.9, 5.0, 9.0],
+                     np.float32)[np.arange(n) % 15]
+    return xyz, ms, sizes
+
+
+def _splat_vs_twins(dev, xyz, ms, hw, levels, method, pool_impl, kw):
+    """The splat kernel against its twin on the card and on the CPU,
+    every level bit-equal; one call launches one splat projection and
+    one pass. Returns level 0's index."""
+    dkw = dict(kw)
+    if kw.get("point_sizes") is not None:
+        dkw["point_sizes"] = torch.from_numpy(kw["point_sizes"]).to(dev)
+    xd, md = torch.from_numpy(xyz).to(dev), torch.from_numpy(ms).to(dev)
+    before = dict(RK.launches)
+    got = RK.zbuffer_splat(xd, md, *hw, levels, method, pool_impl, **dkw)
+    ran = {k: v - before[k] for k, v in RK.launches.items() if v != before[k]}
+    assert ran == {"zbuffer_splat": 1, "zbuffer_pyramid": 1}
+    want = RK.zbuffer_splat_plain(xd, md, *hw, levels, method, pool_impl,
+                                  **dkw)
+    cpu = RK.zbuffer_splat_plain(torch.from_numpy(xyz), torch.from_numpy(ms),
+                                 *hw, levels, method, pool_impl, **kw)
+    torch.cuda.synchronize()
+    for (ig, dg), (iw, dw), (ic, dc) in zip(got, want, cpu):
+        assert torch.equal(ig, iw) and torch.equal(dg, dw)
+        assert torch.equal(ig.cpu(), ic) and torch.equal(dg.cpu(), dc)
+    return got[0][0]
+
+
+@pytest.mark.parametrize("kind", ["plain", "sizes", "relative"])
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("radius", [1, 2])
+@pytest.mark.parametrize("pool_impl", ["exact", "packed"])
+@pytest.mark.parametrize("method", ["sort", "pallas"])
+def test_zbuffer_splat_kernel_bit_equal(dev, method, pool_impl, radius,
+                                        batch, kind):
+    """K6 on its user path (the splat projection and the pass) against
+    its twin at 4 levels: plain radius, per-point sizes, z-scaled sizes."""
+    xyz, ms, sizes = _splat_scene(batch)
+    kw = {"point_radius": radius}
+    if kind != "plain":
+        kw["point_sizes"] = sizes
+    if kind == "relative":
+        kw.update(relative_size=True, min_point_size=1.5)
+    index = _splat_vs_twins(dev, xyz, ms, (64, 96), 4, method, pool_impl, kw)
+    assert 0.05 < float((index >= 0).float().mean()) < 1.0
+
+
+@pytest.mark.parametrize("relative", [False, True])
+@pytest.mark.parametrize("min_point_size", [1.0, 3.0])
+@pytest.mark.parametrize("method", ["sort", "pallas"])
+def test_zbuffer_splat_edge_cases_bit_equal(dev, method, min_point_size,
+                                            relative):
+    """Off-frame centres, ties and NaN/inf/negative/fractional/over-cap
+    sizes, r = 2 (and r = 16, the largest), against the twin."""
+    xyz, ms, sizes = _splat_edge_scene()
+    pool = "exact" if method == "sort" else "packed"
+    for kw in (dict(point_radius=2, point_sizes=sizes,
+                    relative_size=relative, min_point_size=min_point_size),
+               dict(point_radius=RK.MAX_SPLAT_RADIUS, point_sizes=sizes,
+                    relative_size=relative, min_point_size=min_point_size)):
+        _splat_vs_twins(dev, xyz, ms, (48, 64), 2, method, pool, kw)
+
+
+def test_splat_on_cuda_never_expands(dev, monkeypatch):
+    """A splat on CUDA tensors runs the kernel and allocates no
+    ``[B, N*K]`` array: the expansion and the plain z-buffers are never
+    called, at most three device operations run (the fill, the splat,
+    the pass; a profiler trace may come back short of one), and the peak
+    memory growth stays below the expanded pixel ids and keys."""
+    from read_tpu_torch.kernel_bench import device_ops
+    xyz, ms, sizes = _splat_scene(2, n=200_000)
+    xyz, ms = torch.from_numpy(xyz).to(dev), torch.from_numpy(ms).to(dev)
+    sizes = torch.from_numpy(sizes).to(dev)
+    for name in ("splat_expand", "zbuffer_splat_plain", "scatter_min",
+                 "pool_pyramid_plain"):
+        monkeypatch.setattr(RK, name, lambda *a, **k: pytest.fail(
+            "the plain expansion ran on CUDA tensors"))
+
+    def run():
+        return R.rasterize_pyramid_pooled(
+            xyz, ms, (64, 96), 4, point_radius=2, method="pallas",
+            point_sizes=sizes, relative_size=True, pool_impl="packed")
+
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    run()
+    torch.cuda.synchronize()
+    growth = torch.cuda.max_memory_allocated() - base
+    assert growth < 2 * 200_000 * 25 * 8
+    assert device_ops(run) <= 3
+
+
+def test_sample_point_texture_backward_on_cuda(dev):
+    """The splat gather's backward on CUDA (float atomics over duplicate
+    rows, in no fixed order) against the CPU within 1e-6 * max|g|."""
+    from read_tpu_torch.models import texture as T
+    xyz, ms, _ = _splat_scene(2)
+    index = RK.zbuffer_splat(torch.from_numpy(xyz).to(dev),
+                             torch.from_numpy(ms).to(dev), 64, 96, 1,
+                             "sort", "exact", 2)[0][0]
+    gen = torch.Generator().manual_seed(0)
+    table = torch.randn(xyz.shape[0], 8, generator=gen)
+    g = torch.randn(*index.shape, 8, generator=gen)
+    grads = []
+    for d in ("cpu", dev):
+        t = table.to(d).detach().requires_grad_()
+        T.sample_point_texture(t, index.to(d)).backward(g.to(d))
+        grads.append(t.grad.cpu())
+    scale = float(grads[0].abs().max())
+    torch.testing.assert_close(grads[1], grads[0], rtol=0, atol=1e-6 * scale)
 
 
 def _conv_case(dev, shape, cin, cout, k, seed):

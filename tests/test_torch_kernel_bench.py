@@ -68,7 +68,7 @@ def test_rows_run_and_compare_at_a_tiny_size(monkeypatch):
     # band kernel called directly, per shape and dtype; K8: its modes on
     # the wgmma loop and on the tile loop, per shape and dtype
     assert by == {"zbuffer": 4, "zbuffer_exact": 4, "zbuffer_keys": 4,
-                  "zbuffer_pyramid": 8,
+                  "zbuffer_pyramid": 8, "zbuffer_splat": 3,
                   "gated_conv_kxk": 4, "gated_conv3x3_r2": 8,
                   "gated_conv3x3_r2_band": 4, "gated_conv_1x1": 4,
                   "gated_conv1x1_r2": 8, "gated_conv1x1_r2_band": 4,

@@ -166,10 +166,8 @@ def test_pyramid_pools_match_jax(pool_impl):
 
 
 @pytest.mark.parametrize("kw", [dict(method="sort2"), dict(method="scatter"),
-                                dict(method="pallas", point_radius=1),
-                                dict(method="pallas", relative_size=True),
                                 dict(method="pallas",
-                                     point_sizes=np.ones(3000))])
+                                     ndc_jitter=np.zeros((3000, 2)))])
 def test_unported_options_raise(kw):
     xyz, ms = _scene()
     with pytest.raises(NotImplementedError):

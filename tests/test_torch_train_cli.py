@@ -377,8 +377,6 @@ def test_cli_runs_without_optional_packages(setup, tmp_path):
     (["--use-mesh"], "item 9"),
     (["--dtype", "bfloat16"], "item 8"),
     (["--supersampling", "2"], "item 6"),
-    (["--input-format", "uv_1d_p3, uv_1d_p3_ds1, uv_1d_p3_ds2, "
-      "uv_1d_p3_ds3, uv_1d_p3_ds4"], "item 9"),
     (["--input-format", "uv_1d_p1, depth, uv_1d_p1_ds1, depth_ds1, "
       "uv_1d_p1_ds2, depth_ds2, uv_1d_p1_ds3, depth_ds3, uv_1d_p1_ds4, "
       "depth_ds4"], "item 9"),
