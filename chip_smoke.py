@@ -99,7 +99,30 @@ without a device it exits non-zero at once. It
    on K2's loop, 1x1 on the 1x1 loop; f32 as three TF32 products, bf16
    in the loops' bf16-storage mode), each of which must have launched
    its loop, beside the band kernel called directly and the same call
-   packing its weight on every call.
+   packing its weight on every call;
+11. ``apps`` (after ``cli``, on its best ``sort`` checkpoint and drive):
+   ``read_tpu_torch.baseline_configs``' config 1 over all 20 poses
+   (device rate back to back, the rate with the host download, val
+   PSNR/SSIM on ``split_by_step``'s val frames; K5, the pass and both
+   wgmma loops as the routes predict for every frame), config 4
+   bit-equal to the unsplit frame with the mapped index pyramid equal,
+   config 5 (boxes inside ``drive_world`` over 1000 points each; the
+   edited frame differs and matches its all-twin frame; the 3-view
+   panorama at 3648x368); one ``supersampling=2`` request (its pyramid
+   at 2432x736 and net input bit-equal to the twins', the frame within
+   5e-4/1e-3 of its all-twin frame), timed beside an ss=1 request; and
+   every raw mode on the drive with seeded normals (one K5 and pass
+   launch, no conv; gathers bit-equal to the CPU on the card's maps,
+   float modes within the CPU tests' bounds), each timed;
+12. ``extra_modes``: ``depth`` + ``normals_l`` at every scale at the
+   bench point (12 input channels): 3 train steps against their twins
+   (pyramids and extra maps bit-equal, loss rel 1e-6, gradients 2e-4 x
+   max|g|), 7 timed with the loss falling; 2 requests at 1216x368 from
+   the trained state, request 0 within 5e-4/1e-3 of its all-twin frame,
+   each K2/K3/K4 wrapper and wgmma loop launched as the width
+   predicates give (``predicted_conv_calls``: 79 K2 calls on its loop
+   and 3, not 9, on the 1x1 loop a frame), timed beside serve_sort's
+   8-channel checkpoint on the same scene.
 
 The serving phases also require K4 (``gated_conv_1x1_cat``): 3 launches
 per request, the SCMs' ``BasicConv_4``; every phase that builds a
@@ -1901,8 +1924,10 @@ def phase_cli(report, ctx, dev, workdir, n_points=N_POINTS, hw=HW,
         val_ms = 1e3 * vt["seconds"] / vt["views"]
 
         # 4. one sort request from the CLI's best checkpoint
-        r = NeuralRenderer(paths["datasets"][scene]["scene_path"],
-                           os.path.join(ck, f"best_{scene}"), device=dev)
+        ctx["drive"] = (paths["datasets"][scene]["scene_path"],
+                        os.path.join(ck, f"best_{scene}"),
+                        paths["datasets"][scene]["target_path"])
+        r = NeuralRenderer(*ctx["drive"][:2], device=dev)
         if r.cfg.raster_method != "sort":
             raise SmokeFailure(f"cli serve: config says {r.cfg.raster_method}")
         reset_launches()
@@ -1936,6 +1961,400 @@ def phase_cli(report, ctx, dev, workdir, n_points=N_POINTS, hw=HW,
           f"items x {tda['inner_batch']} crops of {recipe['crop_size']}), "
           f"{val_host:.2f} ms a val item at {hw[1]}x{hw[0]}; the CLI ran "
           f"without {', '.join(OPTIONAL)}")
+
+
+# ---------------------------------------------------------------------------
+# The scene applications (configs 1/4/5), supersampling and the raw modes
+# on the CLI's drive; extra input modalities at the bench point
+# ---------------------------------------------------------------------------
+
+# edit boxes inside drive_world (its street runs along -z): a stretch of
+# the left facade near the first pose, deleted, and a stretch of the right
+# facade further on, copied 6 m towards the road
+APPS_DELETE = ((-7.6, 0.0, -20.0), (-7.0, 9.0, -10.0))
+APPS_COPY = ((7.0, 0.0, -40.0), (7.6, 4.0, -30.0))
+APPS_SHIFT = (-6.0, 0.0, 0.0)
+RAW_MODES = ("colors", "xyz", "depth", "uv_1d", "labels", "pca",
+             "normals_m", "normals_l", "normals_r", "normals_d", "lit")
+# the float modes' bounds of tests/test_torch_render_modes.py; the rest
+# gather, bit-equal
+RAW_TOL = {"normals_l": 2e-7, "normals_r": 2e-7, "normals_d": 2e-7,
+           "lit": 5e-6}
+EXTRA_FORMAT = ", ".join(f"uv_1d_p1{s}, depth{s}, normals_l{s}"
+                         for s in [""] + [f"_ds{i}" for i in range(1, 5)])
+CONV_CALLS = ("gated_conv_kxk", "gated_conv_kxk_wgmma", "gated_conv_1x1",
+              "gated_conv_1x1_cat", "gated_conv_1x1_wgmma")
+
+
+def predicted_conv_calls(cin):
+    """The K2/K3/K4 calls of one frame of a full-width UNet with ``cin``
+    input channels, and those the route predicates send to the two wgmma
+    loops, on widths alone (``kxk_route``: ``Cin % 32 == 0`` and ``Cout %
+    8 == 0``; ``conv1x1_route``: gated, every ``C_j % 8 == 0`` and ``Cout
+    % 8 == 0``; every tensor aligned, as the serving path's are): the net
+    runs once on the CPU at 16x16 with counting shims around the three
+    wrappers. Keys as ``ops.gated_conv.launches``."""
+    import torch
+    from read_tpu_torch.models.unet import UNet
+    from read_tpu_torch.ops import gated_conv as GC
+    calls = dict.fromkeys(CONV_CALLS, 0)
+    saved = (GC.gated_conv_kxk, GC.gated_conv_1x1, GC.gated_conv_1x1_cat)
+
+    def loop(cins, cout, gated=True):
+        return int(gated and cout % 8 == 0 and all(c % 8 == 0 for c in cins))
+
+    def kxk(x, w, *a, **k):
+        calls["gated_conv_kxk"] += 1
+        calls["gated_conv_kxk_wgmma"] += int(
+            w.shape[-2] % 32 == 0 and (w.shape[-1] // 2) % 8 == 0)
+        return saved[0](x, w, *a, **k)
+
+    def k3(x, w, *a, **k):
+        calls["gated_conv_1x1"] += 1
+        calls["gated_conv_1x1_wgmma"] += loop([x.shape[-1]],
+                                              w.shape[-1] // 2)
+        return saved[1](x, w, *a, **k)
+
+    def k4(xs, w, *a, **k):
+        gated = k.get("gated", True)
+        calls["gated_conv_1x1_cat"] += 1
+        calls["gated_conv_1x1_wgmma"] += loop(
+            [x.shape[-1] for x in xs], w.shape[-1] // (2 if gated else 1),
+            gated)
+        return saved[2](xs, w, *a, **k)
+
+    net = UNet(num_input_channels=cin).init_weights(
+        torch.Generator().manual_seed(0))
+    GC.gated_conv_kxk, GC.gated_conv_1x1, GC.gated_conv_1x1_cat = (
+        kxk, k3, k4)
+    try:
+        net(*[torch.zeros(1, 16 >> i, 16 >> i, cin) for i in range(4)])
+    finally:
+        GC.gated_conv_kxk, GC.gated_conv_1x1, GC.gated_conv_1x1_cat = saved
+    return calls
+
+
+def conv_calls_ran(what, counts, predicted, requests):
+    """Fail unless each K2/K3/K4 wrapper and each wgmma loop launched
+    ``requests`` times its ``predicted`` calls a frame."""
+    want = {k: requests * v for k, v in predicted.items()}
+    got = {k: counts[k] for k in CONV_CALLS}
+    if got != want:
+        raise SmokeFailure(f"{what}: conv launches {got}, the routes "
+                           f"predict {want}")
+
+
+def phase_apps(report, ctx, dev, workdir):
+    """Configs 1, 4 and 5 (``read_tpu_torch.baseline_configs``) on the
+    CLI's best ``sort`` checkpoint and its drive (1M points, 1216x368,
+    PNG targets): config 1 over all 20 poses (K5, the pass and both wgmma
+    loops as often as the routes predict for every frame), config 4
+    bit-equal to the unsplit frame with the mapped index pyramid equal,
+    config 5's edit (each box over 1000 points; the frame changes and
+    matches its all-twin frame) and its 3-view panorama; then one
+    ``supersampling=2`` request and every raw mode."""
+    import torch
+    from read_tpu_torch import baseline_configs as BC
+    from read_tpu_torch.kernel_bench import max_err
+    from read_tpu_torch.render import NeuralRenderer
+    t_phase = time.perf_counter()
+    scene, ckpt, targets = ctx["drive"]
+    out = os.path.join(workdir, "apps")
+    os.makedirs(out, exist_ok=True)
+    r = NeuralRenderer(scene, ckpt, device=dev)
+    if r.cfg.raster_method != "sort":
+        raise SmokeFailure(f"apps: config says {r.cfg.raster_method}")
+    views = [np.asarray(v) for v in r.scene_data["view_matrix"]]
+    torch.cuda.synchronize()
+    reset_launches()
+    c1 = BC.config1_trajectory(r, targets,
+                               DEMO_DRIVE["splitter_args"]["val_step"], out)
+    frames = 2 * len(views) + 1    # warm-up, device rate, host rate
+    counts = launches()
+    pyramid_ran("apps config 1", counts, "zbuffer_exact", frames)
+    routed_loops_ran(ctx, "apps config 1", counts, frames)
+    if c1["frames"] != CLI_POSES or c1["n_val"] != 2 or not np.isfinite(
+            [c1["val_psnr_mean"], c1["val_ssim_mean"]]).all():
+        raise SmokeFailure(f"apps config 1: {c1}")
+    c4 = BC.config4_stitch(r, views[0], out=out)
+    if not (c4["bit_equal"] and c4["index_pyramid_equal"]):
+        raise SmokeFailure(f"apps config 4 on sort: not exact ({c4}; "
+                           f"{c4['tied_pixels']} differing pixels at exact "
+                           "depth ties)")
+    unedited = r.infer(views[0])
+    c5 = BC.config5_edit_panorama(r, views[0], views[len(views) // 2],
+                                  APPS_DELETE, APPS_COPY, APPS_SHIFT,
+                                  out=out)
+    edited, pano = c5.pop("images")
+    if min(c5["deleted_points"], c5["copied_points"]) <= 1000:
+        raise SmokeFailure(f"apps config 5: boxes select {c5}")
+    if not float(np.abs(edited - unedited).max()) > 0:
+        raise SmokeFailure("apps config 5: the edit changed no pixel")
+    with Twins():
+        twin = r.infer(views[0])
+    err5 = max_err("apps config 5 edited frame vs twins",
+                   torch.from_numpy(edited), torch.from_numpy(twin),
+                   (FRAME_TOL,))
+    if pano.shape != (HW[0], 3 * HW[1], 3) or not np.isfinite(pano).all():
+        raise SmokeFailure(f"apps config 5: panorama {pano.shape}")
+    del r
+    torch.cuda.empty_cache()
+    ctx["apps"] = {"config1": c1, "config4": c4, "config5": c5}
+    print(f"[apps] config 1 (trajectory, {c1['frames']} poses at "
+          f"{HW[1]}x{HW[0]}, {N_POINTS} points, sort): device "
+          f"{c1['device_ms']:.3f} ms/frame ({c1['fps_device']:.2f} fps, "
+          f"back to back, one sync), with the host download "
+          f"{c1['host_ms']:.3f} ms/frame "
+          f"({c1['fps_with_host_download']:.2f} fps); val PSNR "
+          f"{c1['val_psnr_mean']:.4f} SSIM {c1['val_ssim_mean']:.4f} over "
+          f"{c1['n_val']} val frames (split_by_step)")
+    print(f"[apps] config 4 (split at the median z, re-stitched): "
+          f"bit-equal to the unsplit frame, index pyramid equal at 4 "
+          f"levels; {c4['device_ms']:.3f} ms/frame "
+          f"({c4['fps_device']:.2f} fps)")
+    print(f"[apps] config 5: {c5['deleted_points']} points deleted, "
+          f"{c5['copied_points']} copied ({c5['points']} now): "
+          f"{c5['edited_device_ms']:.3f} ms/frame "
+          f"({c5['edited_fps_device']:.2f} fps); vs all-twin max |err| "
+          f"{err5:.3g}; panorama {c5['panorama_views']} views, "
+          f"{c5['panorama_px'][1]}x{c5['panorama_px'][0]} in "
+          f"{c5['panorama_ms']:.2f} ms (with the host downloads)")
+    apps_supersampled(ctx, dev, scene, ckpt, views)
+    apps_raw_modes(dev, scene, ckpt, views)
+    print(f"[apps] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def apps_supersampled(ctx, dev, scene, ckpt, views):
+    """One ``supersampling=2`` request: its index pyramid (2432x736, 4
+    levels) and net input bit-equal to the twins', the frame within
+    ``FRAME_TOL`` of its all-twin frame, K5, the pass and both wgmma
+    loops as the routes predict; timed beside an ss=1 request."""
+    import torch
+    from read_tpu_torch.kernel_bench import max_err
+    from read_tpu_torch.render import NeuralRenderer
+    r1 = NeuralRenderer(scene, ckpt, device=dev)
+    r2 = NeuralRenderer(scene, ckpt, supersampling=2, device=dev)
+    pose = views[5]
+    idx, pyr = r2.index_pyramid(pose), r2.pyramid(pose)
+    with Twins():
+        idx_t, pyr_t = r2.index_pyramid(pose), r2.pyramid(pose)
+    if tuple(idx[0].shape) != (1, 2 * HW[0], 2 * HW[1]) or \
+            tuple(pyr[0].shape) != (1, *HW, 8):
+        raise SmokeFailure(f"apps ss=2: index {tuple(idx[0].shape)}, net "
+                           f"input {tuple(pyr[0].shape)}")
+    max_err("apps ss=2 index pyramid vs twin", idx, idx_t, None)
+    max_err("apps ss=2 net input vs twin", pyr, pyr_t, None)
+    torch.cuda.synchronize()
+    reset_launches()
+    img = r2.infer(pose)
+    counts = launches()
+    pyramid_ran("apps ss=2", counts, "zbuffer_exact", 1)
+    routed_loops_ran(ctx, "apps ss=2", counts, 1)
+    with Twins():
+        twin = r2.infer(pose)
+    err = max_err("apps ss=2 frame vs twins", torch.from_numpy(img),
+                  torch.from_numpy(twin), (FRAME_TOL,))
+    ms2 = wall_ms(lambda: r2.infer_device(pose))
+    ms1 = wall_ms(lambda: r1.infer_device(pose))
+    ctx["apps"].update(ss2_ms=ms2, ss1_ms=ms1)
+    print(f"[apps] supersampling 2: pyramid at {2 * HW[1]}x{2 * HW[0]} "
+          f"bit-equal to its twin at 4 levels (index and net input); "
+          f"frame vs all-twin max |err| {err:.3g}; {ms2:.3f} ms/request "
+          f"beside {ms1:.3f} at ss=1 (median of 5, each synced); "
+          f"launches {counts}")
+
+
+def apps_raw_modes(dev, scene, ckpt, views):
+    """Every raw mode of ``NeuralRenderer.render_mode`` on the drive with
+    seeded per-point unit normals added: one K5 and one pass launch per
+    frame and no conv, and against the same call with ``device='cpu'``
+    on the card's index and depth maps (gathers bit-equal, float modes
+    within ``RAW_TOL``); each timed."""
+    import torch
+    from read_tpu_torch.kernel_bench import max_err
+    from read_tpu_torch.render import NeuralRenderer
+    from read_tpu_torch.scene.io import load_scene_data
+    data = load_scene_data(scene)
+    n = len(data["pointcloud"]["xyz"])
+    normals = np.random.default_rng(7).normal(size=(n, 3)).astype(
+        np.float32)
+    normals /= np.linalg.norm(normals, axis=1, keepdims=True)
+    data["pointcloud"] = dict(data["pointcloud"], normals=normals)
+    rr = NeuralRenderer(data, ckpt, device=dev)
+    rc = NeuralRenderer(data, ckpt, device="cpu")
+    pose = views[3]
+    idx, dep = rr.raster(pose)
+    rc.raster = lambda view, K=None: (idx.cpu(), dep.cpu())
+    times = {}
+    for mode in RAW_MODES:
+        torch.cuda.synchronize()
+        reset_launches()
+        got = rr.render_mode(mode, pose)
+        counts = launches()
+        if (counts["zbuffer_exact"], counts["zbuffer_pyramid"]) != (1, 1) \
+                or any(counts[k] for k in CONV_CALLS):
+            raise SmokeFailure(f"apps raw {mode}: launches {counts}")
+        tol = ((dict(atol=RAW_TOL[mode], rtol=0),) if mode in RAW_TOL
+               else None)
+        max_err(f"apps raw {mode} card vs cpu", torch.from_numpy(got),
+                torch.from_numpy(rc.render_mode(mode, pose)), tol)
+        times[mode] = wall_ms(lambda: rr.render_mode(mode, pose), iters=3,
+                              warmup=1)
+    print(f"[apps] raw modes at {HW[1]}x{HW[0]}, {n} points (K5 + the "
+          "pass, gather, host download; gathers bit-equal to the CPU on "
+          "the card's maps, float modes within "
+          f"{RAW_TOL}): " + ", ".join(f"{m} {t:.3f}" for m, t in
+                                      times.items()) + " ms")
+
+
+def phase_extra_modes(report, ctx, dev, workdir):
+    """Extra input modalities at the bench point (256x256 crops, B=8, 1M
+    points, VGG, 'sort') with ``depth`` + ``normals_l`` at every scale
+    (a 12-channel net input; seeded per-point unit normals, the batch's
+    camera-to-world matrices): 3 train steps against their twins
+    (pyramids with their extra maps bit-equal, loss rel 1e-6, gradients
+    ``GRAD_ATOL * max|g|``), ``WARMUP + TIMED`` timed steps with the loss
+    falling; the state saved as a ``read_tpu`` checkpoint and 2 requests
+    at 1216x368 served from it, request 0 within ``FRAME_TOL`` of its
+    all-twin frame, each K2/K3/K4 wrapper and wgmma loop launched as the
+    route predicates give at these widths."""
+    import torch
+    from read_tpu_torch.criterions import vgg as V
+    from read_tpu_torch.frame import train_inputs
+    from read_tpu_torch.kernel_bench import max_err
+    from read_tpu_torch.pipelines import texture_pipeline as TP
+    from read_tpu_torch.render import NeuralRenderer
+    from read_tpu_torch.utils import ckpt as CK
+    t_phase = time.perf_counter()
+    xyz, ms, target = train_inputs(TRAIN_B, N_POINTS, TRAIN_HW)
+    views = []
+    for i in range(TRAIN_B):     # train_inputs' poses
+        view = np.eye(4)
+        view[0, 3] = 0.05 * i
+        views.append(view)
+    normals = np.random.default_rng(7).normal(size=xyz.shape).astype(
+        np.float32)
+    normals /= np.linalg.norm(normals, axis=1, keepdims=True)
+    cfg = TP.config_from_dict({"input_format": EXTRA_FORMAT},
+                              crop_size=(TRAIN_HW, TRAIN_HW))
+    if (cfg.net_in_channels, cfg.raster_method) != (12, "sort"):
+        raise SmokeFailure(f"extra_modes: {cfg}")
+    vgg = V.random_vgg_params(torch.Generator().manual_seed(0), device=dev)
+    state, net = TP.create_state(torch.Generator().manual_seed(0), cfg,
+                                 N_POINTS, device=dev)
+    xyz_d = torch.from_numpy(xyz).to(dev)
+    batch = {"total_m": torch.from_numpy(ms).to(dev),
+             "target": torch.from_numpy(target).to(dev),
+             "view_matrix": torch.from_numpy(
+                 np.stack(views).astype(np.float32)).to(dev),
+             "pointcloud": {"xyz": xyz_d,
+                            "normals": torch.from_numpy(normals).to(dev)}}
+    step = TP.make_train_step(net, cfg, vgg)
+    worst = 0.0
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for i in range(SPLAT_VS_TWIN):
+        runs = []
+        for twin in (False, True):
+            with Twins() if twin else contextlib.nullcontext():
+                pyr = TP.build_pyramid(
+                    cfg, state.texture, xyz_d, batch["total_m"],
+                    pointcloud=batch["pointcloud"],
+                    view_m=batch["view_matrix"])
+                metrics, _, _, g_net, g_tex = TP._loss_and_grads(
+                    net, cfg, vgg, state, xyz_d, batch, False)
+            runs.append((pyr, metrics["loss"],
+                         {**state.layout.views(g_net), "texture": g_tex}))
+        torch.cuda.synchronize()
+        (pyr_k, loss_k, g_k), (pyr_p, loss_p, g_p) = runs
+        max_err(f"extra_modes step {i} pyramid (extra maps and "
+                "descriptors) vs twin", pyr_k, pyr_p, None)
+        rel = float((loss_k - loss_p).abs() / loss_p.abs())
+        off = max(float((g_k[k] - g).abs().max() / g.abs().max().clamp(
+            min=1e-30)) for k, g in g_p.items())
+        if not rel <= 1e-6 or not off <= GRAD_ATOL:
+            raise SmokeFailure(f"extra_modes step {i}: loss rel {rel:.3g}, "
+                               f"worst gradient {off:.3g} x max|g| (bounds "
+                               f"1e-6, {GRAD_ATOL})")
+        worst = max(worst, off)
+        state, _ = step(state, xyz_d, batch)
+    torch.backends.cudnn.deterministic = saved
+    torch.cuda.synchronize()
+    reset_launches()
+    seconds, losses, state = timed_steps(step, state, xyz_d, batch)
+    counts = launches()
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SmokeFailure(f"extra_modes train: losses {losses}")
+    pyramid_ran("extra_modes train", counts, "zbuffer_exact",
+                WARMUP + TIMED)
+    del batch, step
+    # serve 2 requests from the trained state
+    ckpt = os.path.join(workdir, "ckpt_extra_modes")
+    CK.save_checkpoint(ckpt, TP.flat_from_state(state),
+                       config={"input_format": EXTRA_FORMAT})
+    del state, net
+    torch.cuda.empty_cache()
+    h, w = HW
+    K = np.array([[720.0, 0, w / 2], [0, 720.0, h / 2], [0, 0, 1]])
+    poses = []
+    for i in range(2):
+        pose = np.eye(4)
+        pose[0, 3] = 0.05 * i
+        poses.append(pose)
+    scene = {"pointcloud": {"xyz": xyz, "normals": normals},
+             "intrinsic_matrix": K, "view_matrix": poses,
+             "point_sizes": None, "config": {"viewport_size": (w, h)}}
+    r = NeuralRenderer(scene, ckpt, device=dev)
+    predicted = predicted_conv_calls(cfg.net_in_channels)
+    at8 = predicted_conv_calls(8)   # the predicates alone, at 8 channels
+    if (at8["gated_conv_kxk_wgmma"], at8["gated_conv_1x1_wgmma"]) != (
+            ctx["wgmma_per_frame"], ctx["conv1x1_per_frame"]):
+        raise SmokeFailure(f"extra_modes: the width predicates give {at8} "
+                           "at 8 channels, the recorded frame "
+                           f"{ctx['wgmma_per_frame']} and "
+                           f"{ctx['conv1x1_per_frame']} loop calls")
+    torch.cuda.synchronize()
+    reset_launches()
+    each = []
+    imgs = []
+    for p in poses:
+        t0 = time.perf_counter()
+        imgs.append(r.infer(p))
+        each.append((time.perf_counter() - t0) * 1e3)
+    counts = launches()
+    for i, img in enumerate(imgs):
+        if img.shape != (h, w, 3) or not np.isfinite(img).all():
+            raise SmokeFailure(f"extra_modes request {i}: bad frame")
+    pyramid_ran("extra_modes serve", counts, "zbuffer_exact", len(imgs))
+    conv_calls_ran("extra_modes serve", counts, predicted, len(imgs))
+    with Twins():
+        twin = r.infer(poses[0])
+    err = max_err("extra_modes request 0 vs twins", torch.from_numpy(imgs[0]),
+                  torch.from_numpy(twin), (FRAME_TOL,))
+    steady = wall_ms(lambda: r.infer_device(poses[1]))
+    # the same scene and request from serve_sort's 8-channel checkpoint
+    r8 = NeuralRenderer(scene, os.path.join(workdir, "ckpt_trained_sort"),
+                        device=dev)
+    steady8 = wall_ms(lambda: r8.infer_device(poses[1]))
+    bare = ctx.get("train_ms")
+    print(f"[extra_modes] depth + normals_l at every scale (net input 12 "
+          f"channels), {TRAIN_B}x{TRAIN_HW}^2 crops, {N_POINTS} points, "
+          f"VGG on, sort: {SPLAT_VS_TWIN} steps against the twins "
+          f"(pyramids and extra maps bit-equal, worst gradient "
+          f"{worst:.3g} x max|g|, bound {GRAD_ATOL}); {seconds * 1e3:.2f} "
+          f"ms/step (mean of {TIMED} after {WARMUP} warm-up) beside the "
+          f"bare step's " + (f"{bare:.2f}" if bare else "(not run)")
+          + f" in this run; loss {losses[0]:.6g} -> {losses[-1]:.6g}")
+    print(f"[extra_modes] serve: {len(imgs)} requests at {w}x{h} from the "
+          f"trained checkpoint, {', '.join(f'{t:.2f}' for t in each)} "
+          f"ms, then {steady:.3f} ms/request (median of 5, each synced) "
+          f"beside {steady8:.3f} for serve_sort's 8-channel checkpoint on "
+          f"the same scene; "
+          f"vs all-twin max |err| {err:.3g}; conv launches "
+          f"{ {k: counts[k] for k in CONV_CALLS} } = {len(imgs)} x the "
+          f"routes' {predicted} at Cin {cfg.net_in_channels}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def check_report(report):
@@ -1987,6 +2406,9 @@ def main() -> int:
                                 torch.cuda.empty_cache())),
               ("splats", lambda: phase_splats(report, dev, workdir)),
               ("cli", lambda: phase_cli(report, ctx, dev, workdir)),
+              ("apps", lambda: phase_apps(report, ctx, dev, workdir)),
+              ("extra_modes",
+               lambda: phase_extra_modes(report, ctx, dev, workdir)),
               ("frame_vs_twin", lambda: phase_frame_vs_twin(ctx, dev)),
               ("frames", lambda: phase_frames(ctx, dev)),
               ("r2_band_route", lambda: phase_r2_band_route(dev)),

@@ -23,9 +23,11 @@ pool stays here as the reference the tests and the kernel bench hold it
 to. Semantics are the JAX package's, bit for bit: 'sort' keeps per pixel
 the least depth, ties to the least id; 'pallas'/'scatter1' the min
 packed key, ties within one depth bin broken by the least id, the
-winner's depth exact; empty pixels are -1 with depth 0. Raster methods
-and options the port does not have yet raise ``NotImplementedError``
-instead of switching to other semantics.
+winner's depth exact; empty pixels are -1 with depth 0. Supersampling
+needs nothing here: the pipeline and the renderer rasterize at ``ss``
+times the size. The bench-only methods ('sort2', 'sort1q', 'scatter')
+and screen-space point jitter (``ops/augment.py``, not ported) raise
+``NotImplementedError`` instead of switching to other semantics.
 """
 
 from __future__ import annotations

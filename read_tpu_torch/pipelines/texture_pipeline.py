@@ -5,12 +5,12 @@ Counterpart of ``read_tpu/pipelines/texture_pipeline.py``:
 ``config_from_dict`` (:155-215), ``TrainState``, ``_guard_grad`` and the
 optimizers (:218-250), ``create_state`` (:253-299, point texture), a
 whole ``TrainState`` to and from its checkpoint leaves
-(``state_from_flat``/``flat_from_state``), ``_build_pyramid``
-(:345-415, the point-texture branch: 1-px points, splats and per-point
-or z-scaled sizes),
-``_forward`` (:418-449), ``_losses`` (:452-518), ``make_train_step``
-(:521-632), ``make_eval_step`` (:635-659) and ``ReduceLROnPlateau``
-(:662-684).
+(``state_from_flat``/``flat_from_state``), ``_extra_maps`` (:302-343),
+``_build_pyramid`` (:345-415, the point-texture branch: 1-px points,
+splats and per-point or z-scaled sizes, supersampling, the extra input
+modalities), ``_forward`` (:418-449), ``_losses`` (:452-518),
+``make_train_step`` (:521-632), ``make_eval_step`` (:635-659) and
+``ReduceLROnPlateau`` (:662-684).
 
 A train step is eager PyTorch under autograd: z-buffer (K5 for the
 default 'sort', K1 for 'pallas'/'scatter1', K6's splat projection for
@@ -30,12 +30,24 @@ DBlocks run under ``torch.utils.checkpoint`` (``models.unet.UNet``), as
 
 A checkpoint's ``conv_impl`` (``xla``/``im2col``/``pallas``) is checked
 and dropped: every name holds the same parameters, and training always
-runs the differentiable route. Configurations that need code the port
-does not have yet raise ``NotImplementedError``: mesh textures, extra
-input modes, supersampling, point dropout and jitter (the train
-dataset's ``drop_points``/``perturb_points``), ``label_in_input``,
-bfloat16 training and the VGG ensemble; the fields that only those use
-(``texture_size``, ``label_in_input``) are left out.
+runs the differentiable route.
+
+With ``supersampling`` ss > 1 the pyramid rasterizes and gathers at
+``ss`` times the size and each level is resized down by ``ss``
+(``F.interpolate`` bilinear with ``antialias=True``, which is what
+``jax.image.resize(..., 'bilinear')`` does on a downscale). Extra input
+modalities (``extra_modes``, from the input format) are render-mode maps
+(:mod:`read_tpu_torch.ops.render_modes`) of each level's index and depth
+maps, concatenated before the descriptors; the view-dependent modes
+(``normals_l/r/d``) take the batch's camera-to-world ``view_matrix``,
+and with ``label_in_input`` a rendered ``labels`` map becomes the
+batch's ground-truth ``label`` image masked by rendered occupancy.
+
+Configurations that need code the port does not have yet raise
+``NotImplementedError``: mesh textures, point dropout and jitter (the
+train dataset's ``drop_points``/``perturb_points``), bfloat16 training
+and the VGG ensemble; ``texture_size``, which only mesh textures use, is
+left out.
 """
 
 from __future__ import annotations
@@ -46,12 +58,14 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from read_tpu_torch.criterions import losses as L
 from read_tpu_torch.criterions import vgg as V
 from read_tpu_torch.models import texture as T
 from read_tpu_torch.models.unet import UNet
 from read_tpu_torch.ops import rasterize as R
+from read_tpu_torch.ops import render_modes as RM
 from read_tpu_torch.utils import convert as CV
 from read_tpu_torch.utils import fp32
 
@@ -74,7 +88,7 @@ _CRITERIA = ("vgg", "vgg_pytorch", "vgg_mix", "vgg_partial", "vgg_ens",
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """Static experiment hyperparameters: ``read_tpu``'s fields and
-    defaults (less the two named in the module docstring), with
+    defaults (less ``texture_size`` and ``conv_impl``), with
     ``dtype`` named 'float32' or 'bfloat16'."""
     crop_size: Tuple[int, int] = (256, 256)      # (h, w)
     descriptor_size: int = 8
@@ -102,6 +116,7 @@ class PipelineConfig:
     drop_points: float = 0.0
     perturb_points: float = 0.0
     extra_modes: Tuple[Tuple[str, ...], ...] = ()
+    label_in_input: bool = False
     # 'bfloat16' serves with bf16 conv operands and float32 accumulation
     # and activations; training runs float32 only
     dtype: str = "float32"
@@ -158,10 +173,8 @@ def _check_geometry(cfg: PipelineConfig) -> None:
     """Raise for the pyramid configurations the port does not have."""
     if cfg.use_mesh:
         _unported("the mesh-texture path (use_mesh)", "queue 1, item 9")
-    if cfg.extra_modes:
-        _unported("extra input modes", "queue 1, item 9")
-    if cfg.supersampling > 1:
-        _unported("supersampling", "queue 1, item 6")
+    if cfg.supersampling < 1:
+        raise ValueError(f"supersampling {cfg.supersampling} < 1")
 
 
 def _check_trainable(cfg: PipelineConfig) -> None:
@@ -196,8 +209,6 @@ def config_from_dict(d: dict, crop_size: Optional[Tuple[int, int]] = None,
     the train dataset's ``drop_points``/``perturb_points``, as
     ``read_tpu`` builds it; raises for what the port does not have."""
     tda = train_dataset_args or {}
-    if tda.get("label_in_input"):
-        _unported("label_in_input", "queue 1, item 9")
     criterion = d.get("criterion", "vgg")
     if criterion not in _CRITERIA:
         raise ValueError(f"unknown criterion {criterion!r}; expected one "
@@ -216,6 +227,7 @@ def config_from_dict(d: dict, crop_size: Optional[Tuple[int, int]] = None,
         point_radius=point_radius,
         relative_point_size=relative_ps,
         extra_modes=extra_modes,
+        label_in_input=bool(tda.get("label_in_input", False)),
         drop_points=float(tda.get("drop_points", 0.0)),
         perturb_points=float(tda.get("perturb_points", 0.0)),
         descriptor_size=int(d.get("descriptor_size", 8)),
@@ -245,25 +257,98 @@ def config_from_dict(d: dict, crop_size: Optional[Tuple[int, int]] = None,
     return cfg
 
 
+def _extra_maps(cfg: PipelineConfig, modes, ix, dep, pointcloud,
+                gt_label=None, view_m=None, tables=None):
+    """The extra modality maps of one pyramid level (``ix``/``dep``
+    ``[B, h, w]``), in ``modes`` order. ``normals_l/r/d`` colour each
+    item's points from its camera-to-world ``view_m [B, 4, 4]``, one
+    ``[B, N, 3]`` table a mode kept in ``tables`` for the other levels;
+    with ``label_in_input`` a ``labels`` map is ``gt_label [B, H, W]``
+    subsampled to the level (every ``H // h``-th pixel) and masked by
+    rendered-label occupancy."""
+    pc = pointcloud or {}
+    tables = {} if tables is None else tables
+    maps = []
+    for mode in modes:
+        if mode in RM.VIEW_DEPENDENT:
+            if view_m is None:
+                raise ValueError(
+                    f"view-dependent extra mode {mode!r} needs per-item "
+                    "view matrices: pass batch['view_matrix'] [B, 4, 4]")
+            normals = pc.get("normals")
+            if normals is None:
+                maps.append(torch.zeros(ix.shape + (3,), device=ix.device))
+                continue
+            if mode not in tables:
+                xyz = RM.to_f32(pc["xyz"], ix.device)
+                normals = RM.to_f32(normals, ix.device)
+                tables[mode] = torch.stack([
+                    RM.view_dependent_colors(mode, xyz, normals, vm)
+                    for vm in RM.to_f32(view_m, ix.device)])
+            maps.append(RM.gather_attribute(tables[mode], ix))
+            continue
+        rendered = RM.render_mode(mode, ix, dep, pc)
+        if mode == "labels" and cfg.label_in_input and gt_label is not None:
+            f = gt_label.shape[1] // ix.shape[1]
+            if f == 0:
+                raise ValueError(
+                    f"label_in_input: the label image ({gt_label.shape[1]} "
+                    f"rows) is smaller than the raster ({ix.shape[1]} rows);"
+                    " supersampling cannot carry it")
+            occ = (rendered[..., 0] > 1e-9).to(torch.float32)
+            lab = gt_label[:, ::f, ::f].to(torch.float32)
+            rendered = (lab * occ)[..., None]
+        maps.append(rendered)
+    return maps
+
+
+def _downscale(x: torch.Tensor, ss: int) -> torch.Tensor:
+    """``x [B, h, w, C]`` resized to ``[B, h // ss, w // ss, C]``:
+    bilinear with antialiasing (the triangle filter stretched by ``ss``), as
+    ``jax.image.resize(..., 'bilinear')`` downscales; contiguous NHWC
+    again for the UNet's kernels."""
+    b, hh, ww, c = x.shape
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=(hh // ss, ww // ss),
+                      mode="bilinear", align_corners=False, antialias=True)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
 def build_pyramid(cfg: PipelineConfig, texture: torch.Tensor,
                   xyz: torch.Tensor, total_m: torch.Tensor, shape=None,
-                  point_sizes=None):
-    """Rasterize the pyramid (one full-resolution z-buffer, splatted
-    where ``cfg.point_radius > 0``, exact 2x2 pair pools) and gather
-    descriptors: ``cfg.num_scales`` maps ``[B, h_i, w_i, C]``.
-    ``point_sizes`` is the scene manifest's per-point size buffer. The
-    gather's backward is the per-image scatter-add for 1-px points and
-    the summing one for splats, as ``read_tpu`` picks them."""
+                  point_sizes=None, pointcloud=None, gt_label=None,
+                  view_m=None):
+    """Rasterize the pyramid (one z-buffer at ``cfg.supersampling`` times
+    ``shape``, splatted where ``cfg.point_radius > 0``, exact 2x2 pair
+    pools) and gather descriptors: ``cfg.num_scales`` maps ``[B, h_i,
+    w_i, C]``. ``point_sizes`` is the scene manifest's per-point size
+    buffer. With ``cfg.extra_modes`` each level carries its modality
+    maps before the descriptors (:func:`_extra_maps`: ``pointcloud`` the
+    point attributes, ``gt_label`` the batch's label image, ``view_m``
+    its camera-to-world matrices); with supersampling each level is then
+    resized down (:func:`_downscale`). The gather's backward is the
+    per-image scatter-add for 1-px points and the summing one for
+    splats, as ``read_tpu`` picks them."""
     _check_geometry(cfg)
     h, w = shape or cfg.crop_size
+    ss = cfg.supersampling
     levels = R.rasterize_pyramid_pooled(
-        xyz, total_m, (h, w), num_scales=cfg.num_scales,
+        xyz, total_m, (h * ss, w * ss), num_scales=cfg.num_scales,
         point_radius=cfg.point_radius, method=cfg.raster_method,
         point_sizes=point_sizes, relative_size=cfg.relative_point_size,
         min_point_size=cfg.min_point_size, pool_impl="exact")
     sample = (T.sample_point_texture_unique if cfg.point_radius == 0
               else T.sample_point_texture)
-    return [sample(texture, ix, cfg.texture_activation) for ix, _ in levels]
+    pyr, tables = [], {}
+    for lvl, (ix, dep) in enumerate(levels):
+        x = sample(texture, ix, cfg.texture_activation)
+        if cfg.extra_modes:
+            ex = _extra_maps(cfg, cfg.extra_modes[lvl], ix, dep, pointcloud,
+                             gt_label, view_m, tables)
+            x = torch.cat(ex + [x], dim=-1)
+        if ss > 1:
+            x = _downscale(x, ss)
+        pyr.append(x)
+    return pyr
 
 
 # --------------------------------------------------------------------------
@@ -469,14 +554,19 @@ def flat_from_state(state: TrainState) -> Dict[str, np.ndarray]:
 
 def _forward(net: UNet, cfg: PipelineConfig, params: Tensors,
              batch_stats: Tensors, texture: torch.Tensor, xyz, total_m,
-             train: bool, shape=None, point_sizes=None):
+             train: bool, shape=None, batch=None):
     """Pyramid + the net's differentiable route on ``params`` and
-    ``batch_stats``: ``(out, new batch_stats, pyramid)``. With ``train``
-    BatchNorm normalizes by the batch statistics and the returned
-    statistics are moved copies; else the running ones are used and
-    returned as they are."""
+    ``batch_stats``: ``(out, new batch_stats, pyramid)``. ``batch`` may
+    carry the pyramid's other inputs (``point_sizes``, ``pointcloud``,
+    ``label``, ``view_matrix``). With ``train`` BatchNorm normalizes by
+    the batch statistics and the returned statistics are moved copies;
+    else the running ones are used and returned as they are."""
+    batch = batch or {}
     pyr = build_pyramid(cfg, texture, xyz, total_m, shape=shape,
-                        point_sizes=point_sizes)
+                        point_sizes=batch.get("point_sizes"),
+                        pointcloud=batch.get("pointcloud"),
+                        gt_label=batch.get("label"),
+                        view_m=batch.get("view_matrix"))
     if cfg.temporal_average:
         # each item's input averages with the previous item's; the
         # first keeps itself (read_tpu's batched shift-average)
@@ -548,7 +638,7 @@ def _loss_and_grads(net: UNet, cfg: PipelineConfig, vgg_params,
     texture = state.texture.detach().requires_grad_()
     out, new_bs, _ = _forward(net, cfg, params, state.batch_stats, texture,
                               xyz, batch["total_m"], train=not freeze_net,
-                              point_sizes=batch.get("point_sizes"))
+                              batch=batch)
     loss, metrics = _losses(cfg, vgg_params, out, batch)
     if cfg.reg_weight:
         loss = loss + T.point_texture_reg_loss(texture, cfg.reg_weight)
@@ -568,7 +658,10 @@ def make_train_step(net: UNet, cfg: PipelineConfig, vgg_params,
 
     ``batch``: ``'total_m' [B, 4, 4]`` and ``'target' [B, h, w, 3]``
     (+ ``'mask' [B, h, w, 1]``, ``'label' [B, h, w]``, the scene's
-    per-point sizes ``'point_sizes' [N]``). ``vgg_params``
+    per-point sizes ``'point_sizes' [N]``; with extra modes the point
+    attributes they read, ``'pointcloud'`` (``rgb``, ``xyz``, ``xyz_c``,
+    ``normals``, ``uv2d``, ``labels``), and for ``normals_l/r/d`` the
+    camera-to-world ``'view_matrix' [B, 4, 4]``). ``vgg_params``
     is a list of 13 ``(w, b)`` (a ``(pytorch, caffe)`` pair for the
     'mix' backend) or None. ``freeze_net`` fits the texture alone with
     the net in eval mode (running BatchNorm statistics, unchanged).
@@ -621,8 +714,7 @@ def make_eval_step(net: UNet, cfg: PipelineConfig, vgg_params):
             shape = tuple(batch["target"].shape[1:3])
             out, _, _ = _forward(net, cfg, state.params, state.batch_stats,
                                  state.texture, xyz, batch["total_m"],
-                                 train=False, shape=shape,
-                                 point_sizes=batch.get("point_sizes"))
+                                 train=False, shape=shape, batch=batch)
             loss, metrics = _losses(cfg, vgg_params, out, batch,
                                     per_item=True)
             metrics["loss"] = loss

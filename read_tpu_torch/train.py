@@ -14,7 +14,10 @@ console and ``splits.json`` (``setup_experiment``), and ``main``:
 - one state per scene, all sharing one net (``--net-ckpt`` loads it);
   splatted input formats (``uv_1d_p3...``, ``uv_1d_ps...``) and a
   scene manifest's per-point ``point_sizes`` go to every step's
-  z-buffer;
+  z-buffer; ``--supersampling`` rasterizes at that many times the crop;
+  extra input modalities in ``--input-format`` (``depth``,
+  ``normals_l``, ...) and ``label_in_input`` get their point attributes
+  (on the device once a scene), label images and view matrices;
   ``--resume`` restores whole states (net, textures, both optimizers,
   step) from ``read_tpu``-format checkpoints; ``--freeze-net`` fits the
   textures alone;
@@ -46,8 +49,8 @@ PyYAML, ``cv2``, ``imageio``, ``matplotlib`` or ``tensorboardX``:
 configs may be JSON (:mod:`read_tpu_torch.utils.config_io`), images PNG
 (:mod:`read_tpu_torch.data.image_io`). What the port does not have yet
 (``--pipeline pix2pix|rgb_texture``, ``--mesh``, ``--use-mesh``,
-``--dtype bfloat16``, extra modes, supersampling, point dropout) exits
-with the ``ROADMAP.md`` item that will bring it.
+``--dtype bfloat16``, point dropout and jitter, ``vgg_ens``) exits with
+the ``ROADMAP.md`` item that will bring it.
 """
 
 from __future__ import annotations
@@ -386,6 +389,7 @@ def _run(args, exp_dir: str, device: torch.device) -> int:
     from read_tpu_torch.data.dataset import BatchIterator, PrefetchIterator
     from read_tpu_torch.data.scenes import get_datasets
     from read_tpu_torch.models import texture as T
+    from read_tpu_torch.ops import render_modes as RM
     from read_tpu_torch.pipelines import texture_pipeline as TP
     from read_tpu_torch.utils import ckpt as CK
     from read_tpu_torch.utils.perform import AccumDict
@@ -505,17 +509,40 @@ def _run(args, exp_dir: str, device: torch.device) -> int:
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     psize_cache: Dict[int, Optional[torch.Tensor]] = {}
+    pc_cache: Dict[int, Dict[str, torch.Tensor]] = {}
+    extra = {m for g in cfg.extra_modes for m in g}
+    view_dependent = bool(extra & set(RM.VIEW_DEPENDENT))
 
-    def add_point_sizes(dev_batch: dict, sid: int) -> None:
-        """The scene manifest's per-point sizes (``point_sizes`` key),
-        on the device once a scene, into the batch where there are
-        any."""
+    def point_attrs(sid: int) -> Dict[str, torch.Tensor]:
+        """The point attributes the extra modes read, on the device once
+        a scene (``read_tpu``'s ``pc_cache``)."""
+        if sid not in pc_cache:
+            pc = scene_by_id[sid].scene_data["pointcloud"]
+            pc_cache[sid] = {a: to_dev(np.asarray(pc[a], np.float32))
+                             for a in RM.point_attributes(extra)
+                             if pc.get(a) is not None}
+        return pc_cache[sid]
+
+    def add_scene_inputs(dev_batch: dict, sid: int, batch: dict,
+                         train: bool) -> None:
+        """The pyramid's inputs beyond the poses: the scene manifest's
+        per-point sizes (``point_sizes``, on the device once a scene),
+        and with extra modes the point attributes (``pointcloud``), the
+        label image under ``label_in_input`` (training batches) and the
+        camera-to-world ``view_matrix`` for ``normals_l/r/d``."""
         if sid not in psize_cache:
             ps = scene_by_id[sid].scene_data.get("point_sizes")
             psize_cache[sid] = None if ps is None else to_dev(
                 np.asarray(ps, np.float32).reshape(-1))
         if psize_cache[sid] is not None:
             dev_batch["point_sizes"] = psize_cache[sid]
+        if not extra:
+            return
+        dev_batch["pointcloud"] = point_attrs(sid)
+        if train and cfg.label_in_input:
+            dev_batch["label"] = to_dev(batch["label"])
+        if view_dependent:
+            dev_batch["view_matrix"] = to_dev(batch["view_matrix"])
 
     def dump_train_composite(k: int, im, batch, dev_batch, xyz):
         """out | target | depth (viridis) grids stacked, ``comp_{k %
@@ -607,7 +634,7 @@ def _run(args, exp_dir: str, device: torch.device) -> int:
                 dev_batch["mask"] = to_dev(batch["mask"])
             if args.num_classes:
                 dev_batch["label"] = to_dev(batch["label"])
-            add_point_sizes(dev_batch, sid)
+            add_scene_inputs(dev_batch, sid, batch, train=True)
             st, metrics, im = train_step(states.activate(sid),
                                          xyz_cache[sid], dev_batch)
             states[sid] = st
@@ -668,7 +695,8 @@ def _run(args, exp_dir: str, device: torch.device) -> int:
                     npad = bs - len(items)
                     b = {k: np.stack([it[k] for it in items] +
                                      [items[-1][k]] * npad)
-                         for k in ("total_m", "target", "mask")}
+                         for k in ("total_m", "target", "mask",
+                                   "view_matrix")}
                     b["filenames"] = [it["target_filename"]
                                       for it in items]
                     yield b
@@ -679,7 +707,7 @@ def _run(args, exp_dir: str, device: torch.device) -> int:
                              "target": to_dev(batch["target"])}
                 if cfg.use_mask:
                     dev_batch["mask"] = to_dev(batch["mask"])
-                add_point_sizes(dev_batch, ds.id)
+                add_scene_inputs(dev_batch, ds.id, batch, train=False)
                 img, metrics = eval_step(st, xyz, dev_batch)
                 n_batches += 1
                 # per-item [B] metrics; the padded tail is dropped below

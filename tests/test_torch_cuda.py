@@ -26,7 +26,13 @@ held to the f32 bound in both operand modes (f32 operands as three TF32
 products; bf16 also within the bf16 bound). One training step on the GPU
 (K5, cuDNN) is held against the same step on the CPU (the twins) from
 the same state: losses rtol 1e-3, running statistics atol 1e-5. The
-device-guard test needs two cards and skips on one.
+device-guard test needs two cards and skips on one. Slice 4's shapes:
+the pyramid of a supersampled frame (1M points at 2432x736) bit-equal;
+K2, K3 and K4 at the extra-input widths (Cin 9 and 12; the SCMs' Cout
+op - 12 = 52, 116, 244 and op - 9 = 55), which the routes send to the
+tile loops, within the f32 bound; raw render modes on the card against
+the CPU on the card's maps (gathers bit-equal, the float modes within
+``tests/test_torch_render_modes.py``'s bounds but normals_l/r/d at 4e-7).
 """
 
 import numpy as np
@@ -1042,3 +1048,96 @@ def test_wrappers_launch_on_their_tensors_device(dev):
         torch.cuda.synchronize(d1)
         assert got.device == d1 and torch.cuda.current_device() == 0
         torch.testing.assert_close(got, want, **F32)
+
+
+@pytest.mark.parametrize("method", ["sort", "pallas"])
+def test_zbuffer_pyramid_at_supersampled_frame(dev, method):
+    """The serving frame at ``supersampling`` 2: 1M points at 2432x736,
+    4 levels, the exact pool, bit-equal to the twin."""
+    hw = (736, 2432)
+    xyz, ms = frame_inputs(1, 1_000_000, hw, focal=1440.0)
+    xyz, ms = torch.from_numpy(xyz).to(dev), torch.from_numpy(ms).to(dev)
+    got = RK.zbuffer_pyramid(xyz, ms, *hw, 4, method, "exact")
+    want = RK.zbuffer_pyramid_plain(xyz, ms, *hw, 4, method, "exact")
+    torch.cuda.synchronize()
+    for (ig, dg), (iw, dw) in zip(got, want):
+        assert torch.equal(ig, iw) and torch.equal(dg, dw)
+    assert tuple(got[3][0].shape) == (1, 92, 304)
+
+
+# the extra-input widths: feat0 and each SCM's BasicConv_0 take Cin = 8 +
+# extra channels (9: one 1-channel mode, 12: depth + normals_l), each
+# SCM's BasicConv_3 gives Cout = op - Cin (op = 64, 128, 256) and its
+# BasicConv_4 takes the concat [Cin, op - Cin]
+@pytest.mark.parametrize("cin,cout", [(9, 32), (12, 32), (12, 16),
+                                      (12, 64), (9, 64)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_kxk_tile_loop_at_extra_input_widths(dev, cin, cout, bf16):
+    x, w, b, scale, offset = _conv_case(dev, (2, 23, 37), cin, cout, 3,
+                                        cin * cout)
+    assert GC.kxk_route(x, w, (b, scale, offset)) == "tile"
+    before = dict(GC.launches)
+    got = GC.gated_conv_kxk(x, w, b, scale, offset, bf16=bf16)
+    assert GC.launches["gated_conv_kxk"] == before["gated_conv_kxk"] + 1
+    assert GC.launches["gated_conv_kxk_wgmma"] == \
+        before["gated_conv_kxk_wgmma"]
+    want = GC.gated_conv_kxk_plain(x, w, b, scale, offset, bf16=bf16)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **F32)
+
+
+@pytest.mark.parametrize("op,cin", [(64, 12), (128, 12), (256, 12),
+                                    (64, 9)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_scm_1x1_tile_loops_at_extra_input_widths(dev, op, cin, bf16):
+    """An SCM's K3 (``BasicConv_3``: op/2 -> op - cin) and K4
+    (``BasicConv_4``: [cin, op - cin] -> op, no ELU) at the extra-input
+    widths: the routes send both to the tile loops, which match their
+    twins."""
+    y, w3, b3, s3, o3 = _conv_case(dev, (2, 13, 29), op // 2, op - cin, 1,
+                                   op + cin)
+    before = dict(GC.launches)
+    assert GC.conv1x1_route([y], op - cin, epilogue=(b3, s3, o3)) == "tile"
+    got3 = GC.gated_conv_1x1(y, w3, b3, s3, o3, bf16=bf16)
+    want3 = GC.gated_conv_1x1_plain(y, w3, b3, s3, o3, bf16=bf16)
+    x, w4, b4, s4, o4 = _conv_case(dev, (2, 13, 29), op, op, 1, op - cin)
+    xs = [x[..., :cin].contiguous(), got3]
+    assert GC.conv1x1_route(xs, op, epilogue=(b4, s4, o4)) == "tile"
+    got4 = GC.gated_conv_1x1_cat(xs, w4, b4, s4, o4, relu=False, bf16=bf16)
+    want4 = GC.gated_conv_1x1_cat_plain(xs, w4, b4, s4, o4, relu=False,
+                                        bf16=bf16)
+    assert GC.launches["gated_conv_1x1"] == before["gated_conv_1x1"] + 1
+    assert GC.launches["gated_conv_1x1_cat"] == \
+        before["gated_conv_1x1_cat"] + 1
+    assert GC.launches["gated_conv_1x1_wgmma"] == \
+        before["gated_conv_1x1_wgmma"]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got3, want3, **F32)
+    torch.testing.assert_close(got4, want4, **F32)
+
+
+def test_raw_modes_on_cuda_match_cpu(dev):
+    """Raw render modes on the card against the same calls on the CPU
+    with the card's index and depth maps: gathers bit-equal, the
+    view-dependent and lit modes within the CPU tests' bounds."""
+    from read_tpu_torch.ops import render_modes as RM
+    xyz, ms = frame_inputs(1, 200_000, (368, 1216))
+    rng = np.random.default_rng(0)
+    normals = rng.normal(size=xyz.shape).astype(np.float32)
+    normals /= np.linalg.norm(normals, axis=1, keepdims=True)
+    pc = {"xyz": xyz, "normals": normals,
+          "rgb": rng.uniform(size=xyz.shape).astype(np.float32)}
+    view = np.eye(4)
+    view[:3, 3] = (0.3, 0.1, 0.2)
+    idx, dep = R.rasterize_batch(torch.from_numpy(xyz).to(dev),
+                                 torch.from_numpy(ms).to(dev), 368, 1216)
+    # the card's norms (a reduction) and products round otherwise than
+    # the CPU's: 2 ulp of values in [0, 1] measured (2.4e-7)
+    for mode, tol in (("colors", 0), ("normals_m", 0), ("depth", 0),
+                      ("normals_l", 4e-7), ("normals_r", 4e-7),
+                      ("normals_d", 4e-7), ("lit", 5e-6)):
+        got = RM.render_mode(mode, idx, dep, pc, view_matrix=view)
+        want = RM.render_mode(mode, idx.cpu(), dep.cpu(), pc,
+                              view_matrix=view)
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=tol)

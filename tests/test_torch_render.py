@@ -5,6 +5,12 @@
   with ``raster_method='pallas'``, ``conv_impl='xla'``) of a tiny scene
   on disk, plain and with ``temporal_average``, and on the same weights
   under the default config (the exact ``sort`` z-buffer, K5's twin);
+- the renderer at ``supersampling=2`` ('pallas' and 'sort'), from a
+  checkpoint trained with ``depth`` + ``normals_l``, and in every raw
+  mode (``render_mode``, also from a ``uv_1d_p3`` checkpoint; gather
+  modes bit-equal, the view-dependent and lit ones within
+  ``tests/test_torch_render_modes.py``'s bounds), and the render CLI
+  writing raw-mode PNGs;
 - ``read_tpu_torch.frame.make_frame`` at a small size vs the JAX
   composition it ports (packed pyramid -> gather -> flax UNet);
 - importing every module of the port (the kernel bench included) loads
@@ -17,6 +23,7 @@ test fast; the port reads the width off the checkpoint. Tolerance:
 ``atol 5e-4, rtol 1e-3``.
 """
 
+import copy
 import functools
 import json
 import os
@@ -28,6 +35,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from read_tpu.models import texture as JT
 from read_tpu.models.unet import UNet as FlaxUNet
@@ -37,12 +45,25 @@ from read_tpu.render import NeuralRenderer as JaxRenderer
 from read_tpu.scene import io as IO
 from read_tpu.utils import ckpt as JCK
 from read_tpu_torch import render as TR
+from read_tpu_torch.data import image_io
 from read_tpu_torch.frame import make_frame
+from read_tpu_torch.utils import ckpt as CK
 from read_tpu_torch.utils import convert as CV
 
 TOL = dict(atol=5e-4, rtol=1e-3)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL_UNET = functools.partial(FlaxUNet, base_channel=8, num_res=1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """This module's CPU ops are small: one intra-op thread runs them
+    fastest when the suite's workers share the cores (8 threads a
+    worker ran them ~7x slower under load)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -128,13 +149,134 @@ def test_renderer_takes_a_scene_dict(scene_and_ckpt):
 
 
 def test_renderer_refuses_sort_and_unported_config(scene_and_ckpt):
-    """'sort' renders now (below); a raster method that is still not
-    ported, and supersampling, raise."""
+    """'sort' renders now (below), and supersampling (below); a raster
+    method that is still not ported raises."""
     scene, ckpt, _ = scene_and_ckpt
     with pytest.raises(NotImplementedError, match="sort2"):
         TR.NeuralRenderer(scene, ckpt, raster_method="sort2", device="cpu")
-    with pytest.raises(NotImplementedError):
-        TR.NeuralRenderer(scene, ckpt, supersampling=2, device="cpu")
+
+
+@pytest.mark.parametrize("method", ["pallas", "sort"])
+def test_supersampled_renderer_matches_read_tpu(scene_and_ckpt,
+                                                jax_renderers, method):
+    """``supersampling=2``: the pyramid rasterized at 96x64 and resized
+    down, then the UNet at 48x32, against read_tpu's renderer rebuilt at
+    ss 2 with the same z-buffer."""
+    scene, ckpt, poses = scene_and_ckpt
+    jr = copy.copy(jax_renderers[0])
+    jr.cfg = jr.cfg.replace(supersampling=2, raster_method=method)
+    jr._build_fns()
+    tr = TR.NeuralRenderer(scene, ckpt, supersampling=2,
+                           raster_method=method, device="cpu")
+    assert tr.cfg.supersampling == jr.cfg.supersampling == 2
+    for pose in poses:
+        pyr = tr.pyramid(pose)
+        assert [tuple(x.shape) for x in pyr] == [
+            (1, 32 >> i, 48 >> i, 8) for i in range(4)]
+        want = jr.infer(pose)
+        np.testing.assert_allclose(tr.infer(pose), want, **TOL)
+    plain = TR.NeuralRenderer(scene, ckpt, raster_method=method,
+                              device="cpu").infer(poses[0])
+    assert float(np.abs(plain - want).max()) > 0
+
+
+EXTRA_FMT = ", ".join(
+    f"uv_1d_p1{s}, depth{s}, normals_l{s}"
+    for s in [""] + [f"_ds{i}" for i in range(1, 5)])
+RAW_MODES = ("colors", "xyz", "depth", "uv_1d", "uv_2d", "labels", "pca",
+             "normals_m", "normals_l", "normals_r", "normals_d", "lit")
+# as tests/test_torch_render_modes.py; and 'depth', normalized over the
+# covered range (~7e-3 of NDC depth here): read_tpu's jitted raster
+# rounds a depth 1 ulp (6e-8) off the eager one now and then, 8.4e-6
+# after the normalization
+RAW_TOL = {"normals_l": 2e-7, "normals_r": 2e-7, "normals_d": 2e-7,
+           "lit": 5e-6, "depth": 2e-5}
+
+
+@pytest.fixture(scope="module")
+def extra_scene(tmp_path_factory):
+    """A tiny scene with per-point normals and colours, poses that turn,
+    a JAX checkpoint trained with ``depth`` + ``normals_l`` at every
+    scale ('sort'; a 12-channel net input), and read_tpu's renderer of
+    it."""
+    root = tmp_path_factory.mktemp("extra_scene")
+    rng = np.random.default_rng(3)
+    n, w, h = 3000, 48, 32
+    xyz = rng.uniform(-2, 2, size=(n, 3)).astype(np.float32)
+    xyz[:, 2] -= 6.0
+    normals = rng.normal(size=(n, 3)).astype(np.float32)
+    normals /= np.linalg.norm(normals, axis=1, keepdims=True)
+    IO.write_ply(str(root / "pc.ply"), xyz,
+                 rng.uniform(0, 1, size=(n, 3)).astype(np.float32), normals)
+    K = np.array([[40.0, 0, w / 2], [0, 40.0, h / 2], [0, 0, 1]])
+    np.savetxt(root / "cam.txt", np.vstack([[w, h, 0], K]))
+    poses = []
+    for i in range(2):
+        a = 0.15 * (i + 1)
+        pose = np.eye(4)
+        pose[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                        [-np.sin(a), 0, np.cos(a)]]
+        pose[:3, 3] = (0.2 * i, 0.1, 0.0)
+        poses.append(pose)
+    np.savetxt(root / "poses.dat", np.stack(poses).reshape(-1, 4))
+    with open(root / "scene.yaml", "w") as f:
+        f.write(f"viewport_size: [{w}, {h}]\npointcloud: pc.ply\n"
+                "intrinsic_matrix: cam.txt\nview_matrix: poses.dat\n")
+    config = {"conv_impl": "xla", "input_format": EXTRA_FMT}
+    cfg = JTP.config_from_dict(config, crop_size=(32, 32))
+    assert cfg.net_in_channels == 12
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JTP, "UNet", SMALL_UNET)
+        state, _ = JTP.create_state(jax.random.PRNGKey(0), cfg, n_points=n)
+        stats = jax.tree_util.tree_map(
+            lambda a: rng.uniform(0.5, 2.0, a.shape).astype(np.float32),
+            state.batch_stats)
+        ckpt = str(root / "ckpt")
+        JCK.save_checkpoint(ckpt, state.replace(batch_stats=stats),
+                            config=config)
+        jr = JaxRenderer(str(root / "scene.yaml"), ckpt)
+    return str(root / "scene.yaml"), ckpt, poses, jr
+
+
+def test_extra_modes_renderer_matches_read_tpu(extra_scene):
+    """A checkpoint trained with ``depth`` + ``normals_l``: the port
+    renders its 12-channel input (the scene's normals and world xyz, the
+    request's view matrix) as read_tpu does."""
+    scene, ckpt, poses, jr = extra_scene
+    tr = TR.NeuralRenderer(scene, ckpt, device="cpu")
+    assert tr.cfg.extra_modes == jr.cfg.extra_modes
+    assert tr.cfg.net_in_channels == 12
+    assert sorted(tr.pc_attrs) == sorted(jr.pc_attrs) == ["normals", "xyz"]
+    for pose in poses:
+        np.testing.assert_allclose(tr.infer(pose), jr.infer(pose), **TOL)
+
+
+@pytest.mark.parametrize("mode", RAW_MODES)
+def test_raw_modes_match_read_tpu(extra_scene, tmp_path, mode):
+    """Every raw mode of ``render_mode`` against read_tpu's on the same
+    checkpoint ('sort'); the same frames from a ``uv_1d_p3`` copy of it,
+    since the raw modes rasterize 1-px points whatever the format."""
+    scene, ckpt, poses, jr = extra_scene
+    tr = TR.NeuralRenderer(scene, ckpt, device="cpu")
+    flat, meta = CK.load_checkpoint(ckpt)
+    p3 = str(tmp_path / "ckpt_p3")
+    CK.save_checkpoint(p3, flat, config=dict(
+        meta["config"], input_format=EXTRA_FMT.replace("uv_1d_p1",
+                                                       "uv_1d_p3")))
+    t3 = TR.NeuralRenderer(scene, p3, device="cpu")
+    assert t3.cfg.point_radius == 1
+    for pose in poses:
+        want = jr.render_mode(mode, pose)
+        got = tr.render_mode(mode, pose)
+        assert got.shape == want.shape == (32, 48,
+                                           2 if mode == "uv_2d" else 3)
+        assert got.dtype == np.float32
+        if mode in RAW_TOL:
+            np.testing.assert_allclose(got, want, rtol=0,
+                                       atol=RAW_TOL[mode])
+        else:
+            np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(t3.render_mode(mode, pose), got)
 
 
 def test_renderer_sort_checkpoint_matches_read_tpu(scene_and_ckpt,
@@ -167,6 +309,21 @@ def test_render_cli_writes_frames(scene_and_ckpt, tmp_path, capsys):
     assert rc == 0
     assert sorted(os.listdir(out)) == ["000000.png", "000001.png"]
     assert '"frames": 2' in capsys.readouterr().out
+
+
+def test_render_cli_writes_raw_mode_pngs(extra_scene, tmp_path):
+    """``--mode normals_l``: one PNG per pose of the manifest, the
+    renderer's raw frame as 8-bit."""
+    scene, ckpt, _, _ = extra_scene
+    out = tmp_path / "raw"
+    assert TR.main(["--scene", scene, "--ckpt", ckpt, "--out", str(out),
+                    "--mode", "normals_l", "--device", "cpu"]) == 0
+    assert sorted(os.listdir(out)) == ["000000.png", "000001.png"]
+    tr = TR.NeuralRenderer(scene, ckpt, device="cpu")
+    for i, pose in enumerate(tr.scene_data["view_matrix"]):
+        want = (tr.render_mode("normals_l", pose) * 255).astype(np.uint8)
+        np.testing.assert_array_equal(   # imread gives cv2's BGR
+            image_io.imread(str(out / f"{i:06}.png"))[..., ::-1], want)
 
 
 def test_render_cli_needs_cuda_unless_told_cpu(scene_and_ckpt, tmp_path,

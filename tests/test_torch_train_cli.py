@@ -27,6 +27,9 @@ the runs and their checkpoints small.
   against no budget: the same states and metrics;
 - a subprocess run with ``cv2``, ``yaml``, ``imageio``, ``matplotlib``
   and ``tensorboardX`` blocked from import;
+- ``--supersampling 2`` and an ``--input-format`` with extra modalities
+  (``colors``, ``normals_l``) train a step, validate and write a
+  checkpoint the renderer loads;
 - every unported flag exits naming its ``ROADMAP.md`` item, and without
   a CUDA device the CLI refuses to run unless told ``cpu``.
 """
@@ -54,6 +57,7 @@ from read_tpu.scene import camera
 from read_tpu.scene import io as JIO
 from read_tpu.utils import ckpt as JCK
 from read_tpu.utils import perform as JPERF
+from read_tpu_torch import render as TR
 from read_tpu_torch import train as TRAIN
 from read_tpu_torch.models.unet import UNet
 from read_tpu_torch.pipelines import texture_pipeline as TP
@@ -376,10 +380,6 @@ def test_cli_runs_without_optional_packages(setup, tmp_path):
     (["--mesh", "2x2"], "item 12"),
     (["--use-mesh"], "item 9"),
     (["--dtype", "bfloat16"], "item 8"),
-    (["--supersampling", "2"], "item 6"),
-    (["--input-format", "uv_1d_p1, depth, uv_1d_p1_ds1, depth_ds1, "
-      "uv_1d_p1_ds2, depth_ds2, uv_1d_p1_ds3, depth_ds3, uv_1d_p1_ds4, "
-      "depth_ds4"], "item 9"),
     (["--criterion", "vgg_ens"], "'Not ported'"),
     ("drop_points", "item 9"),
 ])
@@ -396,6 +396,61 @@ def test_unported_flags_exit_with_their_item(setup, tmp_path, flags, item):
         flags = ["--config", str(setup["root"] / "config.json")] + flags
     with pytest.raises(SystemExit, match=f"ROADMAP.*{item}"):
         TRAIN.main(flags + ["--save-dir", str(tmp_path / "logs")])
+
+
+def _one_step(setup, name, flags):
+    """One train step and one val pass of toyA with ``flags``; ``(exp
+    dir, its history, the target shapes the pyramids were rasterized
+    at)``."""
+    shapes = []
+    real = TP.R.rasterize_pyramid_pooled
+
+    def spy(xyz, total_m, target_shape, *a, **k):
+        shapes.append(tuple(target_shape))
+        return real(xyz, total_m, target_shape, *a, **k)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TP.R, "rasterize_pyramid_pooled", spy)
+        exp = _run(setup["root"], name, flags + [
+            "--epochs", "1", "--max-steps-per-epoch", "1",
+            "--dataset-names", "toyA"])
+    with open(exp / "history.json") as f:
+        (hist,) = json.load(f)
+    assert np.isfinite([hist["train_loss"], hist["val_loss"]]).all()
+    assert len(hist["train_timing"]["step_ms"]) == 1
+    return exp, hist, shapes
+
+
+def test_cli_trains_with_supersampling(setup):
+    """``--supersampling 2``: the train step and the val pass rasterize
+    at twice the crop and frame; the checkpoint renders at ss 2."""
+    exp, hist, shapes = _one_step(setup, "ss2", ["--supersampling", "2"])
+    assert shapes == [(2 * HW, 2 * HW)] * (1 + hist["val_timing"]["batches"])
+    r = TR.NeuralRenderer(setup["config"]["paths_file"].replace(
+        "paths.json", "toyA/scene.json"),
+        str(exp / "checkpoints" / "best_toyA"), device="cpu")
+    assert r.cfg.supersampling == 2
+
+
+def test_cli_trains_an_extra_mode_format(setup):
+    """``--input-format`` with ``colors`` and ``normals_l`` at every
+    scale: the net takes 8 + 3 + 3 channels, the steps get the scene's
+    colours, world xyz and per-item view matrices (``normals_l`` raises
+    without them; the toy scenes have no normals, so its map is 0), and
+    the checkpoint renders with the same attributes."""
+    fmt = ", ".join(f"uv_1d_p1{s}, colors{s}, normals_l{s}"
+                    for s in [""] + [f"_ds{i}" for i in range(1, 5)])
+    exp, _, _ = _one_step(setup, "extra", ["--input-format", fmt])
+    best = str(exp / "checkpoints" / "best_toyA")
+    flat, meta = CK.load_checkpoint(best)
+    assert meta["config"]["input_format"] == fmt
+    assert flat["params/feat0/conv_fm/kernel"].shape[2] == 14
+    r = TR.NeuralRenderer(setup["config"]["paths_file"].replace(
+        "paths.json", "toyA/scene.json"), best, device="cpu")
+    assert r.cfg.net_in_channels == 14
+    assert sorted(r.pc_attrs) == ["rgb", "xyz"]
+    img = r.infer(r.scene_data["view_matrix"][0])
+    assert img.shape == (HW, HW, 3) and np.isfinite(img).all()
 
 
 def test_no_cuda_refuses_without_cpu_flag(setup, tmp_path, monkeypatch):
