@@ -122,7 +122,40 @@ without a device it exits non-zero at once. It
    each K2/K3/K4 wrapper and wgmma loop launched as the width
    predicates give (``predicted_conv_calls``: 79 K2 calls on its loop
    and 3, not 9, on the 1x1 loop a frame), timed beside serve_sort's
-   8-channel checkpoint on the same scene.
+   8-channel checkpoint on the same scene;
+13. ``augment``: K1, K5 and the splat projection with the NDC jitter
+   (``rasterize_kernels``' ``jitter``) bit-equal to their twins at 1M
+   points, 1216x368 B=1 and 2 and 256x256 B=8, with 1 px and 16 px of
+   jitter (centres past every edge), the pyramid in all four
+   combinations too; each timed at the step's shape beside itself
+   without the jitter; then the augmented step (``drop_points`` 0.1,
+   ``perturb_points`` 1.0: values no recipe sets, chosen to exercise the
+   path) at the bench point with ``sort`` (K5), ``pallas`` (K1) and
+   ``uv_1d_p3`` (the splat): 3 steps against their twins with the same
+   draws, 7 timed beside the same step without the augmentation, one
+   jittered projection and one pass a step, the loss falling;
+14. ``mesh``: the street of ``drive_world`` as a 0.79M-face mesh
+   (``mesh_street``): the triangle raster at 1216x368 timed with its
+   peak memory growth; ``use_mesh`` train steps (texture 512, 8
+   channels, the full-width UNet) with faces (no kernel of the port
+   runs in them), 3 then 7 timed, the loss falling, beside the steps
+   without faces (K5 and the uv gather: 3 against their twins,
+   pyramids bit-equal, then 7 timed); 2 requests from the trained
+   ``use_mesh`` checkpoint with faces (request 0 within 5e-4/1e-3 of
+   its all-twin frame, K2/K3/K4 as their routes predict, no z-buffer)
+   and 1 without faces (K5);
+15. ``alt_pipelines``: pix2pix at the bench point (3 steps against their
+   twins, 7 timed), rgb_texture on the street mesh with and without
+   faces (timed; without faces K5's uv maps bit-equal to the twins' and
+   a step's loss within 1e-6), and both CLIs (``--pipeline pix2pix`` on the cli
+   phase's ``drive_a``, ``--pipeline rgb_texture --use-mesh`` on the
+   street mesh written to disk with its manifest naming the mesh): 1
+   epoch of 8 steps, then ``--resume`` for one more, the checkpoints as
+   ``read_tpu.train``'s rules leave them, val PSNR printed.
+
+"The loss falling" (``loss_fell``): the mean of the last 3 timed
+losses below the mean of the phase's 3 steps from its fresh state, and
+the last below the first.
 
 The serving phases also require K4 (``gated_conv_1x1_cat``): 3 launches
 per request, the SCMs' ``BasicConv_4``; every phase that builds a
@@ -140,7 +173,11 @@ requests (``train_launches``: its training steps), ``zbuffer_keys``
 (K6's given-key kernel), K7 and K8 on
 the kernel bench's first pass, K8's on K2's wgmma loop with its tile-loop
 launches as ``tile_launches``; K2's loop also on the bf16 requests,
-``bf16_launches``), error, its time, its twin's, the library call's and
+``bf16_launches``), K1, K5 and the splat projection once more as
+their jitter variants (``zbuffer_jitter``, ``zbuffer_exact_jitter``,
+``zbuffer_splat_jitter``: launches on the augmented steps, times at
+the step's shape beside ``unjittered_ms``), error, its time, its
+twin's, the library call's and
 its bound (``shape`` says what they were measured on); K1, K5, K6 and
 the pyramid add their device time in a CUDA graph (``graph_ms``), the
 pyramid its device operations and the training step's numbers
@@ -207,6 +244,15 @@ KERNELS = {
     # by the same C entry)
     "zbuffer_splat": ("read_tpu_torch/csrc/zbuffer.cu",
                       "read_tpu/ops/rasterize_pallas.py:234"),
+    # K1, K5 and the splat projection run with the NDC jitter of the
+    # augmented step (read_tpu/ops/rasterize.py:328-331, fed by
+    # read_tpu/ops/augment.py), counted apart
+    "zbuffer_jitter": ("read_tpu_torch/csrc/zbuffer.cu",
+                       "read_tpu/ops/rasterize_pallas.py:145"),
+    "zbuffer_exact_jitter": ("read_tpu_torch/csrc/zbuffer.cu",
+                             "read_tpu/ops/rasterize_pallas.py:40"),
+    "zbuffer_splat_jitter": ("read_tpu_torch/csrc/zbuffer.cu",
+                             "read_tpu/ops/rasterize_pallas.py:234"),
     "gated_conv3x3_r2_wgmma": ("read_tpu_torch/csrc/gated_conv_wgmma.cuh",
                                "scripts/gated_conv_pallas_r2.py:73"),
     "gated_conv1x1_r2_wgmma": ("read_tpu_torch/csrc/gated_conv_1x1_wgmma.cuh",
@@ -388,23 +434,28 @@ def phase_zbuffer_exact(report, dev):
         xyz, ms, hw)[2]["zbuffer_exact"])
 
 
-def check_pyramids(label, xyz, ms, hw):
+def check_pyramids(label, xyz, ms, hw, jitter=None):
     """``RK.zbuffer_pyramid`` to 4 levels in every combination of
     z-buffer and pool against its twin, every level bit-equal; each call
-    launches one projection and one pass."""
+    launches one projection (its jitter variant with ``jitter``) and one
+    pass."""
     import torch
     from read_tpu_torch.ops import rasterize_kernels as RK
     for method, pool in itertools.product(("pallas", "sort"),
                                           ("packed", "exact")):
         before = dict(RK.launches)
-        got = RK.zbuffer_pyramid(xyz, ms, *hw, 4, method, pool)
+        got = RK.zbuffer_pyramid(xyz, ms, *hw, 4, method, pool,
+                                 jitter=jitter)
         ran = {k: v - before[k] for k, v in RK.launches.items()
                if v != before[k]}
         proj = "zbuffer_exact" if method == "sort" else "zbuffer"
+        if jitter is not None:
+            proj += "_jitter"
         if ran != {proj: 1, "zbuffer_pyramid": 1}:
             raise SmokeFailure(f"pyramid {method}+{pool} {label}: launches "
                                f"{ran}")
-        want = RK.zbuffer_pyramid_plain(xyz, ms, *hw, 4, method, pool)
+        want = RK.zbuffer_pyramid_plain(xyz, ms, *hw, 4, method, pool,
+                                        jitter=jitter)
         torch.cuda.synchronize()
         for lv, ((ig, dg), (iw, dw)) in enumerate(zip(got, want)):
             if not (torch.equal(ig, iw) and torch.equal(dg, dw)):
@@ -456,7 +507,7 @@ def phase_train_vs_twin(ctx):
                     net, cfg, vgg, state, xyz, batch, False)
             runs.append(([t for lv in levels for t in lv] + pyr,
                          metrics["loss"],
-                         {**state.layout.views(g_net), "texture": g_tex}))
+                         {**state.layout.views(g_net), "texture": g_tex[0]}))
         torch.cuda.synchronize()
     finally:
         torch.backends.cudnn.deterministic = saved
@@ -547,6 +598,26 @@ def tf32_on():
         yield
     finally:
         fp32.full_f32 = real
+
+
+def loss_fell(what, head, losses):
+    """Fail unless the timed window's ``losses`` are finite and fall
+    below ``head``, the losses of the phase's first ``SPLAT_VS_TWIN``
+    steps from its fresh state: the mean of the window's last 3 below the
+    mean of ``head``, and its last below ``head[0]``. The window alone
+    is no test: the step's loss moves by up to ~14% from one step to the
+    next, so a 7-step window falls in some runs and not in others
+    (PERF.md section 5)."""
+    losses = [float(x) for x in losses]
+    before = float(np.mean([float(x) for x in head]))
+    tail = float(np.mean(losses[-3:]))
+    if not all(np.isfinite(losses)) or not tail < before \
+            or not losses[-1] < float(head[0]):
+        raise SmokeFailure(f"{what}: losses {losses} not finite or not "
+                           f"below the first steps' (mean of the last 3 "
+                           f"{tail:.6g}, of the first {len(head)} steps "
+                           f"{before:.6g}; first step {float(head[0]):.6g})")
+    return losses
 
 
 def timed_steps(step, state, xyz, batch):
@@ -955,7 +1026,7 @@ def phase_serve(report, ctx, dev, workdir):
                                  generator=torch.Generator().manual_seed(0))
     ckpt = os.path.join(workdir, "ckpt_full_width")
     CK.save_checkpoint(ckpt, CV.flat_from_variables(net.state_dict(),
-                                                    table),
+                                                    (table,)),
                        config={"raster_method": "pallas",
                                "conv_impl": "pallas", "dtype": "float32"})
     ctx["serve"] = (scene, poses, ckpt)
@@ -1451,7 +1522,7 @@ def splat_serve(report, dev, workdir):
                                  generator=torch.Generator().manual_seed(0))
     ckpt = os.path.join(workdir, "ckpt_full_width_p3")
     CK.save_checkpoint(ckpt, CV.flat_from_variables(net.state_dict(),
-                                                    table),
+                                                    (table,)),
                        config={"raster_method": "pallas",
                                "input_format": P3_FORMAT,
                                "dtype": "float32"})
@@ -1527,7 +1598,7 @@ def splat_train(report, dev):
     batch = {"total_m": torch.from_numpy(ms).to(dev),
              "target": torch.from_numpy(target).to(dev)}
     step = TP.make_train_step(net, cfg, vgg)
-    worst = 0.0
+    worst, head = 0.0, []
     saved = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     for i in range(SPLAT_VS_TWIN):
@@ -1540,7 +1611,7 @@ def splat_train(report, dev):
                 metrics, _, _, g_net, g_tex = TP._loss_and_grads(
                     net, cfg, vgg, state, xyz, batch, False)
             runs.append(([t for lv in levels for t in lv], metrics["loss"],
-                         {**state.layout.views(g_net), "texture": g_tex}))
+                         {**state.layout.views(g_net), "texture": g_tex[0]}))
         torch.cuda.synchronize()
         (maps_k, loss_k, g_k), (maps_p, loss_p, g_p) = runs
         if not all(torch.equal(a, b) for a, b in zip(maps_k, maps_p)):
@@ -1553,6 +1624,7 @@ def splat_train(report, dev):
                                f"worst gradient {off:.3g} x max|g| (bounds "
                                f"1e-6, {GRAD_ATOL})")
         worst = max(worst, off)
+        head.append(loss_k)
         state, _ = step(state, xyz, batch)
     torch.backends.cudnn.deterministic = saved
     torch.cuda.synchronize()
@@ -1567,9 +1639,7 @@ def splat_train(report, dev):
     torch.cuda.synchronize()
     ms_step = (time.perf_counter() - t0) * 1e3 / (SPLAT_STEPS - WARMUP)
     counts = launches()
-    losses = [float(x) for x in losses]
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise SmokeFailure(f"splat train: losses {losses}")
+    losses = loss_fell("splat train", head, losses)
     if (counts["zbuffer_splat"], counts["zbuffer_pyramid"],
             counts["zbuffer_exact"]) != (SPLAT_STEPS, SPLAT_STEPS, 0):
         raise SmokeFailure(f"splat train: z-buffer launches {counts}, want "
@@ -1586,8 +1656,9 @@ def splat_train(report, dev):
           f"the twins (pyramids bit-equal, worst gradient {worst:.3g} x "
           f"max|g|, bound {GRAD_ATOL}); {ms_step:.2f} ms/step (mean of "
           f"{SPLAT_STEPS - WARMUP} after {WARMUP} warm-up), the same steps "
-          f"at r = 0 after them {p1_s * 1e3:.2f}; loss {losses[0]:.6g} -> "
-          f"{losses[-1]:.6g}; launches {counts}")
+          f"at r = 0 after them {p1_s * 1e3:.2f}; loss {float(head[0]):.6g} "
+          f"(fresh state) -> {losses[0]:.6g} -> {losses[-1]:.6g}; launches "
+          f"{counts}")
 
 
 # ---------------------------------------------------------------------------
@@ -1844,6 +1915,7 @@ def phase_cli(report, ctx, dev, workdir, n_points=N_POINTS, hw=HW,
     build_s = time.perf_counter() - t0
     recipe["paths_file"] = os.path.join(root, "paths.json")
     recipe["dataset_names"] = list(CLI_SCENES)
+    ctx["cli_recipe"] = recipe
     with open(recipe["paths_file"], "w") as f:
         json.dump(paths, f)
     config = os.path.join(root, "demo_drive.json")
@@ -2250,7 +2322,7 @@ def phase_extra_modes(report, ctx, dev, workdir):
              "pointcloud": {"xyz": xyz_d,
                             "normals": torch.from_numpy(normals).to(dev)}}
     step = TP.make_train_step(net, cfg, vgg)
-    worst = 0.0
+    worst, head = 0.0, []
     saved = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     for i in range(SPLAT_VS_TWIN):
@@ -2264,7 +2336,7 @@ def phase_extra_modes(report, ctx, dev, workdir):
                 metrics, _, _, g_net, g_tex = TP._loss_and_grads(
                     net, cfg, vgg, state, xyz_d, batch, False)
             runs.append((pyr, metrics["loss"],
-                         {**state.layout.views(g_net), "texture": g_tex}))
+                         {**state.layout.views(g_net), "texture": g_tex[0]}))
         torch.cuda.synchronize()
         (pyr_k, loss_k, g_k), (pyr_p, loss_p, g_p) = runs
         max_err(f"extra_modes step {i} pyramid (extra maps and "
@@ -2277,15 +2349,14 @@ def phase_extra_modes(report, ctx, dev, workdir):
                                f"worst gradient {off:.3g} x max|g| (bounds "
                                f"1e-6, {GRAD_ATOL})")
         worst = max(worst, off)
+        head.append(loss_k)
         state, _ = step(state, xyz_d, batch)
     torch.backends.cudnn.deterministic = saved
     torch.cuda.synchronize()
     reset_launches()
     seconds, losses, state = timed_steps(step, state, xyz_d, batch)
     counts = launches()
-    losses = [float(x) for x in losses]
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise SmokeFailure(f"extra_modes train: losses {losses}")
+    losses = loss_fell("extra_modes train", head, losses)
     pyramid_ran("extra_modes train", counts, "zbuffer_exact",
                 WARMUP + TIMED)
     del batch, step
@@ -2345,7 +2416,8 @@ def phase_extra_modes(report, ctx, dev, workdir):
           f"{worst:.3g} x max|g|, bound {GRAD_ATOL}); {seconds * 1e3:.2f} "
           f"ms/step (mean of {TIMED} after {WARMUP} warm-up) beside the "
           f"bare step's " + (f"{bare:.2f}" if bare else "(not run)")
-          + f" in this run; loss {losses[0]:.6g} -> {losses[-1]:.6g}")
+          + f" in this run; loss {float(head[0]):.6g} (fresh state) -> "
+          f"{losses[0]:.6g} -> {losses[-1]:.6g}")
     print(f"[extra_modes] serve: {len(imgs)} requests at {w}x{h} from the "
           f"trained checkpoint, {', '.join(f'{t:.2f}' for t in each)} "
           f"ms, then {steady:.3f} ms/request (median of 5, each synced) "
@@ -2354,6 +2426,794 @@ def phase_extra_modes(report, ctx, dev, workdir):
           f"vs all-twin max |err| {err:.3g}; conv launches "
           f"{ {k: counts[k] for k in CONV_CALLS} } = {len(imgs)} x the "
           f"routes' {predicted} at Cin {cfg.net_in_channels}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# Slice 5: point dropout and jitter (K1, K5 and the splat projection with
+# the NDC jitter), mesh textures with the triangle raster, and the
+# pix2pix and rgb_texture pipelines with their CLI
+# ---------------------------------------------------------------------------
+
+# the train dataset's augmentation at the bench point: no recipe in the
+# repo sets them (configs/train_example.yaml has 0.0); these values turn
+# both on at a size that moves points across pixels
+AUG = {"drop_points": 0.1, "perturb_points": 1.0}
+# jitter of the kernel checks: the step's 1 px, and 16 px for centres
+# pushed one or more pixels past every edge of the frame
+JITTER_PX = (1.0, 16.0)
+JITTERED = {"zbuffer": "zbuffer_jitter",
+            "zbuffer_exact": "zbuffer_exact_jitter",
+            "zbuffer_splat": "zbuffer_splat_jitter"}
+
+
+def jitter_for(n, px, hw, dev, seed=0):
+    """``[n, 2]`` NDC offsets of up to ``px`` pixels, drawn on ``dev``
+    (``ops.augment.pixel_jitter_offsets``)."""
+    import torch
+    from read_tpu_torch.ops import augment as A
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return A.pixel_jitter_offsets(gen, n, px, *hw, device=dev)
+
+
+def jitter_kernels(report, dev):
+    """K1, K5 and the splat projection with the NDC jitter against their
+    twins, bit for bit: the projections alone (K1's key buffer and point
+    depths, K5 with its one-level pass) and the pyramid in all four
+    combinations of z-buffer and pool at every level, and the splat (r =
+    1, sort+exact and pallas+packed) at every level; 1M points at
+    1216x368 B=1 and 2 and at 256x256 B=8, each with 1 px and 16 px of
+    jitter. Each jittered launch counts as the jitter variant. At 256x256
+    B=8 with 1 px (the augmented step's inputs) each is timed beside the
+    same kernel without the jitter, its twin and its library call
+    (``scatter_reduce_`` amin of the jittered keys)."""
+    import torch
+    from read_tpu_torch import kernel_bench as KB
+    from read_tpu_torch.frame import frame_inputs, train_inputs
+    from read_tpu_torch.kernel_bench import event_ms, graph_ms
+    from read_tpu_torch.ops import rasterize_kernels as RK
+    cases = [(f"B={b}", *frame_inputs(b, N_POINTS, HW), HW) for b in (1, 2)]
+    xyz, ms, _ = train_inputs(TRAIN_B, N_POINTS, TRAIN_HW)
+    cases.append((f"B={TRAIN_B}", xyz, ms, (TRAIN_HW, TRAIN_HW)))
+    for label, xyz, ms, hw in cases:
+        xyz = torch.from_numpy(xyz).to(dev)
+        ms = torch.from_numpy(ms).to(dev)
+        for px in JITTER_PX:
+            jit = jitter_for(xyz.shape[0], px, hw, dev)
+            what = f"{label} {hw[1]}x{hw[0]} {px:g} px"
+            before = dict(RK.launches)
+            pairs = [
+                ("zbuffer", RK.zbuffer(xyz, ms, *hw, jitter=jit),
+                 RK.zbuffer_plain(xyz, ms, *hw, jitter=jit)),
+                ("zbuffer_exact", RK.zbuffer_exact(xyz, ms, *hw, jitter=jit),
+                 RK.zbuffer_exact_plain(xyz, ms, *hw, jitter=jit))]
+            for method, pool in (("sort", "exact"), ("pallas", "packed")):
+                args = (xyz, ms, *hw, 4, method, pool, 1)
+                pairs.append(("zbuffer_splat",
+                              RK.zbuffer_splat(*args, jitter=jit),
+                              RK.zbuffer_splat_plain(*args, jitter=jit)))
+            torch.cuda.synchronize()
+            ran = {k: v - before[k] for k, v in RK.launches.items()
+                   if v != before[k]}
+            if ran != {"zbuffer_jitter": 1, "zbuffer_exact_jitter": 1,
+                       "zbuffer_splat_jitter": 2, "zbuffer_pyramid": 3}:
+                raise SmokeFailure(f"jitter {what}: launches {ran}")
+            for name, got, want in pairs:
+                got = [t for x in got for t in (x if isinstance(x, tuple)
+                                                 else (x,))]
+                want = [t for x in want for t in (x if isinstance(x, tuple)
+                                                   else (x,))]
+                bad = [i for i, (a, b) in enumerate(zip(got, want))
+                       if not torch.equal(a, b)]
+                if bad:
+                    raise SmokeFailure(f"{name} with jitter {what}: outputs "
+                                       f"{bad} differ from the twin")
+            check_pyramids(f"{label} jitter {px:g} px", xyz, ms, hw, jit)
+            print(f"[augment] K1, K5, splat (sort+exact, pallas+packed) "
+                  f"with jitter, {what}, N={xyz.shape[0]}: bit-equal to "
+                  "their twins")
+    # the augmented step's shape: times with and without the jitter
+    jit = jitter_for(xyz.shape[0], JITTER_PX[0], hw, dev)
+    lib = KB.zbuffer_yardsticks(xyz, ms, hw, jit)[2]
+    splat_kw = dict(point_radius=1, jitter=jit)
+    s_lib, _, atomics, s_flops, s_bytes = KB.splat_yardsticks(
+        xyz, ms, hw, "sort", 4, splat_kw)
+    s_flops += 2 * ms.shape[0] * xyz.shape[0]
+    s_bytes += 8 * xyz.shape[0]
+    splat_args = (xyz, ms, *hw, 4, "sort", "exact", 1)
+    rows = {
+        "zbuffer": (lambda j: RK.zbuffer(xyz, ms, *hw, jitter=j),
+                    lambda j: RK.zbuffer_plain(xyz, ms, *hw, jitter=j),
+                    lib["zbuffer"]),
+        "zbuffer_exact": (lambda j: RK.zbuffer_exact(xyz, ms, *hw, jitter=j),
+                          lambda j: RK.zbuffer_exact_plain(xyz, ms, *hw,
+                                                           jitter=j),
+                          lib["zbuffer_exact"]),
+        "zbuffer_splat": (lambda j: RK.zbuffer_splat(*splat_args, jitter=j),
+                          lambda j: RK.zbuffer_splat_plain(*splat_args,
+                                                           jitter=j),
+                          (s_lib, s_flops, s_bytes))}
+    for name, (fn, twin, (library, flops, nbytes)) in rows.items():
+        t_j = event_ms(lambda: fn(jit), iters=20)
+        g_j = graph_ms(lambda: fn(jit))
+        t_0 = event_ms(lambda: fn(None), iters=20)
+        g_0 = graph_ms(lambda: fn(None))
+        t_p = event_ms(lambda: twin(jit), iters=5)
+        row = report[JITTERED[name]]
+        row.update(ms=t_j, graph_ms=g_j, plain_ms=t_p, max_abs_err=0.0,
+                   unjittered_ms=t_0, unjittered_graph_ms=g_0,
+                   shape=f"B={TRAIN_B} N={xyz.shape[0]} {hw[1]}x{hw[0]}, "
+                         f"{JITTER_PX[0]:g} px"
+                         + (" r=1 sort+exact L=4" if name == "zbuffer_splat"
+                            else ""))
+        library_and_bound(row, library, flops, nbytes)
+        print(f"[augment] {JITTERED[name]} at {row['shape']}: kernel "
+              f"{t_j:.4f} ms (graph {g_j:.4f}) beside {t_0:.4f} (graph "
+              f"{g_0:.4f}) without the jitter; twin {t_p:.4f}; library "
+              f"{row['library_ms']:.4f}; bound {row['bound_ms']:.4f} "
+              f"({row['bound_by']})"
+              + (f"; {atomics} atomics" if name == "zbuffer_splat" else ""))
+
+
+def augment_steps(report, dev, ctx):
+    """The augmented training step at the bench point (``AUG``: dropout
+    0.1, 1 px jitter; VGG, the full-width UNet) in three variants: the
+    default ``sort`` (K5 with the jitter), ``pallas`` (K1 with the
+    jitter) and ``uv_1d_p3`` (the splat projection, K5's exact key, with
+    the jitter). Each: ``SPLAT_VS_TWIN`` steps against their twins with
+    the same draws (the step's generator is seeded by the step), pyramids
+    bit-equal, loss rel 1e-6, gradients ``GRAD_ATOL * max|g|``; then
+    ``SPLAT_STEPS`` steps (2 warm-up) with one jittered projection and
+    one pass each and the loss falling, beside the same steps without the
+    augmentation in the same window."""
+    import torch
+    from read_tpu_torch.criterions import vgg as V
+    from read_tpu_torch.frame import train_inputs
+    from read_tpu_torch.ops import rasterize as R
+    from read_tpu_torch.pipelines import texture_pipeline as TP
+    xyz, ms, target = train_inputs(TRAIN_B, N_POINTS, TRAIN_HW)
+    xyz = torch.from_numpy(xyz).to(dev)
+    batch = {"total_m": torch.from_numpy(ms).to(dev),
+             "target": torch.from_numpy(target).to(dev)}
+    vgg = V.random_vgg_params(torch.Generator().manual_seed(0), device=dev)
+    variants = (("sort", {}, "zbuffer_exact"),
+                ("pallas", {"raster_method": "pallas"}, "zbuffer"),
+                ("uv_1d_p3", {"input_format": P3_FORMAT}, "zbuffer_splat"))
+    for label, conf, proj in variants:
+        cfg = TP.config_from_dict(conf, crop_size=(TRAIN_HW, TRAIN_HW),
+                                  train_dataset_args=AUG)
+        state, net = TP.create_state(torch.Generator().manual_seed(0), cfg,
+                                     N_POINTS, device=dev)
+        step = TP.make_train_step(net, cfg, vgg)
+        worst, head = 0.0, []
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        for i in range(SPLAT_VS_TWIN):
+            runs = []
+            for twin in (False, True):
+                with Twins() if twin else contextlib.nullcontext():
+                    xyz_a, jit = TP.augment(cfg, state.step, xyz)
+                    levels = R.rasterize_pyramid_pooled(
+                        xyz_a, batch["total_m"], cfg.crop_size,
+                        cfg.num_scales, point_radius=cfg.point_radius,
+                        method=cfg.raster_method, ndc_jitter=jit)
+                    metrics, _, _, g_net, g_tex = TP._loss_and_grads(
+                        net, cfg, vgg, state, xyz_a,
+                        dict(batch, ndc_jitter=jit), False)
+                runs.append(([t for lv in levels for t in lv],
+                             metrics["loss"],
+                             {**state.layout.views(g_net),
+                              "texture": g_tex[0]}))
+            torch.cuda.synchronize()
+            (maps_k, loss_k, g_k), (maps_p, loss_p, g_p) = runs
+            if not all(torch.equal(a, b) for a, b in zip(maps_k, maps_p)):
+                raise SmokeFailure(f"augment {label} step {i}: pyramids "
+                                   "differ from the twins'")
+            rel = float((loss_k - loss_p).abs() / loss_p.abs())
+            off = max(float((g_k[k] - g).abs().max() / g.abs().max().clamp(
+                min=1e-30)) for k, g in g_p.items())
+            if not rel <= 1e-6 or not off <= GRAD_ATOL:
+                raise SmokeFailure(f"augment {label} step {i}: loss rel "
+                                   f"{rel:.3g}, worst gradient {off:.3g} x "
+                                   f"max|g| (bounds 1e-6, {GRAD_ATOL})")
+            worst = max(worst, off)
+            head.append(loss_k)
+            state, _ = step(state, xyz, batch)
+        torch.backends.cudnn.deterministic = saved
+        torch.cuda.synchronize()
+        reset_launches()
+        seconds, losses, state = timed_steps(step, state, xyz, batch)
+        counts = launches()
+        losses = loss_fell(f"augment {label}", head, losses)
+        n = WARMUP + TIMED
+        jittered = JITTERED[proj]
+        others = [k for k in ("zbuffer", "zbuffer_exact", "zbuffer_splat",
+                              *JITTERED.values()) if k != jittered]
+        if (counts[jittered], counts["zbuffer_pyramid"]) != (n, n) or \
+                any(counts[k] for k in others):
+            raise SmokeFailure(f"augment {label}: z-buffer launches "
+                               f"{counts}, want one {jittered} and one "
+                               f"pass a step")
+        report[jittered]["launches"] = counts[jittered]
+        bare_s, _, _ = timed_steps(TP.make_train_step(
+            net, dataclasses.replace(cfg, drop_points=0.0,
+                                     perturb_points=0.0), vgg),
+            state, xyz, batch)
+        report[jittered].update(train_ms_per_step=seconds * 1e3,
+                                train_bare_ms_per_step=bare_s * 1e3)
+        ctx.setdefault("augment_ms", {})[label] = (seconds * 1e3,
+                                                   bare_s * 1e3)
+        print(f"[augment] train {label}: drop_points {AUG['drop_points']}, "
+              f"perturb_points {AUG['perturb_points']} at {TRAIN_B}x"
+              f"{TRAIN_HW}^2 crops, {N_POINTS} points, VGG on: "
+              f"{SPLAT_VS_TWIN} steps against the twins with the same draws "
+              f"(pyramids bit-equal, worst gradient {worst:.3g} x max|g|, "
+              f"bound {GRAD_ATOL}); {seconds * 1e3:.2f} ms/step (mean of "
+              f"{TIMED} after {WARMUP} warm-up) beside {bare_s * 1e3:.2f} "
+              f"for the same step without the augmentation after it; loss "
+              f"{float(head[0]):.6g} (fresh state) -> {losses[0]:.6g} -> "
+              f"{losses[-1]:.6g}; {jittered} "
+              f"{counts[jittered]}, pass {counts['zbuffer_pyramid']}")
+        del state, net, step
+        torch.cuda.empty_cache()
+
+
+def phase_augment(report, ctx, dev):
+    t0 = time.perf_counter()
+    jitter_kernels(report, dev)
+    augment_steps(report, dev, ctx)
+    print(f"[augment] phase {time.perf_counter() - t0:.1f} s")
+
+
+# The mesh scene: drive_world's road and two facades as triangulated
+# grids, MESH_QUADS quads each (0.79M faces in all), with a uv atlas (one
+# third of it a grid) and a procedural RGB atlas for the targets
+MESH_QUADS = (256, 512)
+MESH_TEXTURE = 512             # the CLI's --texture-size default
+
+
+def _grid(corner, du, dv, quads, third):
+    """One grid: ``quads = (nu, nv)`` quads from ``corner`` along ``du``
+    and ``dv``; ``(verts, faces, uv)`` with uv in the atlas's
+    ``third``-th horizontal band."""
+    nu, nv = quads
+    u, v = np.meshgrid(np.linspace(0, 1, nu + 1), np.linspace(0, 1, nv + 1))
+    verts = (np.asarray(corner)[None, None] + u[..., None] * du
+             + v[..., None] * dv).reshape(-1, 3)
+    i = np.arange((nu + 1) * (nv + 1)).reshape(nv + 1, nu + 1)
+    a, b, c, d = i[:-1, :-1], i[:-1, 1:], i[1:, :-1], i[1:, 1:]
+    faces = np.concatenate([np.stack([a, b, d], -1).reshape(-1, 3),
+                            np.stack([a, d, c], -1).reshape(-1, 3)])
+    uv = np.stack([v.reshape(-1), (third + u.reshape(-1)) / 3.0], 1)
+    return verts, faces, uv
+
+
+def mesh_street():
+    """``(verts [V, 3], faces [T, 3] int32, uv [V, 2], atlas [S, S, 3])``
+    float32: the road (y = 0, |x| <= 4.5) and the facades (x = +-7.2, y
+    in [0, 9]) of ``drive_world``'s street from z = 5 to -75, each a grid
+    of ``MESH_QUADS`` quads, and a procedural ``MESH_TEXTURE``^2 atlas
+    (asphalt with lane marks; facades with window rows)."""
+    grids = [
+        _grid((-4.5, 0.0, 5.0), np.array([9.0, 0, 0]),
+              np.array([0, 0, -80.0]), MESH_QUADS, 0),
+        _grid((-7.2, 0.0, 5.0), np.array([0, 9.0, 0]),
+              np.array([0, 0, -80.0]), MESH_QUADS, 1),
+        _grid((7.2, 0.0, 5.0), np.array([0, 9.0, 0]),
+              np.array([0, 0, -80.0]), MESH_QUADS, 2)]
+    verts, faces, uv, off = [], [], [], 0
+    for v, f, t in grids:
+        verts.append(v)
+        faces.append(f + off)
+        uv.append(t)
+        off += len(v)
+    s = MESH_TEXTURE
+    y, x = np.meshgrid(np.arange(s) / s, np.arange(s) / s, indexing="ij")
+    atlas = np.empty((s, s, 3))
+    band = (y * 3).astype(int)
+    fy = y * 3 - band                   # across the grid, along x or y
+    road = 0.3 + 0.05 * np.sin(40 * x) * np.cos(31 * fy)
+    lane = (np.abs(fy - 0.5) < 0.01) & ((x * 20) % 1 < 0.5)
+    window = ((fy * 3) % 1 > 0.4) & ((fy * 3) % 1 < 0.8) & \
+        ((x * 26) % 1 > 0.3) & ((x * 26) % 1 < 0.7)
+    facade = np.stack([0.6 - 0.1 * ((x * 5).astype(int) % 2),
+                       0.45 + 0 * x, 0.35 + 0 * x], -1)
+    atlas[:] = facade
+    atlas[band == 0] = road[band == 0, None]
+    atlas[(band == 0) & lane] = (0.85, 0.85, 0.8)
+    atlas[(band > 0) & window] = (0.1, 0.12, 0.2)
+    return (np.concatenate(verts).astype(np.float32),
+            np.concatenate(faces).astype(np.int32),
+            np.concatenate(uv).astype(np.float32),
+            atlas.astype(np.float32))
+
+
+def street_poses(n, shift=0.0):
+    """``n`` camera-to-world poses along the street, 2.5 m apart (the
+    drives' trajectory)."""
+    views = []
+    for i in range(n):
+        view = np.eye(4)
+        view[:3, 3] = (0.3 * np.sin(0.4 * i) + shift, 1.6, -2.5 * i)
+        views.append(view)
+    return views
+
+
+def street_matrices(views, hw):
+    from read_tpu_torch.scene import camera
+    h, w = hw
+    K = np.array([[720.0, 0, w / 2], [0, 720.0, h / 2], [0, 0, 1]])
+    P = camera.gl_projection(K, (w, h), znear=0.1, zfar=1000.0)
+    return K, np.stack([camera.total_matrix(P, v)
+                        for v in views]).astype(np.float32)
+
+
+def render_atlas(verts, faces, uv, atlas, ms, hw):
+    """Targets: the atlas sampled at each view's triangle-raster uv
+    (``[B, h, w, 3]`` on the tensors' device; black where no face)."""
+    from read_tpu_torch.models import texture as T
+    from read_tpu_torch.ops import rasterize_mesh as RMesh
+    fi, _ = RMesh.rasterize_mesh_batch(verts, faces, ms, *hw)
+    uv_map = RMesh.interpolate_uv(verts, faces, uv, ms, fi)
+    img = T.sample_mesh_texture([atlas], uv_map)
+    return img * (fi >= 0).unsqueeze(-1).to(img.dtype)
+
+
+def phase_mesh(report, ctx, dev, workdir):
+    """Mesh textures on the street mesh (``mesh_street``: 0.79M faces,
+    ``MESH_TEXTURE``^2 tables, 8 channels, the full-width UNet, VGG):
+    the triangle raster at 1216x368 B=1, timed with its peak memory
+    growth; ``use_mesh`` train steps with faces at the bench crop
+    (256x256, B=8; no kernel of the port runs in them), ``SPLAT_VS_TWIN``
+    then ``WARMUP + TIMED`` timed with the loss falling, beside the
+    steps without faces (K5 and the uv gather: ``SPLAT_VS_TWIN`` against
+    the twins, pyramids bit-equal, then timed); the state saved as a
+    ``read_tpu`` checkpoint and 2 ``NeuralRenderer`` requests at
+    1216x368 with faces (request 0 within ``FRAME_TOL`` of its all-twin
+    frame, K2/K3/K4 and both wgmma loops as their routes predict, no
+    z-buffer) and 1 without faces (one K5 and one pass)."""
+    import torch
+    from read_tpu_torch.criterions import vgg as V
+    from read_tpu_torch.kernel_bench import max_err
+    from read_tpu_torch.ops import rasterize as R
+    from read_tpu_torch.ops import rasterize_mesh as RMesh
+    from read_tpu_torch.pipelines import texture_pipeline as TP
+    from read_tpu_torch.render import NeuralRenderer
+    from read_tpu_torch.utils import ckpt as CK
+    t_phase = time.perf_counter()
+    verts, faces, uv, atlas = mesh_street()
+    ctx["mesh_street"] = (verts, faces, uv, atlas)
+    v_d, f_d, uv_d = (torch.from_numpy(a).to(dev) for a in (verts, faces,
+                                                             uv))
+    atlas_d = torch.from_numpy(atlas).to(dev)
+    # the triangle raster alone at the frame's size
+    _, m1 = street_matrices(street_poses(1), HW)
+    m1 = torch.from_numpy(m1).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fi, _ = RMesh.rasterize_mesh_batch(v_d, f_d, m1, *HW)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    covered = float((fi >= 0).float().mean())
+    raster_ms = wall_ms(lambda: RMesh.rasterize_mesh_batch(v_d, f_d, m1,
+                                                           *HW))
+    ctx["mesh_raster"] = (raster_ms, peak)
+    print(f"[mesh] street mesh: {len(verts)} vertices, {len(faces)} faces; "
+          f"triangle raster at {HW[1]}x{HW[0]} B=1: {raster_ms:.2f} ms "
+          f"(median of 5, synced), peak memory growth {peak / 2 ** 20:.1f} "
+          f"MiB, {covered:.3f} of pixels covered")
+    # training
+    views = street_poses(TRAIN_B)
+    _, ms = street_matrices(views, (TRAIN_HW, TRAIN_HW))
+    ms = torch.from_numpy(ms).to(dev)
+    target = render_atlas(v_d, f_d, uv_d, atlas_d, ms, (TRAIN_HW, TRAIN_HW))
+    vgg = V.random_vgg_params(torch.Generator().manual_seed(0), device=dev)
+    cfg = TP.config_from_dict({"use_mesh": True,
+                               "texture_size": MESH_TEXTURE},
+                              crop_size=(TRAIN_HW, TRAIN_HW))
+    state, net = TP.create_state(torch.Generator().manual_seed(0), cfg,
+                                 len(verts), device=dev)
+    batch = {"total_m": ms, "target": target, "uv2d": uv_d, "faces": f_d}
+    step = TP.make_train_step(net, cfg, vgg)
+    # with faces no kernel of the port runs in the step (the triangle
+    # raster and the texture sample are plain PyTorch), so no twin holds
+    # it: SPLAT_VS_TWIN steps from the fresh state, then the timed window
+    head = []
+    for i in range(SPLAT_VS_TWIN):
+        state, metrics = step(state, v_d, batch)
+        head.append(metrics["loss"])
+    torch.cuda.synchronize()
+    reset_launches()
+    seconds, losses, state = timed_steps(step, state, v_d, batch)
+    counts = launches()
+    losses = loss_fell("mesh train", head, losses)
+    if any(counts[k] for k in ("zbuffer", "zbuffer_exact", "zbuffer_splat",
+                               "zbuffer_pyramid")):
+        raise SmokeFailure(f"mesh train with faces: z-buffer launches "
+                           f"{counts}")
+    # without faces: K5 and the pass over the mesh's vertices, then the
+    # uv gather; SPLAT_VS_TWIN steps from the trained state against the
+    # twins (pyramids bit-equal, gradients within GRAD_ATOL), then timed
+    nf_batch = {k: v for k, v in batch.items() if k != "faces"}
+    nf_state, worst = state, 0.0
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for i in range(SPLAT_VS_TWIN):
+        runs = []
+        for twin in (False, True):
+            with Twins() if twin else contextlib.nullcontext():
+                levels = R.rasterize_pyramid_pooled(
+                    v_d, ms, cfg.crop_size, cfg.num_scales,
+                    point_radius=cfg.point_radius, method=cfg.raster_method)
+                metrics, _, _, g_net, g_tex = TP._loss_and_grads(
+                    net, cfg, vgg, nf_state, v_d, nf_batch, False)
+            runs.append(([t for lv in levels for t in lv], metrics["loss"],
+                         {**nf_state.layout.views(g_net),
+                          **{f"texture/{j}": g for j, g in
+                             enumerate(g_tex)}}))
+        torch.cuda.synchronize()
+        (maps_k, loss_k, g_k), (maps_p, loss_p, g_p) = runs
+        if not all(torch.equal(a, b) for a, b in zip(maps_k, maps_p)):
+            raise SmokeFailure(f"mesh step {i} without faces: pyramids "
+                               "differ from the twins'")
+        rel = float((loss_k - loss_p).abs() / loss_p.abs())
+        off = max(float((g_k[k] - g).abs().max() / g.abs().max().clamp(
+            min=1e-30)) for k, g in g_p.items())
+        if not rel <= 1e-6 or not off <= GRAD_ATOL:
+            raise SmokeFailure(f"mesh step {i} without faces: loss rel "
+                               f"{rel:.3g}, worst gradient {off:.3g} x "
+                               f"max|g| (bounds 1e-6, {GRAD_ATOL})")
+        worst = max(worst, off)
+        nf_state, _ = step(nf_state, v_d, nf_batch)
+    torch.backends.cudnn.deterministic = saved
+    torch.cuda.synchronize()
+    reset_launches()
+    nf_s, nf_losses, _ = timed_steps(step, nf_state, v_d, nf_batch)
+    pyramid_ran("mesh train without faces", launches(), "zbuffer_exact",
+                WARMUP + TIMED)
+    del nf_state
+    ctx["mesh_ms"] = (seconds * 1e3, nf_s * 1e3)
+    print(f"[mesh] train use_mesh, texture {MESH_TEXTURE}^2 x 4 levels, "
+          f"{TRAIN_B}x{TRAIN_HW}^2 crops, VGG on: with faces "
+          f"{seconds * 1e3:.2f} ms/step (mean of {TIMED} after {WARMUP} "
+          f"warm-up, after {SPLAT_VS_TWIN} steps), loss {float(head[0]):.6g} "
+          f"(fresh state) -> {losses[0]:.6g} -> {losses[-1]:.6g}; without "
+          f"faces (K5 + uv gather) {SPLAT_VS_TWIN} steps against the twins "
+          f"(pyramids bit-equal, worst gradient {worst:.3g} x max|g|, bound "
+          f"{GRAD_ATOL}), {nf_s * 1e3:.2f} ms/step")
+    ckpt = os.path.join(workdir, "ckpt_mesh")
+    CK.save_checkpoint(ckpt, TP.flat_from_state(state),
+                       config={"use_mesh": True,
+                               "texture_size": MESH_TEXTURE})
+    del state, net, step, batch, nf_batch
+    torch.cuda.empty_cache()
+    # serving
+    h, w = HW
+    views = street_poses(2)
+    K, _ = street_matrices(views, HW)
+    scene = {"pointcloud": {"xyz": verts, "uv2d": uv, "faces": faces},
+             "intrinsic_matrix": K, "view_matrix": views,
+             "point_sizes": None, "config": {"viewport_size": (w, h)}}
+    r = NeuralRenderer(scene, ckpt, device=dev)
+    predicted = predicted_conv_calls(8)
+    torch.cuda.synchronize()
+    reset_launches()
+    imgs, each = [], []
+    for p in views:
+        t0 = time.perf_counter()
+        imgs.append(r.infer(p))
+        each.append((time.perf_counter() - t0) * 1e3)
+    counts = launches()
+    for i, img in enumerate(imgs):
+        if img.shape != (h, w, 3) or not np.isfinite(img).all():
+            raise SmokeFailure(f"mesh request {i}: bad frame")
+    conv_calls_ran("mesh serve", counts, predicted, len(imgs))
+    if any(counts[k] for k in ("zbuffer", "zbuffer_exact", "zbuffer_splat",
+                               "zbuffer_pyramid")):
+        raise SmokeFailure(f"mesh serve with faces: z-buffer launches "
+                           f"{counts}")
+    with Twins():
+        twin = r.infer(views[0])
+    err = max_err("mesh request 0 vs twins", torch.from_numpy(imgs[0]),
+                  torch.from_numpy(twin), (FRAME_TOL,))
+    steady = wall_ms(lambda: r.infer_device(views[1]))
+    scene_nf = dict(scene, pointcloud={"xyz": verts, "uv2d": uv})
+    r_nf = NeuralRenderer(scene_nf, ckpt, device=dev)
+    reset_launches()
+    img = r_nf.infer(views[1])
+    counts = launches()
+    pyramid_ran("mesh serve without faces", counts, "zbuffer_exact", 1)
+    conv_calls_ran("mesh serve without faces", counts, predicted, 1)
+    if img.shape != (h, w, 3) or not np.isfinite(img).all():
+        raise SmokeFailure("mesh request without faces: bad frame")
+    steady_nf = wall_ms(lambda: r_nf.infer_device(views[1]))
+    ctx["mesh_serve"] = (steady, steady_nf)
+    print(f"[mesh] serve: {len(imgs)} requests at {w}x{h} with faces, "
+          f"{', '.join(f'{t:.2f}' for t in each)} ms, then {steady:.3f} "
+          f"ms/request (median of 5, synced); vs all-twin max |err| "
+          f"{err:.3g}; conv launches as the routes predict "
+          f"({predicted}); without faces (K5 + uv gather) {steady_nf:.3f} "
+          f"ms/request; phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def write_mesh_scene(root, name, dev, verts, faces, uv, atlas, hw, poses):
+    """The street mesh on disk: its vertices as the point cloud (binary
+    PLY, atlas colours), the mesh (binary PLY with ``s``, ``t`` and the
+    faces) named by the manifest's ``mesh``, ``poses`` poses along the
+    street and PNG targets of the atlas at each view's triangle raster;
+    a JSON manifest. Returns the paths-file entry."""
+    import torch
+    from read_tpu_torch.data import image_io
+    d = os.path.join(root, name)
+    os.makedirs(os.path.join(d, "images"), exist_ok=True)
+    rgb8 = (np.clip(atlas[(uv[:, 1] * (atlas.shape[0] - 1)).astype(int),
+                          (uv[:, 0] * (atlas.shape[1] - 1)).astype(int)],
+                    0, 1) * 255).astype(np.uint8)
+    write_ply(os.path.join(d, "pc.ply"), verts, rgb8)
+    vert = np.empty(len(verts), np.dtype([
+        ("x", "<f4"), ("y", "<f4"), ("z", "<f4"), ("s", "<f4"),
+        ("t", "<f4")]))
+    vert["x"], vert["y"], vert["z"] = verts.T
+    vert["s"], vert["t"] = uv.T
+    face = np.empty(len(faces), np.dtype([("n", "u1"), ("i", "<i4", 3)]))
+    face["n"], face["i"] = 3, faces
+    header = ("ply\nformat binary_little_endian 1.0\n"
+              f"element vertex {len(verts)}\n"
+              "property float x\nproperty float y\nproperty float z\n"
+              "property float s\nproperty float t\n"
+              f"element face {len(faces)}\n"
+              "property list uchar int vertex_indices\nend_header\n")
+    with open(os.path.join(d, "mesh.ply"), "wb") as f:
+        f.write(header.encode("ascii") + vert.tobytes() + face.tobytes())
+    views = street_poses(poses)
+    K, ms = street_matrices(views, hw)
+    np.savetxt(os.path.join(d, "cam.txt"), np.vstack([[hw[1], hw[0], 0], K]))
+    np.savetxt(os.path.join(d, "poses.dat"), np.stack(views).reshape(-1, 4))
+    v_d, f_d, uv_d = (torch.from_numpy(a).to(dev) for a in (verts, faces,
+                                                             uv))
+    atlas_d = torch.from_numpy(atlas).to(dev)
+    for i in range(poses):
+        img = render_atlas(v_d, f_d, uv_d, atlas_d,
+                           torch.from_numpy(ms[i:i + 1]).to(dev), hw)[0]
+        image_io.write_png(os.path.join(d, "images", f"{i:06}.png"),
+                           (img.cpu().numpy() * 255 + 0.5).astype(np.uint8))
+    with open(os.path.join(d, "scene.json"), "w") as f:
+        json.dump({"viewport_size": [hw[1], hw[0]], "pointcloud": "pc.ply",
+                   "mesh": "mesh.ply", "intrinsic_matrix": "cam.txt",
+                   "view_matrix": "poses.dat"}, f)
+    return {"scene_path": os.path.join(d, "scene.json"),
+            "target_path": os.path.join(d, "images"),
+            "target_name": "{label:06d}.png"}
+
+
+def expected_alt_checkpoints(history, pipeline, names, save_freq, keep=3):
+    """``read_tpu.train``'s alt-pipeline rules (:328-523): at every
+    ``save_freq``-th epoch or a better val PSNR
+    ``ckpt_<pipeline>_<scene>_<epoch>``, the newest ``keep`` kept, and
+    ``best_<pipeline>_<scene>`` on a better one."""
+    best, kept, out = float("inf"), [], set()
+    for h in history:
+        val = -h["val_psnr"]
+        if val < best or h["epoch"] % save_freq == 0:
+            kept = (kept + [h["epoch"]])[-keep:]
+        if val < best:
+            best = val
+            out |= {f"best_{pipeline}_{n}" for n in names}
+    return out | {f"ckpt_{pipeline}_{n}_{e}" for n in names for e in kept}
+
+
+def alt_cli(dev, root, config, pipeline, scene, flags):
+    """One ``--pipeline`` CLI fit of 1 epoch of ``CLI_STEPS`` steps on
+    ``scene``, then ``--resume`` for one more; checks the checkpoints
+    against ``read_tpu.train``'s rules and the resumed step. Returns
+    ``(ms/step after the first 2, val PSNR of both runs, launches)``."""
+    from read_tpu_torch import train
+    from read_tpu_torch.utils import ckpt as CK
+    logs = os.path.join(root, "logs_" + pipeline)
+    shutil.rmtree(logs, ignore_errors=True)
+    extra = ["--headless-platform", "cpu"] if dev.type != "cuda" else []
+    base = ["--config", config, "--pipeline", pipeline, "--dataset-names",
+            scene, "--max-steps-per-epoch", str(CLI_STEPS)] + flags + extra
+    out = []
+    reset_launches()
+    for name, more in (("fit", ["--epochs", "1"]),
+                       ("resume", ["--epochs", "1", "--resume", None])):
+        if more[-1] is None:
+            more[-1] = os.path.join(out[0][0], "checkpoints")
+        save = os.path.join(logs, name)
+        rc = train.main(base + more + ["--save-dir", save, "--name", name])
+        if rc != 0:
+            raise SmokeFailure(f"cli {pipeline} {name}: exit code {rc}")
+        (exp,) = os.listdir(save)
+        exp = os.path.join(save, exp)
+        with open(os.path.join(exp, "history.json")) as f:
+            hist = json.load(f)
+        ck = os.path.join(exp, "checkpoints")
+        want = expected_alt_checkpoints(hist, pipeline, [scene],
+                                        DEMO_DRIVE["save_freq"])
+        if set(os.listdir(ck)) != want:
+            raise SmokeFailure(f"cli {pipeline} {name}: checkpoints "
+                               f"{sorted(os.listdir(ck))}, the reference's "
+                               f"rules give {sorted(want)}")
+        step = int(CK.load_checkpoint(CK.latest_checkpoint(
+            ck, f"ckpt_{pipeline}_{scene}"))[0]["step"])
+        if step != CLI_STEPS * (len(out) + 1):
+            raise SmokeFailure(f"cli {pipeline} {name}: step {step}")
+        if not all(np.isfinite(h["train_loss"]) and h["val_psnr"] > 0
+                   for h in hist):
+            raise SmokeFailure(f"cli {pipeline} {name}: history {hist}")
+        out.append((exp, hist))
+    counts = launches()
+    step_ms = [ms for _, hist in out for h in hist
+               for ms in h["step_ms"][2:] or h["step_ms"]]
+    return (float(np.mean(step_ms)),
+            [h["val_psnr"] for _, hist in out for h in hist], counts)
+
+
+def phase_alt_pipelines(report, ctx, dev, workdir):
+    """pix2pix at the bench point (the full-width UNet on raw ``colors``,
+    3 input channels, 1M points with seeded colours, VGG):
+    ``SPLAT_VS_TWIN`` steps against their twins (pyramids bit-equal, loss
+    rel 1e-6, gradients ``GRAD_ATOL * max|g|``), ``WARMUP + TIMED``
+    timed with the loss falling, one K5 and one pass a step; rgb_texture
+    on the street mesh at the bench crop, with faces (the triangle raster)
+    and without (K5 and the uv gather), 3 steps each, timed, the loss
+    falling; then the CLI: ``--pipeline pix2pix`` on the cli phase's
+    ``drive_a`` and ``--pipeline rgb_texture --use-mesh`` on the street
+    mesh on disk (its manifest names the mesh), each 1 epoch of
+    ``CLI_STEPS`` steps and ``--resume`` for one more, the checkpoints as
+    ``read_tpu.train``'s rules leave them."""
+    import torch
+    from read_tpu_torch.criterions import vgg as V
+    from read_tpu_torch.frame import train_inputs
+    from read_tpu_torch.ops import rasterize as R
+    from read_tpu_torch.pipelines import pix2pix_pipeline as P2P
+    from read_tpu_torch.pipelines import rgb_texture_pipeline as RGB
+    from read_tpu_torch.pipelines import texture_pipeline as TP
+    t_phase = time.perf_counter()
+    xyz, ms, target = train_inputs(TRAIN_B, N_POINTS, TRAIN_HW)
+    rgb = np.random.default_rng(3).uniform(size=xyz.shape).astype(np.float32)
+    xyz = torch.from_numpy(xyz).to(dev)
+    pc = {"rgb": torch.from_numpy(rgb).to(dev)}
+    batch = {"total_m": torch.from_numpy(ms).to(dev),
+             "target": torch.from_numpy(target).to(dev)}
+    vgg = V.random_vgg_params(torch.Generator().manual_seed(0), device=dev)
+    cfg = P2P.Pix2PixConfig(crop_size=(TRAIN_HW, TRAIN_HW))
+    state, net = P2P.create_pix2pix_state(torch.Generator().manual_seed(0),
+                                          cfg, in_channels=3, device=dev)
+    step = P2P.make_pix2pix_step(net, cfg, vgg, pc)
+    worst, head = 0.0, []
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for i in range(SPLAT_VS_TWIN):
+        runs = []
+        for twin in (False, True):
+            with Twins() if twin else contextlib.nullcontext():
+                levels = R.rasterize_pyramid_pooled(
+                    xyz, batch["total_m"], cfg.crop_size, cfg.num_scales)
+                loss, _, _, g = P2P.loss_and_grad(net, cfg, vgg, state, xyz,
+                                                  batch, pc)
+            runs.append(([t for lv in levels for t in lv], loss.detach(),
+                         state.layout.views(g)))
+        torch.cuda.synchronize()
+        (maps_k, loss_k, g_k), (maps_p, loss_p, g_p) = runs
+        if not all(torch.equal(a, b) for a, b in zip(maps_k, maps_p)):
+            raise SmokeFailure(f"pix2pix step {i}: pyramids differ")
+        rel = float((loss_k - loss_p).abs() / loss_p.abs())
+        off = max(float((g_k[k] - g).abs().max() / g.abs().max().clamp(
+            min=1e-30)) for k, g in g_p.items())
+        if not rel <= 1e-6 or not off <= GRAD_ATOL:
+            raise SmokeFailure(f"pix2pix step {i}: loss rel {rel:.3g}, "
+                               f"worst gradient {off:.3g} x max|g|")
+        worst = max(worst, off)
+        head.append(loss_k)
+        state, _ = step(state, xyz, batch)
+    torch.backends.cudnn.deterministic = saved
+    torch.cuda.synchronize()
+    reset_launches()
+    p2p_s, losses, state = timed_steps(step, state, xyz, batch)
+    counts = launches()
+    losses = loss_fell("pix2pix train", head, losses)
+    pyramid_ran("pix2pix train", counts, "zbuffer_exact", WARMUP + TIMED)
+    print(f"[alt_pipelines] pix2pix at {TRAIN_B}x{TRAIN_HW}^2 crops, "
+          f"{N_POINTS} points, full-width UNet on colors, VGG on: "
+          f"{SPLAT_VS_TWIN} steps against the twins (pyramids bit-equal, "
+          f"worst gradient {worst:.3g} x max|g|, bound {GRAD_ATOL}); "
+          f"{p2p_s * 1e3:.2f} ms/step (mean of {TIMED} after {WARMUP} "
+          f"warm-up), loss {float(head[0]):.6g} (fresh state) -> "
+          f"{losses[0]:.6g} -> {losses[-1]:.6g}")
+    del state, net, step
+    torch.cuda.empty_cache()
+    # rgb_texture on the street mesh
+    verts, faces, uv, atlas = ctx["mesh_street"]
+    v_d, f_d, uv_d = (torch.from_numpy(a).to(dev) for a in (verts, faces,
+                                                             uv))
+    _, ms = street_matrices(street_poses(TRAIN_B), (TRAIN_HW, TRAIN_HW))
+    ms = torch.from_numpy(ms).to(dev)
+    rgb_batch = {"total_m": ms, "target": render_atlas(
+        v_d, f_d, uv_d, torch.from_numpy(atlas).to(dev), ms,
+        (TRAIN_HW, TRAIN_HW))}
+    rgb_ms = {}
+    for with_faces in (True, False):
+        st = RGB.create_rgb_texture_state(MESH_TEXTURE, device=dev)
+        rstep = RGB.make_rgb_texture_step(
+            0.1, {"uv2d": uv_d}, TRAIN_HW, TRAIN_HW,
+            faces=f_d if with_faces else None)
+        if not with_faces:
+            # K5 at the street mesh's vertices: the uv maps and one
+            # step's loss against the twins'
+            got = RGB.uv_and_mask(v_d, ms, uv_d, TRAIN_HW, TRAIN_HW)
+            m_k = rstep(st, v_d, rgb_batch)[1]["loss"]
+            with Twins():
+                want = RGB.uv_and_mask(v_d, ms, uv_d, TRAIN_HW, TRAIN_HW)
+                m_p = rstep(st, v_d, rgb_batch)[1]["loss"]
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise SmokeFailure("rgb_texture without faces: uv maps "
+                                   "differ from the twins'")
+            rel = float((m_k - m_p).abs() / m_p.abs())
+            if not rel <= 1e-6:
+                raise SmokeFailure(f"rgb_texture without faces: loss rel "
+                                   f"{rel:.3g} against the twins (bound "
+                                   f"1e-6)")
+        st, m0 = rstep(st, v_d, rgb_batch)   # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        losses = [float(m0["loss"])]
+        for _ in range(3):
+            st, m = rstep(st, v_d, rgb_batch)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        rgb_ms[with_faces] = (time.perf_counter() - t0) * 1e3 / 3
+        counts = launches()
+        losses = [float(x) for x in losses]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise SmokeFailure(f"rgb_texture faces={with_faces}: losses "
+                               f"{losses}")
+        if with_faces and counts["zbuffer_exact"]:
+            raise SmokeFailure(f"rgb_texture with faces: launches {counts}")
+        if not with_faces:
+            pyramid_ran("rgb_texture without faces", counts,
+                        "zbuffer_exact", 3)
+        print(f"[alt_pipelines] rgb_texture on the street mesh, texture "
+              f"{MESH_TEXTURE}^2, {TRAIN_B}x{TRAIN_HW}^2 views, "
+              + ("with faces (triangle raster)" if with_faces else
+                 "without faces (K5 + uv gather; uv maps bit-equal and "
+                 "the loss within 1e-6 of the twins')")
+              + f": {rgb_ms[with_faces]:.2f} ms/step (mean of 3 after 1), "
+              f"loss {losses[0]:.6g} -> {losses[-1]:.6g}")
+    ctx["alt_ms"] = (p2p_s * 1e3, rgb_ms[True], rgb_ms[False])
+    # the CLIs
+    if "drive" not in ctx:
+        raise SmokeFailure("alt_pipelines: the cli phase's drive is missing")
+    root = os.path.join(workdir, "cli")
+    with open(os.path.join(root, "paths.json")) as f:
+        paths = json.load(f)
+    paths["datasets"]["street"] = write_mesh_scene(
+        root, "street", dev, verts, faces, uv, atlas, HW, CLI_POSES)
+    recipe = dict(ctx["cli_recipe"],
+                  paths_file=os.path.join(root, "paths_alt.json"))
+    with open(recipe["paths_file"], "w") as f:
+        json.dump(paths, f)
+    config = os.path.join(root, "alt.json")
+    with open(config, "w") as f:
+        json.dump(recipe, f)
+    with without_modules():
+        p_ms, p_psnr, p_counts = alt_cli(dev, root, config, "pix2pix",
+                                         CLI_SCENES[0], [])
+        r_ms, r_psnr, r_counts = alt_cli(dev, root, config, "rgb_texture",
+                                         "street", ["--use-mesh"])
+    if dev.type == "cuda" and not p_counts["zbuffer_exact"]:
+        raise SmokeFailure(f"cli pix2pix: launches {p_counts}")
+    ctx["alt_cli_ms"] = (p_ms, r_ms)
+    print(f"[alt_pipelines] cli pix2pix on {CLI_SCENES[0]} (demo_drive "
+          f"recipe, 1 epoch of {CLI_STEPS} steps + --resume 1): "
+          f"{p_ms:.2f} ms/step; val PSNR "
+          f"{', '.join(f'{p:.3f}' for p in p_psnr)}"
+          f"; cli rgb_texture --use-mesh on the street mesh: {r_ms:.2f} "
+          f"ms/step; val PSNR {', '.join(f'{p:.3f}' for p in r_psnr)}; "
+          f"checkpoints as read_tpu.train's rules leave them; phase "
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
@@ -2409,6 +3269,10 @@ def main() -> int:
               ("apps", lambda: phase_apps(report, ctx, dev, workdir)),
               ("extra_modes",
                lambda: phase_extra_modes(report, ctx, dev, workdir)),
+              ("augment", lambda: phase_augment(report, ctx, dev)),
+              ("mesh", lambda: phase_mesh(report, ctx, dev, workdir)),
+              ("alt_pipelines",
+               lambda: phase_alt_pipelines(report, ctx, dev, workdir)),
               ("frame_vs_twin", lambda: phase_frame_vs_twin(ctx, dev)),
               ("frames", lambda: phase_frames(ctx, dev)),
               ("r2_band_route", lambda: phase_r2_band_route(dev)),

@@ -126,7 +126,7 @@ def config4_stitch(r, pose, reps: int = 8, out: Optional[str] = None
                          "sizes, as scene.tools does")
     xyz_dev = r.xyz
     xyz = xyz_dev.cpu().numpy()
-    tex = r.texture.cpu().numpy()
+    tex = r.texture[0].cpu().numpy()
     ref_img = r.infer(pose)
     ref_idx = r.index_pyramid(pose)
     half_a = xyz[:, 2] <= np.median(xyz[:, 2])
@@ -135,7 +135,7 @@ def config4_stitch(r, pose, reps: int = 8, out: Optional[str] = None
     perm = torch.from_numpy(np.concatenate(
         [np.flatnonzero(half_a), np.flatnonzero(~half_a)])).to(r.device)
     r.xyz = torch.from_numpy(sx).to(r.device)
-    r.texture = torch.from_numpy(stex).to(r.device)
+    r.texture = (torch.from_numpy(stex).to(r.device),)
     img = r.infer(pose)
     index_equal, ties = True, 0
     for want, got in zip(ref_idx, r.index_pyramid(pose)):
@@ -178,7 +178,7 @@ def config5_edit_panorama(r, pose, pano_pose, delete_box=DELETE_BOX,
     side by side. Returns the numbers and ``(edited frame, panorama)``
     under ``images``."""
     xyz = r.xyz.cpu().numpy()
-    tex = r.texture.cpu().numpy()
+    tex = r.texture[0].cpu().numpy()
     sel = ST.select_bbox(xyz, *delete_box)
     ex, etex = ST.delete_points(xyz, tex, sel)
     sel2 = ST.select_bbox(ex, *copy_box)
@@ -186,7 +186,7 @@ def config5_edit_panorama(r, pose, pano_pose, delete_box=DELETE_BOX,
     tf[:3, 3] = shift
     ex, etex = ST.duplicate_points(ex, etex, sel2, tf)
     r.xyz = torch.from_numpy(ex).to(r.device)
-    r.texture = torch.from_numpy(etex).to(r.device)
+    r.texture = (torch.from_numpy(etex).to(r.device),)
     edited = r.infer(pose)
     rate_ms = device_ms(r, [pose] * reps)
     _png(out, "cfg5_edited.png", edited)

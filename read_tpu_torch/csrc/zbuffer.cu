@@ -85,6 +85,14 @@
 // for bit the depth K1 packed), so K1 on this path writes no per-point
 // depths. A tile is max(32, 2^(L-1)) x max(64, 2^(L-1)) pixels of level
 // 0, so each coarse pixel of L levels lies in one tile.
+//
+// NDC jitter (read_tpu/ops/augment.py's screen-space point perturbation,
+// fed to rasterize.py's `ndc_jitter` :328-331, :419-420, :502-503): K1,
+// K5 and the splat projection take an optional [N, 2] float32 offset a
+// point, the same for all B views, loaded once a point beside xyz (8 more
+// bytes a point; nothing else changes) and added to the NDC x and y after
+// the clip test and before the floor. The pass re-projects K1's winners
+// for their depth only, which the jitter never touches, so it takes none.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -111,12 +119,16 @@ __device__ __forceinline__ float row_dot(const float* r, float x, float y,
 // Projects point (x, y, z) by the row-major world->clip matrix m. Sets
 // *depth to (ndc_z + 1) * 0.5 and *cz to the clip-space z before the
 // divide, and returns true when the point lies in the clip cube; then
-// sets (*u, *v) to its pixel, which may lie one past the frame's last
-// column or row (ndc x = 1 or y = -1).
+// sets (*u, *v) to its pixel after the NDC jitter (jx, jy) is added to x
+// and y, which may lie off the frame on any side (ndc x = 1 or y = -1
+// without jitter; any side with it). The order is read_tpu's
+// (rasterize.py:328-331): validity on the unjittered NDC, then the
+// jitter, then the floor; the depth is never jittered. Adding 0 leaves
+// every NDC that passes the test as it is (-0 + 0 = +0 floors alike).
 __device__ __forceinline__ bool project_uv(const float* m, float x, float y,
-                                           float z, int h, int w, int* u,
-                                           int* v, float* depth,
-                                           float* cz) {
+                                           float z, float jx, float jy,
+                                           int h, int w, int* u, int* v,
+                                           float* depth, float* cz) {
   const float cx = row_dot(m, x, y, z);
   const float cy = row_dot(m + 4, x, y, z);
   *cz = row_dot(m + 8, x, y, z);
@@ -130,22 +142,25 @@ __device__ __forceinline__ bool project_uv(const float* m, float x, float y,
         cw > 0.0f)) {
     return false;
   }
+  const float px = __fadd_rn(nx, jx), py = __fadd_rn(ny, jy);
   // u = floor((w * (x + 1)) * 0.5), v = floor((h * (1 - y)) * 0.5)
   *u = (int)floorf(
-      __fmul_rn(__fmul_rn((float)w, __fadd_rn(nx, 1.0f)), 0.5f));
+      __fmul_rn(__fmul_rn((float)w, __fadd_rn(px, 1.0f)), 0.5f));
   *v = (int)floorf(
-      __fmul_rn(__fmul_rn((float)h, __fsub_rn(1.0f, ny)), 0.5f));
+      __fmul_rn(__fmul_rn((float)h, __fsub_rn(1.0f, py)), 0.5f));
   return true;
 }
 
 // project_uv's point as a flat pixel id in *pix, -1 off the h x w frame.
 __device__ __forceinline__ bool project_point(const float* m, float x,
-                                              float y, float z, int h,
-                                              int w, int* pix,
-                                              float* depth) {
+                                              float y, float z, float jx,
+                                              float jy, int h, int w,
+                                              int* pix, float* depth) {
   int u, v;
   float cz;
-  if (!project_uv(m, x, y, z, h, w, &u, &v, depth, &cz)) return false;
+  if (!project_uv(m, x, y, z, jx, jy, h, w, &u, &v, depth, &cz)) {
+    return false;
+  }
   *pix = (u < 0 || u >= w || v < 0 || v >= h) ? -1 : v * w + u;
   return true;
 }
@@ -161,22 +176,37 @@ __device__ __forceinline__ unsigned long long exact_key(float depth,
   return ((unsigned long long)__float_as_uint(depth) << 32) | (unsigned)id;
 }
 
+// A point's NDC jitter [N, 2], the same for every view; (0, 0) where
+// jitter is null.
+__device__ __forceinline__ void load_jitter(const float* __restrict__ jitter,
+                                            int i, float* jx, float* jy) {
+  *jx = 0.0f;
+  *jy = 0.0f;
+  if (jitter != nullptr) {
+    *jx = jitter[2 * (size_t)i];
+    *jy = jitter[2 * (size_t)i + 1];
+  }
+}
+
 // K1 (EXACT false: packed int32 keys, and each point's depth into depth0
-// where it is not null) and K5 (EXACT true: 64-bit keys). keys [B, h*w].
+// where it is not null) and K5 (EXACT true: 64-bit keys). keys [B, h*w];
+// jitter [N, 2] NDC offsets or null, loaded once a point beside xyz.
 template <bool EXACT>
 __global__ void __launch_bounds__(kThreads)
     project_kernel(const float* __restrict__ xyz,
+                   const float* __restrict__ jitter,
                    const float* __restrict__ mats, int n, int nviews,
                    int h, int w, int idb, int qmax, void* __restrict__ keys,
                    float* __restrict__ depth0) {
   __shared__ float m[kViewsPerStage * 16];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = i < n;
-  float x = 0.0f, y = 0.0f, z = 0.0f;
+  float x = 0.0f, y = 0.0f, z = 0.0f, jx = 0.0f, jy = 0.0f;
   if (live) {
     x = xyz[3 * (size_t)i];
     y = xyz[3 * (size_t)i + 1];
     z = xyz[3 * (size_t)i + 2];
+    load_jitter(jitter, i, &jx, &jy);
   }
   const size_t npx = (size_t)h * w;
   for (int b0 = 0; b0 < nviews; b0 += kViewsPerStage) {
@@ -191,8 +221,8 @@ __global__ void __launch_bounds__(kThreads)
       const int b = b0 + vb;
       int pix;
       float depth;
-      const bool valid = project_point(m + 16 * vb, x, y, z, h, w, &pix,
-                                       &depth);
+      const bool valid = project_point(m + 16 * vb, x, y, z, jx, jy, h, w,
+                                       &pix, &depth);
       if (!EXACT && depth0 != nullptr) {
         depth0[(size_t)b * n + i] = valid ? depth : 0.0f;
       }
@@ -256,22 +286,27 @@ __device__ __forceinline__ int splat_reach(const SplatArgs& s, float base,
 // key, for 'sort'; false: K1's packed int32 key, id bits from N points).
 // Every pixel of a valid point's square that lies in the frame gets one
 // atomicMin of the point's key: the centre pixel may itself lie off the
-// frame (u == w or v == h) while its left or upper neighbours do not.
+// frame on any side (u == w or v == h without jitter; with the NDC jitter
+// u or v may also be negative, or more than one past the edge) while
+// some of its square does not. The clamps below keep exactly the in-frame
+// part of the square, and an empty range (u + k < 0, u - k >= w) skips.
 template <bool EXACT>
 __global__ void __launch_bounds__(kThreads)
     splat_kernel(const float* __restrict__ xyz,
+                 const float* __restrict__ jitter,
                  const float* __restrict__ mats, int n, int nviews, int h,
                  int w, int idb, int qmax, void* __restrict__ keys,
                  const SplatArgs s) {
   __shared__ float m[kViewsPerStage * 16];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = i < n;
-  float x = 0.0f, y = 0.0f, z = 0.0f;
+  float x = 0.0f, y = 0.0f, z = 0.0f, jx = 0.0f, jy = 0.0f;
   float base = (float)(2 * s.radius + 1);
   if (live) {
     x = xyz[3 * (size_t)i];
     y = xyz[3 * (size_t)i + 1];
     z = xyz[3 * (size_t)i + 2];
+    load_jitter(jitter, i, &jx, &jy);
     if (s.sizes != nullptr) base = s.sizes[i];
   }
   const size_t npx = (size_t)h * w;
@@ -287,7 +322,8 @@ __global__ void __launch_bounds__(kThreads)
       const int b = b0 + vb;
       int u, v;
       float depth, cz;
-      if (!project_uv(m + 16 * vb, x, y, z, h, w, &u, &v, &depth, &cz)) {
+      if (!project_uv(m + 16 * vb, x, y, z, jx, jy, h, w, &u, &v, &depth,
+                      &cz)) {
         continue;
       }
       const int k = splat_reach(s, base, cz);
@@ -376,8 +412,9 @@ __device__ __forceinline__ void level0(const PyramidArgs& a, const float* m,
         if (!empty) {
           const size_t p = 3 * (size_t)ix[j];
           int pix;
-          project_point(m, a.xyz[p], a.xyz[p + 1], a.xyz[p + 2], a.h, a.w,
-                        &pix, &dp[j]);
+          // the depth only, which carries no jitter
+          project_point(m, a.xyz[p], a.xyz[p + 1], a.xyz[p + 2], 0.0f, 0.0f,
+                        a.h, a.w, &pix, &dp[j]);
         }
         if constexpr (EXACT_POOL) {
           pk = empty ? kEmpty64 : exact_key(dp[j], ix[j]);
@@ -494,17 +531,17 @@ cudaError_t pyramid(const PyramidArgs& a, bool exact_in, bool exact_pool,
                     : launch_pyramid<false, false>(a, s);
 }
 
-cudaError_t project(bool exact, const float* xyz, const float* mats, int n,
-                    int b, int h, int w, int idb, int qmax, void* keys,
-                    float* depth0, cudaStream_t s) {
+cudaError_t project(bool exact, const float* xyz, const float* jitter,
+                    const float* mats, int n, int b, int h, int w, int idb,
+                    int qmax, void* keys, float* depth0, cudaStream_t s) {
   if (n <= 0 || b <= 0) return cudaGetLastError();
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   if (exact) {
-    project_kernel<true><<<blocks, kThreads, 0, s>>>(xyz, mats, n, b, h, w,
-                                                     0, 0, keys, nullptr);
+    project_kernel<true><<<blocks, kThreads, 0, s>>>(
+        xyz, jitter, mats, n, b, h, w, 0, 0, keys, nullptr);
   } else {
     project_kernel<false><<<blocks, kThreads, 0, s>>>(
-        xyz, mats, n, b, h, w, idb, qmax, keys, depth0);
+        xyz, jitter, mats, n, b, h, w, idb, qmax, keys, depth0);
   }
   return cudaGetLastError();
 }
@@ -534,13 +571,15 @@ extern "C" int zbuffer_keys(const int* pix, const int* key, int n, int b,
   return (int)cudaGetLastError();
 }
 
-// K1: buf [B, h*w] int32 pre-filled with INT32_MAX; depth0 [B, n] float32.
-// Returns cudaGetLastError() after the launch.
+// K1: buf [B, h*w] int32 pre-filled with INT32_MAX; depth0 [B, n] float32;
+// jitter [n, 2] float32 NDC offsets or null. Returns cudaGetLastError()
+// after the launch.
 extern "C" int zbuffer_project(const float* xyz, const float* mats, int n,
                                int b, int h, int w, int idb, int qmax,
-                               int* buf, float* depth0, void* stream) {
-  return (int)project(false, xyz, mats, n, b, h, w, idb, qmax, buf, depth0,
-                      (cudaStream_t)stream);
+                               int* buf, float* depth0, const float* jitter,
+                               void* stream) {
+  return (int)project(false, xyz, jitter, mats, n, b, h, w, idb, qmax, buf,
+                      depth0, (cudaStream_t)stream);
 }
 
 namespace {
@@ -550,23 +589,23 @@ namespace {
 int fill_project_pyramid(const float* xyz, const float* mats, int n, int b,
                          int h, int w, int levels, int exact_in,
                          int exact_pool, int idb, int qmax, void* keys,
-                         int* index, float* depth, const SplatArgs* splat,
-                         cudaStream_t s) {
+                         int* index, float* depth, const float* jitter,
+                         const SplatArgs* splat, cudaStream_t s) {
   const long long npx = (long long)b * h * w;
   if (npx <= 0) return (int)cudaGetLastError();
   cudaError_t err = cudaMemsetAsync(keys, 0xff, npx * (exact_in ? 8 : 4), s);
   if (err != cudaSuccess) return (int)err;
   if (splat == nullptr) {
-    err = project(exact_in, xyz, mats, n, b, h, w, idb, qmax, keys, nullptr,
-                  s);
+    err = project(exact_in, xyz, jitter, mats, n, b, h, w, idb, qmax, keys,
+                  nullptr, s);
   } else if (n > 0) {
     const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
     if (exact_in) {
-      splat_kernel<true><<<blocks, kThreads, 0, s>>>(xyz, mats, n, b, h, w,
-                                                     0, 0, keys, *splat);
+      splat_kernel<true><<<blocks, kThreads, 0, s>>>(
+          xyz, jitter, mats, n, b, h, w, 0, 0, keys, *splat);
     } else {
       splat_kernel<false><<<blocks, kThreads, 0, s>>>(
-          xyz, mats, n, b, h, w, idb, qmax, keys, *splat);
+          xyz, jitter, mats, n, b, h, w, idb, qmax, keys, *splat);
     }
     err = cudaGetLastError();
   }
@@ -596,29 +635,33 @@ int fill_project_pyramid(const float* xyz, const float* mats, int n, int b,
 // filled here with ~0); index and depth [total] 16-byte aligned, the
 // levels one after another, level l [B, h >> l, w >> l]. h and w are
 // multiples of 2^(levels - 1); levels <= 8. idb and qmax: the packed
-// key's (K1's input or the packed pool). Returns the first CUDA error.
+// key's (K1's input or the packed pool). jitter: [n, 2] float32 NDC
+// offsets added to every view's projection (after the clip test, before
+// the floor), or null. Returns the first CUDA error.
 extern "C" int zbuffer_pyramid(const float* xyz, const float* mats, int n,
                                int b, int h, int w, int levels,
                                int exact_in, int exact_pool, int idb,
                                int qmax, void* keys, int* index,
-                               float* depth, void* stream) {
+                               float* depth, const float* jitter,
+                               void* stream) {
   return fill_project_pyramid(xyz, mats, n, b, h, w, levels, exact_in,
                               exact_pool, idb, qmax, keys, index, depth,
-                              nullptr, (cudaStream_t)stream);
+                              jitter, nullptr, (cudaStream_t)stream);
 }
 
 // K6 on its user path: zbuffer_pyramid's contract with the splat
-// projection in place of K1 (exact_in 0) or K5 (exact_in 1). radius in
-// 1..16; sizes [N] float32 or null; relative: z-scaled sizes; thr: a host
-// array of radius + 1 floats, thr[k] = float32(k - 1e-4).
+// projection in place of K1 (exact_in 0) or K5 (exact_in 1). jitter as
+// zbuffer_pyramid's; radius in 1..16; sizes [N] float32 or null;
+// relative: z-scaled sizes; thr: a host array of radius + 1 floats,
+// thr[k] = float32(k - 1e-4).
 extern "C" int zbuffer_splat_pyramid(const float* xyz, const float* mats,
                                      int n, int b, int h, int w, int levels,
                                      int exact_in, int exact_pool, int idb,
                                      int qmax, void* keys, int* index,
-                                     float* depth, const float* sizes,
-                                     int radius, int relative,
-                                     float min_size, const float* thr,
-                                     void* stream) {
+                                     float* depth, const float* jitter,
+                                     const float* sizes, int radius,
+                                     int relative, float min_size,
+                                     const float* thr, void* stream) {
   if (radius < 1 || radius > kMaxRadius) return (int)cudaErrorInvalidValue;
   SplatArgs sp;
   sp.sizes = sizes;
@@ -628,6 +671,6 @@ extern "C" int zbuffer_splat_pyramid(const float* xyz, const float* mats,
   sp.min_size = min_size;
   for (int k = 0; k <= kMaxRadius; ++k) sp.thr[k] = k <= radius ? thr[k] : 0;
   return fill_project_pyramid(xyz, mats, n, b, h, w, levels, exact_in,
-                              exact_pool, idb, qmax, keys, index, depth, &sp,
-                              (cudaStream_t)stream);
+                              exact_pool, idb, qmax, keys, index, depth,
+                              jitter, &sp, (cudaStream_t)stream);
 }

@@ -319,14 +319,16 @@ def library_conv(x, w, stride=1):
                     stride=stride, padding=(k - 1) // 2)
 
 
-def zbuffer_yardsticks(xyz, ms, hw):
-    """For points ``xyz`` seen through ``ms`` at ``hw``: K6's inputs
-    (int32 pixel ids and the frame's packed keys, ``[B, N]``), and for
-    each z-buffer ``(library call, flops, bytes)``: ``scatter_reduce_``
-    amin of the same keys into a buffer with a dump slot, the projection's
-    flops (K1, K5) and the bytes read and written once."""
+def zbuffer_yardsticks(xyz, ms, hw, jitter=None):
+    """For points ``xyz`` seen through ``ms`` at ``hw`` (with the NDC
+    ``jitter [N, 2]`` where given): K6's inputs (int32 pixel ids and the
+    frame's packed keys, ``[B, N]``), and for each z-buffer ``(library
+    call, flops, bytes)``: ``scatter_reduce_`` amin of the same keys into
+    a buffer with a dump slot, the projection's flops (K1, K5; two adds
+    more a view and point with the jitter) and the bytes read and written
+    once (the jitter's 8 a point)."""
     b, n, npx = ms.shape[0], xyz.shape[0], hw[0] * hw[1]
-    pix, depth, _, _ = RK._projected(xyz, ms, *hw)
+    pix, depth, _, _ = RK._projected(xyz, ms, *hw, jitter)
     ids = torch.arange(n, dtype=torch.int32, device=xyz.device).expand(b, n)
     key = RK.pack_keys(pix, depth, ids, npx, n)[0].contiguous()
     key64 = RK.pack_exact_keys(pix, depth, ids, npx)
@@ -335,13 +337,14 @@ def zbuffer_yardsticks(xyz, ms, hw):
                        device=xyz.device)
     buf64 = torch.full((b, npx + 1), RK.INT64_MAX, dtype=torch.int64,
                        device=xyz.device)
-    proj = PROJECT_FLOPS * b * n
+    extra = 0 if jitter is None else 8 * n
+    proj = (PROJECT_FLOPS + (0 if jitter is None else 2)) * b * n
     return pix.to(torch.int32).contiguous(), key, {
         "zbuffer": (lambda: buf32.scatter_reduce_(-1, dump, key, "amin"),
-                    proj, 12 * n + 64 * b + 4 * b * npx + 4 * b * n),
+                    proj, 12 * n + extra + 64 * b + 4 * b * npx + 4 * b * n),
         "zbuffer_exact": (lambda: buf64.scatter_reduce_(-1, dump, key64,
                                                         "amin"),
-                          proj, 12 * n + 64 * b + 8 * b * npx),
+                          proj, 12 * n + extra + 64 * b + 8 * b * npx),
         "zbuffer_keys": (lambda: buf32.scatter_reduce_(-1, dump, key,
                                                        "amin"),
                          0.0, 8 * b * n + 4 * b * npx)}

@@ -25,8 +25,11 @@ the least depth, ties to the least id; 'pallas'/'scatter1' the min
 packed key, ties within one depth bin broken by the least id, the
 winner's depth exact; empty pixels are -1 with depth 0. Supersampling
 needs nothing here: the pipeline and the renderer rasterize at ``ss``
-times the size. The bench-only methods ('sort2', 'sort1q', 'scatter')
-and screen-space point jitter (``ops/augment.py``, not ported) raise
+times the size. Screen-space point jitter (``ndc_jitter [N, 2]``, from
+:mod:`read_tpu_torch.ops.augment`) goes to the kernels, which add it to
+each point's NDC x and y after the clip test and before the floor, one
+offset a point for every view, as ``rasterize.py:328-331`` does. The
+bench-only methods ('sort2', 'sort1q', 'scatter') raise
 ``NotImplementedError`` instead of switching to other semantics.
 """
 
@@ -99,13 +102,6 @@ def _pixel_ids(ndc: torch.Tensor, valid: torch.Tensor, h: int, w: int):
     return pix, depth
 
 
-def _check_options(point_radius: int, ndc_jitter) -> None:
-    if ndc_jitter is not None:
-        raise NotImplementedError(
-            "screen-space point jitter is not ported (ROADMAP queue 1, "
-            "item 9, ops/augment.py)")
-    if point_radius < 0:
-        raise ValueError(f"point_radius {point_radius} < 0")
 
 
 def rasterize_batch(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
@@ -118,7 +114,9 @@ def rasterize_batch(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
     through K1; with ``point_radius`` r > 0 each point covers the
     ``(2r+1)^2`` square around its pixel (per-point ``point_sizes [N]``
     or ``relative_size`` sizes, floored at ``min_point_size``, capped at
-    ``2r+1``; JAX's coverage rule) through the splat projection."""
+    ``2r+1``; JAX's coverage rule) through the splat projection.
+    ``ndc_jitter [N, 2]`` moves each point's NDC x and y in every view
+    (after the clip test; the depth as it is)."""
     (level0,) = rasterize_pyramid_pooled(
         xyz, total_m, (h, w), 1, point_radius, method, ndc_jitter,
         point_sizes, relative_size, min_point_size)
@@ -153,19 +151,25 @@ def rasterize_pyramid_pooled(xyz: torch.Tensor, total_m: torch.Tensor,
     levels: a list of ``(index [B, h_i, w_i], depth)``. ``pool_impl``
     'exact' pools the (depth, id) pair, 'packed' one packed key. Splats
     (``point_radius`` > 0, see :func:`rasterize_batch`) cover level 0
-    only; the coarser levels pool it. On the card: K1, K5 or the splat
-    projection and one pyramid pass, no plain-PyTorch pool."""
+    only; the coarser levels pool it. ``ndc_jitter [N, 2]`` as in
+    :func:`rasterize_batch`. On the card: K1, K5 or the splat projection
+    and one pyramid pass, no plain-PyTorch pool."""
     _check_method(method)
-    _check_options(point_radius, ndc_jitter)
+    if point_radius < 0:
+        raise ValueError(f"point_radius {point_radius} < 0")
     h0, w0 = target_shape
     xyz = xyz.to(torch.float32).contiguous()
     total_m = total_m.to(device=xyz.device, dtype=torch.float32
                          ).contiguous()
+    if ndc_jitter is not None:
+        ndc_jitter = ndc_jitter.to(device=xyz.device, dtype=torch.float32
+                                   ).contiguous()
     # 'sort' is K5's exact key, 'pallas' and 'scatter1' K1's packed key
     zmethod = "sort" if method == "sort" else "pallas"
     if point_radius == 0:
         return RK.zbuffer_pyramid(xyz, total_m, h0, w0, num_scales, zmethod,
-                                  pool_impl)
+                                  pool_impl, jitter=ndc_jitter)
     return RK.zbuffer_splat(xyz, total_m, h0, w0, num_scales, zmethod,
                             pool_impl, point_radius, point_sizes,
-                            relative_size, min_point_size)
+                            relative_size, min_point_size,
+                            jitter=ndc_jitter)

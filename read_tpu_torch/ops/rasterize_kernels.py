@@ -37,12 +37,20 @@ inside the kernel and z-buffers it with K5's exact key or K1's packed
 key, then the pyramid pass; :func:`zbuffer_splat_plain` builds JAX's
 expansion as JAX does (:func:`splat_expand`).
 
+K1, K5 and the splat projection take an optional per-point NDC jitter
+``[N, 2]`` (``read_tpu/ops/augment.py``'s screen-space perturbation, as
+``rasterize.py`` adds it at :328-331, :419-420 and :502-503): one offset
+a point for every view, added to the NDC x and y after the clip test and
+before the floor; the depth carries none. Every wrapper and twin takes it
+as ``jitter`` (None: no jitter).
+
 :func:`zbuffer`, :func:`zbuffer_exact`, :func:`zbuffer_pyramid`,
 :func:`zbuffer_splat` and :func:`zbuffer_keys` are the wrappers: a CPU
 tensor goes to the plain twin, a CUDA tensor to the kernel, anything
 else raises. ``launches[<name>]`` counts kernel launches: ``zbuffer``
 and ``zbuffer_exact`` a projection (K1, K5), ``zbuffer_splat`` a splat
-projection, ``zbuffer_pyramid`` a pass.
+projection, each with ``_jitter`` appended where it ran with a jitter
+(and then only there), ``zbuffer_pyramid`` a pass.
 """
 
 from __future__ import annotations
@@ -59,8 +67,8 @@ __all__ = ["INT32_MAX", "INT64_MAX", "MAX_LEVELS", "key_bits",
            "scatter_min", "pool_pyramid_plain", "zbuffer", "zbuffer_plain",
            "zbuffer_exact", "zbuffer_exact_plain", "zbuffer_pyramid",
            "zbuffer_pyramid_plain", "MAX_SPLAT_RADIUS", "splat_expand",
-           "splat_keys", "zbuffer_splat", "zbuffer_splat_plain", "zbuffer_keys",
-           "zbuffer_keys_plain", "launches"]
+           "splat_keys", "zbuffer_splat", "zbuffer_splat_plain",
+           "zbuffer_keys", "zbuffer_keys_plain", "launches"]
 
 INT32_MAX = 2 ** 31 - 1
 INT64_MAX = 2 ** 63 - 1
@@ -76,7 +84,14 @@ _SPLAT_THR = [float(np.float32(k - 1e-4)) for k in range(MAX_SPLAT_RADIUS + 1)]
 
 # kernel launches (a CPU call runs the twin and counts nothing)
 launches = {"zbuffer": 0, "zbuffer_exact": 0, "zbuffer_keys": 0,
-            "zbuffer_pyramid": 0, "zbuffer_splat": 0}
+            "zbuffer_pyramid": 0, "zbuffer_splat": 0, "zbuffer_jitter": 0,
+            "zbuffer_exact_jitter": 0, "zbuffer_splat_jitter": 0}
+
+
+def _counted(name: str, jitter) -> str:
+    """The launch counter of kernel ``name`` run with or without a
+    jitter."""
+    return name if jitter is None else name + "_jitter"
 
 
 def key_bits(n_ids: int):
@@ -149,21 +164,31 @@ def scatter_min(pix: torch.Tensor, key: torch.Tensor, n_pixels: int):
     return buf[..., :n_pixels].contiguous()
 
 
-def _projected(xyz: torch.Tensor, total_m: torch.Tensor, h: int, w: int):
+def _jittered(ndc: torch.Tensor, jitter) -> torch.Tensor:
+    """``ndc [..., N, 3]`` with ``jitter [N, 2]`` added to x and y of
+    every view (``ndc.at[..., :2].add(jitter)``); the depth as it is."""
+    if jitter is None:
+        return ndc
+    return torch.cat([ndc[..., :2] + jitter, ndc[..., 2:]], dim=-1)
+
+
+def _projected(xyz: torch.Tensor, total_m: torch.Tensor, h: int, w: int,
+               jitter=None):
     """The twins' projection: ``(pix [B, N], depth [B, N], ndc, valid)``
-    with off-frame points in the ``h*w`` dump slot."""
+    with off-frame points in the ``h*w`` dump slot. ``valid`` is the clip
+    test on the unjittered NDC; ``pix`` floors the jittered one."""
     # rasterize.py imports this module, so import its helpers lazily
     from read_tpu_torch.ops.rasterize import _pixel_ids, project_points
     ndc, valid = project_points(xyz, total_m)            # [B, N, 3]
-    pix, depth = _pixel_ids(ndc, valid, h, w)
+    pix, depth = _pixel_ids(_jittered(ndc, jitter), valid, h, w)
     return pix, depth, ndc, valid
 
 
 def zbuffer_plain(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
-                  w: int):
+                  w: int, jitter=None):
     """Plain PyTorch twin of :func:`zbuffer` (same contract)."""
     b, n = total_m.shape[0], xyz.shape[0]
-    pix, depth, ndc, valid = _projected(xyz, total_m, h, w)
+    pix, depth, ndc, valid = _projected(xyz, total_m, h, w, jitter)
     ids = torch.arange(n, dtype=torch.int32, device=xyz.device)
     key, _ = pack_keys(pix, depth, ids.expand(b, n), h * w, n)
     depth0 = torch.where(valid, (ndc[..., 2] + 1.0) * 0.5, 0.0)
@@ -171,10 +196,10 @@ def zbuffer_plain(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
 
 
 def zbuffer_exact_plain(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
-                        w: int):
+                        w: int, jitter=None):
     """Plain PyTorch twin of :func:`zbuffer_exact` (same contract)."""
     b, n = total_m.shape[0], xyz.shape[0]
-    pix, depth, _, _ = _projected(xyz, total_m, h, w)
+    pix, depth, _, _ = _projected(xyz, total_m, h, w, jitter)
     ids = torch.arange(n, dtype=torch.int32, device=xyz.device)
     key = pack_exact_keys(pix, depth, ids.expand(b, n), h * w)
     return unpack_exact(scatter_min(pix, key, h * w))
@@ -216,22 +241,24 @@ def pool_pyramid_plain(index: torch.Tensor, depth: torch.Tensor,
 
 def zbuffer_pyramid_plain(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
                           w: int, num_scales: int, method: str = "sort",
-                          pool_impl: str = "exact"):
+                          pool_impl: str = "exact", jitter=None):
     """Plain PyTorch twin of :func:`zbuffer_pyramid` (same contract):
     K5's or K1's twin, then :func:`pool_pyramid_plain`."""
     b, n = total_m.shape[0], xyz.shape[0]
     if method == "sort":
-        index, depth = zbuffer_exact_plain(xyz, total_m, h, w)
+        index, depth = zbuffer_exact_plain(xyz, total_m, h, w, jitter)
     else:
-        buf, depth0 = zbuffer_plain(xyz, total_m, h, w)
+        buf, depth0 = zbuffer_plain(xyz, total_m, h, w, jitter)
         index, depth = unpack_packed(buf, key_bits(n)[0], depth0)
     return pool_pyramid_plain(index.view(b, h, w), depth.view(b, h, w),
                               num_scales, pool_impl, n)
 
 
-def _on_cpu(name: str, xyz: torch.Tensor, total_m: torch.Tensor) -> bool:
+def _on_cpu(name: str, xyz: torch.Tensor, total_m: torch.Tensor,
+            jitter=None) -> bool:
     """Check the wrappers' inputs; True for CPU tensors (the twin runs),
-    False for contiguous CUDA tensors (the kernel runs); raise else."""
+    False for contiguous CUDA tensors (the kernel runs); raise else.
+    ``jitter``, where given, is float32 ``[N, 2]`` on ``xyz``'s device."""
     if xyz.dtype != torch.float32 or total_m.dtype != torch.float32:
         raise TypeError(f"{name}: xyz and total_m must be float32")
     if xyz.dim() != 2 or xyz.shape[1] != 3 or total_m.dim() != 3 \
@@ -240,20 +267,35 @@ def _on_cpu(name: str, xyz: torch.Tensor, total_m: torch.Tensor) -> bool:
                          f"{tuple(xyz.shape)}, {tuple(total_m.shape)}")
     if xyz.device != total_m.device:
         raise ValueError(f"{name}: xyz and total_m on different devices")
+    if jitter is not None:
+        if jitter.dtype != torch.float32:
+            raise TypeError(f"{name}: jitter must be float32")
+        if tuple(jitter.shape) != (xyz.shape[0], 2):
+            raise ValueError(f"{name}: want jitter [{xyz.shape[0]}, 2]; got "
+                             f"{tuple(jitter.shape)}")
+        if jitter.device != xyz.device:
+            raise ValueError(f"{name}: jitter and xyz on different devices")
     if xyz.device.type == "cpu":
         return True
     if xyz.device.type != "cuda":
         raise RuntimeError(f"{name}: no kernel for device {xyz.device}")
-    if not (xyz.is_contiguous() and total_m.is_contiguous()):
+    if not (xyz.is_contiguous() and total_m.is_contiguous()
+            and (jitter is None or jitter.is_contiguous())):
         raise ValueError(f"{name}: inputs must be contiguous")
     return False
 
 
+def _ptr(t) -> int:
+    """A tensor's device address, or None (a null pointer)."""
+    return None if t is None else t.data_ptr()
+
+
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p]
 _PYRAMID_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 9 \
-    + [ctypes.c_void_p] * 4
+    + [ctypes.c_void_p] * 5
 # zbuffer_pyramid's, less its stream, then sizes, radius, relative,
 # min_size, the thresholds and the stream
 _SPLAT_ARGTYPES = _PYRAMID_ARGTYPES[:-1] + [
@@ -261,7 +303,8 @@ _SPLAT_ARGTYPES = _PYRAMID_ARGTYPES[:-1] + [
     ctypes.POINTER(ctypes.c_float), ctypes.c_void_p]
 
 
-def zbuffer(xyz: torch.Tensor, total_m: torch.Tensor, h: int, w: int):
+def zbuffer(xyz: torch.Tensor, total_m: torch.Tensor, h: int, w: int,
+            jitter=None):
     """Project ``xyz [N, 3]`` by ``total_m [B, 4, 4]`` (float32,
     contiguous) and z-buffer every view at ``h x w``.
 
@@ -269,9 +312,10 @@ def zbuffer(xyz: torch.Tensor, total_m: torch.Tensor, h: int, w: int):
     per-pixel minimum packed key (``INT32_MAX`` = empty; id bits from
     :func:`key_bits` with ``n_ids = N``) and each point's NDC depth
     (0 for points outside the clip cube), from which callers re-gather
-    the winner's exact depth."""
-    if _on_cpu("zbuffer", xyz, total_m):
-        return zbuffer_plain(xyz, total_m, h, w)
+    the winner's exact depth. ``jitter [N, 2]``: NDC offsets (see the
+    module's note)."""
+    if _on_cpu("zbuffer", xyz, total_m, jitter):
+        return zbuffer_plain(xyz, total_m, h, w, jitter)
     n, b = xyz.shape[0], total_m.shape[0]
     idb, qmax = key_bits(n)
     buf = torch.full((b, h * w), INT32_MAX, dtype=torch.int32,
@@ -280,26 +324,27 @@ def zbuffer(xyz: torch.Tensor, total_m: torch.Tensor, h: int, w: int):
     fn = _build.function("zbuffer", "zbuffer_project", _ARGTYPES)
     _build.call(fn, xyz.device, "zbuffer", xyz.data_ptr(),
                 total_m.data_ptr(), n, b, h, w, idb, qmax, buf.data_ptr(),
-                depth0.data_ptr())
-    launches["zbuffer"] += 1
+                depth0.data_ptr(), _ptr(jitter))
+    launches[_counted("zbuffer", jitter)] += 1
     return buf, depth0
 
 
 def zbuffer_exact(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
-                  w: int):
+                  w: int, jitter=None):
     """Project ``xyz [N, 3]`` by ``total_m [B, 4, 4]`` (float32,
     contiguous) and z-buffer every view at ``h x w`` exactly: per pixel
     the least depth, ties to the least point id (``N < 2^31``).
 
     Returns ``(index [B, h*w] int32, depth [B, h*w] float32)``: the
     winning point id and its depth ``(ndc_z + 1) / 2``, -1 and 0 where
-    no point lands. On the card: K5 and a one-level pyramid pass."""
+    no point lands. ``jitter [N, 2]``: NDC offsets (see the module's
+    note). On the card: K5 and a one-level pyramid pass."""
     if xyz.shape[0] >= 2 ** 31:
         raise ValueError("zbuffer_exact: point ids must fit in 31 bits")
-    if _on_cpu("zbuffer_exact", xyz, total_m):
-        return zbuffer_exact_plain(xyz, total_m, h, w)
+    if _on_cpu("zbuffer_exact", xyz, total_m, jitter):
+        return zbuffer_exact_plain(xyz, total_m, h, w, jitter)
     (index, depth), = _pyramid_launch("zbuffer_exact", xyz, total_m, h, w,
-                                      1, "sort", "exact")
+                                      1, "sort", "exact", jitter)
     b = total_m.shape[0]
     return index.view(b, h * w), depth.view(b, h * w)
 
@@ -327,7 +372,7 @@ def _check_pyramid(xyz: torch.Tensor, h: int, w: int, num_scales: int,
 
 def _pyramid_launch(name: str, xyz: torch.Tensor, total_m: torch.Tensor,
                     h: int, w: int, num_scales: int, method: str,
-                    pool_impl: str, splat=None):
+                    pool_impl: str, jitter=None, splat=None):
     """K1 (``method`` 'pallas') or K5 ('sort') and the pyramid pass on
     the card: the levels as views of one buffer (every level's index,
     then every level's depth, then the key scratch, each part 16-byte
@@ -345,20 +390,21 @@ def _pyramid_launch(name: str, xyz: torch.Tensor, total_m: torch.Tensor,
     base = buf.data_ptr()
     args = (xyz.data_ptr(), total_m.data_ptr(), n, b, h, w, num_scales,
             int(exact_in), int(pool_impl == "exact"), idb, qmax,
-            base + 8 * part, base, base + 4 * part)
+            base + 8 * part, base, base + 4 * part, _ptr(jitter))
     if splat is None:
         fn = _build.function("zbuffer", "zbuffer_pyramid", _PYRAMID_ARGTYPES)
         _build.call(fn, xyz.device, name, *args)
-        launches["zbuffer_exact" if exact_in else "zbuffer"] += 1
+        launches[_counted("zbuffer_exact" if exact_in else "zbuffer",
+                          jitter)] += 1
     else:
         point_sizes, radius, relative, min_size = splat
         fn = _build.function("zbuffer", "zbuffer_splat_pyramid",
                              _SPLAT_ARGTYPES)
         thr = (ctypes.c_float * (radius + 1))(*_SPLAT_THR[:radius + 1])
         _build.call(fn, xyz.device, name, *args,
-                    None if point_sizes is None else point_sizes.data_ptr(),
+                    _ptr(point_sizes),
                     radius, int(relative), min_size, thr)
-        launches["zbuffer_splat"] += 1
+        launches[_counted("zbuffer_splat", jitter)] += 1
     launches["zbuffer_pyramid"] += 1
     # one as_strided a view: the cheapest on the host
     depth = buf.view(torch.float32)
@@ -373,7 +419,7 @@ def _pyramid_launch(name: str, xyz: torch.Tensor, total_m: torch.Tensor,
 
 def zbuffer_pyramid(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
                     w: int, num_scales: int, method: str = "sort",
-                    pool_impl: str = "exact"):
+                    pool_impl: str = "exact", jitter=None):
     """Project ``xyz [N, 3]`` by ``total_m [B, 4, 4]`` (float32,
     contiguous), z-buffer every view at ``h x w`` (``method`` 'sort':
     K5's exact key; 'pallas': K1's packed key) and pool it to
@@ -384,15 +430,16 @@ def zbuffer_pyramid(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
     w_i] int32, depth float32)``, ``h_i = h >> i``: -1 and 0 where
     empty; level 0's depth is the winner's exact depth. ``h`` and ``w``
     must be divisible by ``2^(num_scales - 1)``, ``num_scales <=
-    MAX_LEVELS``; K1 or a packed pool takes at most 2^23 points. On the
+    MAX_LEVELS``; K1 or a packed pool takes at most 2^23 points.
+    ``jitter [N, 2]``: NDC offsets (see the module's note). On the
     card: K1 or K5 and one pass for every level (three device
     operations: the fill, the projection, the pass)."""
     _check_pyramid(xyz, h, w, num_scales, method, pool_impl)
-    if _on_cpu("zbuffer_pyramid", xyz, total_m):
+    if _on_cpu("zbuffer_pyramid", xyz, total_m, jitter):
         return zbuffer_pyramid_plain(xyz, total_m, h, w, num_scales, method,
-                                     pool_impl)
+                                     pool_impl, jitter)
     return _pyramid_launch("zbuffer_pyramid", xyz, total_m, h, w,
-                           num_scales, method, pool_impl)
+                           num_scales, method, pool_impl, jitter)
 
 
 def _splat_sizes(point_sizes, xyz: torch.Tensor):
@@ -410,7 +457,8 @@ def _splat_sizes(point_sizes, xyz: torch.Tensor):
 
 def splat_expand(xyz: torch.Tensor, total_m: torch.Tensor, h: int, w: int,
                  point_radius: int, point_sizes=None,
-                 relative_size: bool = False, min_point_size: float = 1.0):
+                 relative_size: bool = False, min_point_size: float = 1.0,
+                 jitter=None):
     """JAX's splat expansion (``rasterize.py`` ``rasterize`` :368-397):
     ``(pix [B, N*K] int32, depth0 [B, N], valid [B, N])``, ``K =
     (2r+1)^2`` offset copies, dy-major then dx-minor, concatenated along
@@ -421,9 +469,12 @@ def splat_expand(xyz: torch.Tensor, total_m: torch.Tensor, h: int, w: int,
     ``rad = (min(size, 2r+1) - 1) * 0.5``, ``size`` the point's size
     (``2r+1`` without ``point_sizes``), z-scaled as ``max(min_point_size,
     size / max(clip_z, 1e-6))`` with ``relative_size``; NaN propagates
-    (``torch.maximum``/``minimum``, as ``jnp``'s)."""
+    (``torch.maximum``/``minimum``, as ``jnp``'s). ``jitter [N, 2]``
+    moves every centre (``u``, ``v``) by its NDC offset; ``valid`` and
+    the depth stay the unjittered ones."""
     from read_tpu_torch.ops.rasterize import project_points
     ndc, valid, clip_z = project_points(xyz, total_m, return_clip_z=True)
+    ndc = _jittered(ndc, jitter)
     u = torch.floor(w * (ndc[..., 0] + 1.0) * 0.5).to(torch.int32)
     v = torch.floor(h * (1.0 - ndc[..., 1]) * 0.5).to(torch.int32)
     depth0 = (ndc[..., 2] + 1.0) * 0.5
@@ -450,7 +501,8 @@ def splat_expand(xyz: torch.Tensor, total_m: torch.Tensor, h: int, w: int,
 
 def splat_keys(xyz: torch.Tensor, total_m: torch.Tensor, h: int, w: int,
                method: str, point_radius: int, point_sizes=None,
-               relative_size: bool = False, min_point_size: float = 1.0):
+               relative_size: bool = False, min_point_size: float = 1.0,
+               jitter=None):
     """The ``[B, N*K]`` arrays JAX's splat z-buffers take: ``(pix, key,
     depth0)``, :func:`splat_expand`'s pixel ids, each copy's K5 exact key
     ('sort') or K1 packed key ('pallas', id bits from N points), and each
@@ -459,7 +511,7 @@ def splat_keys(xyz: torch.Tensor, total_m: torch.Tensor, h: int, w: int,
     b, n, npx = total_m.shape[0], xyz.shape[0], h * w
     pix, depth0, valid = splat_expand(xyz, total_m, h, w, point_radius,
                                       point_sizes, relative_size,
-                                      min_point_size)
+                                      min_point_size, jitter)
     depth0 = torch.where(valid, depth0, 0.0)
     k = pix.shape[-1] // n
     ids = torch.arange(n, dtype=torch.int32, device=xyz.device).repeat(k)
@@ -473,14 +525,15 @@ def zbuffer_splat_plain(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
                         w: int, num_scales: int, method: str,
                         pool_impl: str, point_radius: int, point_sizes=None,
                         relative_size: bool = False,
-                        min_point_size: float = 1.0):
+                        min_point_size: float = 1.0, jitter=None):
     """Plain PyTorch twin of :func:`zbuffer_splat` (same contract): JAX's
     ``[B, N*K]`` arrays (:func:`splat_keys`), their per-pixel minimum key
     (:func:`scatter_min`), unpacked (the 'pallas' winner's depth gathered
     by id), then :func:`pool_pyramid_plain`."""
     b, n = total_m.shape[0], xyz.shape[0]
     pix, key, depth0 = splat_keys(xyz, total_m, h, w, method, point_radius,
-                                  point_sizes, relative_size, min_point_size)
+                                  point_sizes, relative_size, min_point_size,
+                                  jitter)
     buf = scatter_min(pix, key, h * w)
     index, depth = (unpack_exact(buf) if method == "sort" else
                     unpack_packed(buf, key_bits(n)[0], depth0))
@@ -491,13 +544,15 @@ def zbuffer_splat_plain(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
 def zbuffer_splat(xyz: torch.Tensor, total_m: torch.Tensor, h: int, w: int,
                   num_scales: int, method: str, pool_impl: str,
                   point_radius: int, point_sizes=None,
-                  relative_size: bool = False, min_point_size: float = 1.0):
+                  relative_size: bool = False, min_point_size: float = 1.0,
+                  jitter=None):
     """:func:`zbuffer_pyramid` with every point splatted over the
     ``(2r+1)^2`` square around its pixel, ``r = point_radius`` in
     ``1..MAX_SPLAT_RADIUS``, with JAX's coverage rule (see
     :func:`splat_expand`; ``point_sizes [N]`` per-point sizes,
     ``relative_size`` z-scaled sizes floored at ``min_point_size``, both
-    capped at ``2r+1``). Returns ``rasterize_pyramid_pooled``'s levels;
+    capped at ``2r+1``; ``jitter [N, 2]`` NDC offsets of the centres, see
+    the module's note). Returns ``rasterize_pyramid_pooled``'s levels;
     level 0 is splatted, the coarser ones pooled from it. On the card:
     the fill, the splat projection and the pyramid pass, no ``[B, N*K]``
     array."""
@@ -505,13 +560,13 @@ def zbuffer_splat(xyz: torch.Tensor, total_m: torch.Tensor, h: int, w: int,
     if not 1 <= point_radius <= MAX_SPLAT_RADIUS:
         raise ValueError(f"zbuffer_splat: point_radius {point_radius} not "
                          f"in 1..{MAX_SPLAT_RADIUS}")
-    if _on_cpu("zbuffer_splat", xyz, total_m):
+    if _on_cpu("zbuffer_splat", xyz, total_m, jitter):
         return zbuffer_splat_plain(xyz, total_m, h, w, num_scales, method,
                                    pool_impl, point_radius, point_sizes,
-                                   relative_size, min_point_size)
+                                   relative_size, min_point_size, jitter)
     sizes = _splat_sizes(point_sizes, xyz)
     return _pyramid_launch("zbuffer_splat", xyz, total_m, h, w, num_scales,
-                           method, pool_impl,
+                           method, pool_impl, jitter,
                            (sizes, point_radius, relative_size,
                             float(min_point_size)))
 

@@ -3,13 +3,14 @@
 Counterpart of ``read_tpu/pipelines/texture_pipeline.py``:
 ``PipelineConfig`` (:47-120), ``parse_format_geometry`` (:123-152),
 ``config_from_dict`` (:155-215), ``TrainState``, ``_guard_grad`` and the
-optimizers (:218-250), ``create_state`` (:253-299, point texture), a
-whole ``TrainState`` to and from its checkpoint leaves
+optimizers (:218-250), ``create_state`` (:253-299, point and mesh
+textures), a whole ``TrainState`` to and from its checkpoint leaves
 (``state_from_flat``/``flat_from_state``), ``_extra_maps`` (:302-343),
-``_build_pyramid`` (:345-415, the point-texture branch: 1-px points,
-splats and per-point or z-scaled sizes, supersampling, the extra input
-modalities), ``_forward`` (:418-449), ``_losses`` (:452-518),
-``make_train_step`` (:521-632), ``make_eval_step`` (:635-659) and
+``_build_pyramid`` (:345-415: 1-px points, splats and per-point or
+z-scaled sizes, the NDC jitter, mesh textures with or without triangle
+faces, supersampling, the extra input modalities), ``_forward``
+(:418-449), ``_losses`` (:452-518), ``make_train_step`` (:521-632, with
+point dropout and jitter, :553-564), ``make_eval_step`` (:635-659) and
 ``ReduceLROnPlateau`` (:662-684).
 
 A train step is eager PyTorch under autograd: z-buffer (K5 for the
@@ -17,7 +18,8 @@ default 'sort', K1 for 'pallas'/'scatter1', K6's splat projection for
 either with ``point_radius > 0``; no gradient flows into the
 projection) -> exact pyramid pool -> descriptor gather with the
 per-image scatter-add backward (1-px points) or the summing one
-(splats) -> the UNet's differentiable route
+(splats), or a mesh texture's bilinear sample at the uv map -> the
+UNet's differentiable route
 (``F.conv2d``, flax's BatchNorm) -> losses -> gradients -> the gradient
 guard -> Adam (net) and RMS (texture) updates that reproduce optax's.
 The net's parameters and Adam moments each live in one flat buffer, so
@@ -43,11 +45,20 @@ maps, concatenated before the descriptors; the view-dependent modes
 and with ``label_in_input`` a rendered ``labels`` map becomes the
 batch's ground-truth ``label`` image masked by rendered occupancy.
 
+With ``drop_points`` or ``perturb_points`` (the train dataset's
+augmentations) each step draws its dropout and jitter once
+(:func:`augment`): from a generator on the points' device seeded by the
+step, so a run repeats and the host never waits for the device; a
+dropped point moves to ``1e9`` and the jitter reaches the z-buffer
+kernels as ``ndc_jitter``. With ``use_mesh`` the texture is a tuple of
+``[s, s, C]`` tables (``texture_size / 2^i``), sampled at each pixel's uv:
+with the scene's triangle ``faces`` a triangle raster per level
+(:mod:`read_tpu_torch.ops.rasterize_mesh`) and the perspective-correct
+uv, else the uv of each level's winning point (``uv2d``).
+
 Configurations that need code the port does not have yet raise
-``NotImplementedError``: mesh textures, point dropout and jitter (the
-train dataset's ``drop_points``/``perturb_points``), bfloat16 training
-and the VGG ensemble; ``texture_size``, which only mesh textures use, is
-left out.
+``NotImplementedError``: bfloat16 training (ROADMAP queue 1, item 8)
+and the VGG ensemble ('Not ported').
 """
 
 from __future__ import annotations
@@ -64,7 +75,9 @@ from read_tpu_torch.criterions import losses as L
 from read_tpu_torch.criterions import vgg as V
 from read_tpu_torch.models import texture as T
 from read_tpu_torch.models.unet import UNet
+from read_tpu_torch.ops import augment as A
 from read_tpu_torch.ops import rasterize as R
+from read_tpu_torch.ops import rasterize_mesh as RMesh
 from read_tpu_torch.ops import render_modes as RM
 from read_tpu_torch.utils import convert as CV
 from read_tpu_torch.utils import fp32
@@ -72,10 +85,11 @@ from read_tpu_torch.utils import fp32
 __all__ = ["PipelineConfig", "parse_format_geometry", "config_from_dict",
            "build_pyramid", "ParamLayout", "TrainState", "AdamState",
            "RmsState", "adam_update", "rms_update", "create_state",
-           "state_from_flat", "flat_from_state", "make_train_step",
-           "make_eval_step", "ReduceLROnPlateau"]
+           "init_texture", "state_from_flat", "flat_from_state", "augment",
+           "make_train_step", "make_eval_step", "ReduceLROnPlateau"]
 
 Tensors = Dict[str, torch.Tensor]
+Tables = CV.Tables          # a texture: its tables, one for a point texture
 
 _DEFAULT_FORMAT = ("uv_1d_p1, uv_1d_p1_ds1, uv_1d_p1_ds2, uv_1d_p1_ds3, "
                    "uv_1d_p1_ds4")
@@ -88,8 +102,8 @@ _CRITERIA = ("vgg", "vgg_pytorch", "vgg_mix", "vgg_partial", "vgg_ens",
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """Static experiment hyperparameters: ``read_tpu``'s fields and
-    defaults (less ``texture_size`` and ``conv_impl``), with
-    ``dtype`` named 'float32' or 'bfloat16'."""
+    defaults (less ``conv_impl``), with ``dtype`` named 'float32' or
+    'bfloat16'."""
     crop_size: Tuple[int, int] = (256, 256)      # (h, w)
     descriptor_size: int = 8
     num_scales: int = 4
@@ -112,6 +126,7 @@ class PipelineConfig:
     min_point_size: float = 1.0         # the z-scaled sizes' floor
     grad_clip: float = 1e3
     use_mesh: bool = False
+    texture_size: int = 512     # mesh textures: level i is size / 2^i
     temporal_average: bool = False
     drop_points: float = 0.0
     perturb_points: float = 0.0
@@ -170,9 +185,7 @@ def _unported(what: str, item: str):
 
 
 def _check_geometry(cfg: PipelineConfig) -> None:
-    """Raise for the pyramid configurations the port does not have."""
-    if cfg.use_mesh:
-        _unported("the mesh-texture path (use_mesh)", "queue 1, item 9")
+    """Raise for pyramid configurations that cannot be built."""
     if cfg.supersampling < 1:
         raise ValueError(f"supersampling {cfg.supersampling} < 1")
 
@@ -180,9 +193,6 @@ def _check_geometry(cfg: PipelineConfig) -> None:
 def _check_trainable(cfg: PipelineConfig) -> None:
     """Raise for the training configurations the port does not have."""
     _check_geometry(cfg)
-    if cfg.drop_points > 0 or cfg.perturb_points > 0:
-        _unported("point dropout and jitter (ops/augment.py)",
-                  "queue 1, item 9")
     if cfg.vgg_ensemble:
         _unported("the VGG ensemble (vgg_ens)", "'Not ported'")
     if cfg.dtype != "float32":
@@ -247,6 +257,7 @@ def config_from_dict(d: dict, crop_size: Optional[Tuple[int, int]] = None,
                       or d.get("masked_background", False)),
         masked_background=bool(d.get("masked_background", False)),
         use_mesh=bool(d.get("use_mesh", False)),
+        texture_size=int(d.get("texture_size", 512) or 512),
         temporal_average=bool(d.get("temporal_average", False)),
         num_classes=d.get("num_classes"),
         dtype=dtype,
@@ -313,34 +324,73 @@ def _downscale(x: torch.Tensor, ss: int) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def build_pyramid(cfg: PipelineConfig, texture: torch.Tensor,
-                  xyz: torch.Tensor, total_m: torch.Tensor, shape=None,
-                  point_sizes=None, pointcloud=None, gt_label=None,
-                  view_m=None):
+def _mesh_pyramid(cfg: PipelineConfig, texture, xyz, total_m, h, w,
+                  uv2d, faces):
+    """The mesh branch with faces: a triangle raster at each level's
+    size (no pooling: the uv is interpolated at the level's own pixels),
+    the perspective-correct uv map, the tables' sample, zeros where no
+    face covers a pixel."""
+    ss = cfg.supersampling
+    pyr = []
+    for i in range(cfg.num_scales):
+        hi, wi = (h * ss) // (2 ** i), (w * ss) // (2 ** i)
+        fi, _ = RMesh.rasterize_mesh_batch(xyz, faces, total_m, hi, wi)
+        uv_map = RMesh.interpolate_uv(xyz, faces, uv2d, total_m, fi)
+        x = T.sample_mesh_texture(texture, uv_map,
+                                  cfg.texture_activation)
+        x = x * (fi >= 0).unsqueeze(-1).to(x.dtype)
+        pyr.append(_downscale(x, ss) if ss > 1 else x)
+    return pyr
+
+
+def build_pyramid(cfg: PipelineConfig, texture: Tables, xyz: torch.Tensor,
+                  total_m: torch.Tensor, shape=None, point_sizes=None,
+                  pointcloud=None, gt_label=None, view_m=None, uv2d=None,
+                  faces=None, ndc_jitter=None):
     """Rasterize the pyramid (one z-buffer at ``cfg.supersampling`` times
     ``shape``, splatted where ``cfg.point_radius > 0``, exact 2x2 pair
     pools) and gather descriptors: ``cfg.num_scales`` maps ``[B, h_i,
-    w_i, C]``. ``point_sizes`` is the scene manifest's per-point size
-    buffer. With ``cfg.extra_modes`` each level carries its modality
-    maps before the descriptors (:func:`_extra_maps`: ``pointcloud`` the
-    point attributes, ``gt_label`` the batch's label image, ``view_m``
-    its camera-to-world matrices); with supersampling each level is then
-    resized down (:func:`_downscale`). The gather's backward is the
-    per-image scatter-add for 1-px points and the summing one for
-    splats, as ``read_tpu`` picks them."""
+    w_i, C]`` from ``texture``, the state's tables (the point table
+    alone, or the mesh tables). ``point_sizes`` is the scene manifest's
+    per-point size
+    buffer; ``ndc_jitter [N, 2]`` each point's NDC offset (the
+    augmentation). With ``cfg.extra_modes`` each level carries its
+    modality maps before the descriptors (:func:`_extra_maps`:
+    ``pointcloud`` the point attributes, ``gt_label`` the batch's label
+    image, ``view_m`` its camera-to-world matrices); with supersampling
+    each level is then resized down (:func:`_downscale`). The gather's
+    backward is the per-image scatter-add for 1-px points and the
+    summing one for splats, as ``read_tpu`` picks them.
+
+    With ``cfg.use_mesh`` ``uv2d [N, 2]`` gives the points' (vertices')
+    uv, at which the mesh tables are sampled: given ``faces [T, 3]``
+    each level is a triangle raster (:func:`_mesh_pyramid`, which, as in
+    ``read_tpu``, carries no extra modes and no jitter), else each
+    level's winning point gives its uv."""
     _check_geometry(cfg)
     h, w = shape or cfg.crop_size
     ss = cfg.supersampling
+    if cfg.use_mesh and uv2d is None:
+        raise ValueError("the mesh-texture pyramid needs per-vertex uv2d")
+    if cfg.use_mesh and faces is not None:
+        return _mesh_pyramid(cfg, texture, xyz, total_m, h, w, uv2d, faces)
     levels = R.rasterize_pyramid_pooled(
         xyz, total_m, (h * ss, w * ss), num_scales=cfg.num_scales,
         point_radius=cfg.point_radius, method=cfg.raster_method,
-        point_sizes=point_sizes, relative_size=cfg.relative_point_size,
+        ndc_jitter=ndc_jitter, point_sizes=point_sizes,
+        relative_size=cfg.relative_point_size,
         min_point_size=cfg.min_point_size, pool_impl="exact")
     sample = (T.sample_point_texture_unique if cfg.point_radius == 0
               else T.sample_point_texture)
     pyr, tables = [], {}
     for lvl, (ix, dep) in enumerate(levels):
-        x = sample(texture, ix, cfg.texture_activation)
+        if cfg.use_mesh:
+            uv_map = RM.gather_attribute(uv2d, ix)
+            x = T.sample_mesh_texture(texture, uv_map,
+                                      cfg.texture_activation)
+            x = x * (ix >= 0).unsqueeze(-1).to(x.dtype)
+        else:
+            x = sample(texture[0], ix, cfg.texture_activation)
         if cfg.extra_modes:
             ex = _extra_maps(cfg, cfg.extra_modes[lvl], ix, dep, pointcloud,
                              gt_label, view_m, tables)
@@ -390,8 +440,9 @@ class AdamState:
 
 @dataclasses.dataclass
 class RmsState:
-    """``optax.scale_by_rms``'s state: the second moment."""
-    nu: torch.Tensor
+    """``optax.scale_by_rms``'s state: the second moment, one tensor a
+    table."""
+    nu: Tables
 
 
 @dataclasses.dataclass
@@ -401,12 +452,15 @@ class TrainState:
     too); ``params`` gives them keyed by the port's module names
     (``feat0.conv_fm.kernel``). ``batch_stats`` are the BatchNorm
     running statistics keyed the same way (``feat0.norm.mean``).
+    ``texture`` is a tuple of tables: the ``[N, C]`` point table alone
+    or, with ``use_mesh``, the ``[s, s, C]`` mesh tables (``tex_opt.nu``
+    alike).
     ``lr_scale`` is a 0-d float32 tensor."""
     step: int
     flat_params: torch.Tensor
     layout: ParamLayout
     batch_stats: Tensors
-    texture: torch.Tensor
+    texture: Tables
     net_opt: AdamState
     tex_opt: RmsState
     lr_scale: torch.Tensor
@@ -447,14 +501,35 @@ def adam_update(g: torch.Tensor, state: AdamState, b1: float = 0.9,
     return updates, AdamState(count, mu, nu)
 
 
-def rms_update(g: torch.Tensor, state: RmsState, decay: float = 0.99,
+def rms_update(g: Tables, state: RmsState, decay: float = 0.99,
                eps: float = 1e-8):
-    """``optax.chain(scale_by_rms(decay, eps), scale(-1))``: ``(update,
-    new state)``; the update is ``-g * rsqrt(nu + eps)`` with ``nu``
-    starting at 0 (``torch.optim.RMSprop`` divides by ``sqrt(nu) +
-    eps``)."""
-    nu = (1 - decay) * (g * g) + decay * state.nu
-    return -(torch.rsqrt(nu + eps) * g), RmsState(nu)
+    """``optax.chain(scale_by_rms(decay, eps), scale(-1))`` on each
+    table's gradient in ``g``: ``(updates, new state)``; the update is
+    ``-g * rsqrt(nu + eps)`` with ``nu`` starting at 0
+    (``torch.optim.RMSprop`` divides by ``sqrt(nu) + eps``)."""
+    nu = tuple((1 - decay) * (gi * gi) + decay * ni
+               for gi, ni in zip(g, state.nu))
+    return (tuple(-(torch.rsqrt(ni + eps) * gi) for gi, ni in zip(g, nu)),
+            RmsState(nu))
+
+
+def init_texture(cfg: PipelineConfig, n_points: int,
+                 texture_init: str = "rand",
+                 generator: Optional[torch.Generator] = None,
+                 device="cuda") -> Tables:
+    """A fresh texture's tables on ``device``: the ``[n_points, C]`` point
+    table (``texture_init`` 'rand' or 'zeros'), or with ``cfg.use_mesh``
+    the four mesh tables ``[texture_size / 2^i, ..., C]`` ('rand', else
+    zeros), as ``read_tpu``'s ``create_state`` makes them."""
+    if cfg.use_mesh:
+        tables = T.init_mesh_texture(
+            cfg.texture_size, cfg.descriptor_size,
+            init_method="rand" if texture_init == "rand" else "zeros",
+            generator=generator)
+    else:
+        tables = [T.init_point_texture(n_points, cfg.descriptor_size,
+                                       texture_init, generator=generator)]
+    return tuple(t.to(device) for t in tables)
 
 
 def create_state(generator: torch.Generator, cfg: PipelineConfig,
@@ -462,8 +537,9 @@ def create_state(generator: torch.Generator, cfg: PipelineConfig,
                  net: Optional[UNet] = None, device="cuda"
                  ) -> Tuple[TrainState, UNet]:
     """A fresh state: the net's flax-distributed init and the descriptor
-    table ('rand' by default, as ``read_tpu``) drawn from ``generator``
-    (not ``jax.random``'s numbers), zero optimizer moments, step 0,
+    table or mesh tables (:func:`init_texture`; 'rand' by default, as
+    ``read_tpu``) drawn from ``generator`` (not ``jax.random``'s
+    numbers), zero optimizer moments, step 0,
     ``lr_scale`` 1. Returns ``(state, net)``; the step functions run
     ``net`` on the state's variables."""
     _check_trainable(cfg)
@@ -471,19 +547,17 @@ def create_state(generator: torch.Generator, cfg: PipelineConfig,
         net = UNet(num_input_channels=cfg.net_in_channels,
                    num_classes=cfg.num_classes)
     net.init_weights(generator)
-    texture = T.init_point_texture(n_points, cfg.descriptor_size,
-                                   texture_init, generator=generator)
+    texture = init_texture(cfg, n_points, texture_init, generator, device)
     params = dict(net.named_parameters())
     layout = ParamLayout.of(params)
     flat = layout.flatten(params).detach().to(device)
     stats = {k: v.detach().to(device).clone()
              for k, v in net.named_buffers()}
-    texture = texture.to(device)
     state = TrainState(
         step=0, flat_params=flat, layout=layout, batch_stats=stats,
         texture=texture,
         net_opt=AdamState(0, torch.zeros_like(flat), torch.zeros_like(flat)),
-        tex_opt=RmsState(torch.zeros_like(texture)),
+        tex_opt=RmsState(tuple(torch.zeros_like(t) for t in texture)),
         lr_scale=torch.ones((), dtype=torch.float32, device=device))
     return state, net.to(device)
 
@@ -498,33 +572,35 @@ def _subtree(flat: Dict[str, np.ndarray], prefix: str, device) -> Tensors:
             for key, arr in flat.items() if key.startswith(prefix)}
 
 
+def _leaf(flat: Dict[str, np.ndarray], key: str, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(flat[key], np.float32)).to(device)
+
+
 def state_from_flat(flat: Dict[str, np.ndarray], device="cuda"
                     ) -> TrainState:
     """A whole ``read_tpu`` ``TrainState``, flattened as its checkpoint
     holds it (``read_tpu/utils/ckpt.py:42-47``: ``step``, ``lr_scale``,
-    ``params/``, ``batch_stats/``, ``texture``, the net optimizer's
-    ``net_opt/0/count``, ``net_opt/0/mu/<param path>`` and
-    ``net_opt/0/nu/<param path>``, the texture optimizer's
-    ``tex_opt/0/nu``) -> the port's :class:`TrainState` on
-    ``device``."""
+    ``params/``, ``batch_stats/``, ``texture`` (mesh tables:
+    ``texture/<level>``), the net optimizer's ``net_opt/0/count``,
+    ``net_opt/0/mu/<param path>`` and ``net_opt/0/nu/<param path>``, the
+    texture optimizer's ``tex_opt/0/nu`` (``tex_opt/0/nu/<level>``)) ->
+    the port's :class:`TrainState` on ``device``."""
     params = _subtree(flat, "params/", device)
     mu, nu = _subtree(flat, _MU, device), _subtree(flat, _NU, device)
     if not params or set(mu) != set(params) or set(nu) != set(params):
         raise ValueError("checkpoint holds no whole train state (params "
                          "and the net optimizer's mu/nu)")
 
-    def f32(key):
-        return torch.from_numpy(np.array(flat[key], np.float32)).to(device)
-
     layout = ParamLayout.of(params)
     return TrainState(
         step=int(flat["step"]), flat_params=layout.flatten(params),
         layout=layout, batch_stats=_subtree(flat, "batch_stats/", device),
-        texture=f32("texture"),
+        texture=CV.texture_from_flat(flat, "texture", device),
         net_opt=AdamState(int(flat["net_opt/0/count"]),
                           layout.flatten(mu), layout.flatten(nu)),
-        tex_opt=RmsState(f32("tex_opt/0/nu")),
-        lr_scale=f32("lr_scale"))
+        tex_opt=RmsState(CV.texture_from_flat(flat, "tex_opt/0/nu",
+                                              device)),
+        lr_scale=_leaf(flat, "lr_scale", device))
 
 
 def flat_from_state(state: TrainState) -> Dict[str, np.ndarray]:
@@ -540,7 +616,7 @@ def flat_from_state(state: TrainState) -> Dict[str, np.ndarray]:
     flat.update(tree(_MU, state.net_opt.mu))
     flat.update(tree(_NU, state.net_opt.nu))
     flat["net_opt/0/count"] = np.asarray(state.net_opt.count, np.int32)
-    flat["tex_opt/0/nu"] = state.tex_opt.nu.detach().cpu().numpy()
+    flat.update(CV.flat_from_texture(state.tex_opt.nu, "tex_opt/0/nu"))
     flat["step"] = np.asarray(state.step, np.int32)
     flat["lr_scale"] = state.lr_scale.detach().cpu().numpy().astype(
         np.float32)
@@ -553,12 +629,13 @@ def flat_from_state(state: TrainState) -> Dict[str, np.ndarray]:
 
 
 def _forward(net: UNet, cfg: PipelineConfig, params: Tensors,
-             batch_stats: Tensors, texture: torch.Tensor, xyz, total_m,
-             train: bool, shape=None, batch=None):
+             batch_stats: Tensors, texture, xyz, total_m, train: bool,
+             shape=None, batch=None):
     """Pyramid + the net's differentiable route on ``params`` and
     ``batch_stats``: ``(out, new batch_stats, pyramid)``. ``batch`` may
     carry the pyramid's other inputs (``point_sizes``, ``pointcloud``,
-    ``label``, ``view_matrix``). With ``train`` BatchNorm normalizes by
+    ``label``, ``view_matrix``, the mesh path's ``uv2d`` and ``faces``,
+    the step's ``ndc_jitter``). With ``train`` BatchNorm normalizes by
     the batch statistics and the returned statistics are moved copies;
     else the running ones are used and returned as they are."""
     batch = batch or {}
@@ -566,7 +643,9 @@ def _forward(net: UNet, cfg: PipelineConfig, params: Tensors,
                         point_sizes=batch.get("point_sizes"),
                         pointcloud=batch.get("pointcloud"),
                         gt_label=batch.get("label"),
-                        view_m=batch.get("view_matrix"))
+                        view_m=batch.get("view_matrix"),
+                        uv2d=batch.get("uv2d"), faces=batch.get("faces"),
+                        ndc_jitter=batch.get("ndc_jitter"))
     if cfg.temporal_average:
         # each item's input averages with the previous item's; the
         # first keeps itself (read_tpu's batched shift-average)
@@ -630,29 +709,68 @@ def _loss_and_grads(net: UNet, cfg: PipelineConfig, vgg_params,
                     state: TrainState, xyz, batch: dict, freeze_net: bool):
     """One forward and backward from ``state``: ``(metrics, new
     batch_stats, im_out, flat net gradient or None, texture grad)``,
-    gradients before the guard, ``metrics['loss']`` the scalar loss. The
-    net runs on views of one leaf buffer, so autograd hands back the
-    gradient in ``state.layout``'s order."""
+    gradients before the guard (the texture's a tuple, one a table),
+    ``metrics['loss']`` the scalar loss. The net runs on views of one
+    leaf buffer, so autograd hands back the gradient in
+    ``state.layout``'s order."""
     flat = state.flat_params.detach().requires_grad_(not freeze_net)
     params = state.layout.views(flat)
-    texture = state.texture.detach().requires_grad_()
-    out, new_bs, _ = _forward(net, cfg, params, state.batch_stats, texture,
+    tables = tuple(t.detach().requires_grad_() for t in state.texture)
+    out, new_bs, _ = _forward(net, cfg, params, state.batch_stats, tables,
                               xyz, batch["total_m"], train=not freeze_net,
                               batch=batch)
     loss, metrics = _losses(cfg, vgg_params, out, batch)
     if cfg.reg_weight:
-        loss = loss + T.point_texture_reg_loss(texture, cfg.reg_weight)
+        loss = loss + (
+            T.mesh_texture_reg_loss(tables, cfg.reg_weight) if cfg.use_mesh
+            else T.point_texture_reg_loss(tables[0], cfg.reg_weight))
     metrics["loss"] = loss
-    wrt = [texture] if freeze_net else [flat, texture]
+    wrt = tables if freeze_net else (flat, *tables)
     grads = torch.autograd.grad(loss, wrt, allow_unused=True,
                                 materialize_grads=True)
     g_net = None if freeze_net else grads[0]
+    g_tex = tuple(grads[len(wrt) - len(tables):])
     metrics = {k: v.detach() for k, v in metrics.items()}
-    return metrics, new_bs, out["im_out"].detach(), g_net, grads[-1]
+    return metrics, new_bs, out["im_out"].detach(), g_net, g_tex
+
+
+# the augmentation's generators: seeded by (AUGMENT_SEED, step), as
+# read_tpu folds the step into PRNGKey(0)
+AUGMENT_SEED = 0
+
+
+def _step_draws(step: int, n: int, device):
+    """The step's default draws: ``([n, 1] dropout, [n, 2] jitter)``
+    uniforms from a generator on ``device`` seeded by ``(AUGMENT_SEED,
+    step)``; the same numbers on every run, and no host sync."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed((AUGMENT_SEED << 32) | int(step))
+    u_drop = torch.rand((n, 1), generator=gen, device=device)
+    return u_drop, torch.rand((n, 2), generator=gen, device=device)
+
+
+def augment(cfg: PipelineConfig, step: int, xyz: torch.Tensor, draws=None):
+    """The step's point dropout and jitter: ``(xyz, ndc_jitter or
+    None)``, ``xyz`` itself and None when ``cfg.drop_points`` and
+    ``cfg.perturb_points`` are 0. ``draws(step, n, device) -> (u_drop
+    [n, 1], u_jitter [n, 2])`` gives the uniforms (default
+    :func:`_step_draws`); the jitter is worth up to ``perturb_points``
+    pixels of the crop (``cfg.crop_size``), as in ``read_tpu``."""
+    if not (cfg.drop_points > 0 or cfg.perturb_points > 0):
+        return xyz, None
+    u_drop, u_jit = (draws or _step_draws)(step, xyz.shape[0], xyz.device)
+    jitter = None
+    if cfg.drop_points > 0:
+        xyz = A.drop_points_from(u_drop, xyz, cfg.drop_points)
+    if cfg.perturb_points > 0:
+        jitter = A.jitter_offsets_from(u_jit, cfg.perturb_points,
+                                       *cfg.crop_size)
+    return xyz, jitter
 
 
 def make_train_step(net: UNet, cfg: PipelineConfig, vgg_params,
-                    freeze_net: bool = False, return_images: bool = False):
+                    freeze_net: bool = False, return_images: bool = False,
+                    draws=None):
     """``train_step(state, xyz [N, 3], batch) -> (new_state, metrics)``
     (``+ im_out [B, h, w, 3]`` with ``return_images``).
 
@@ -669,7 +787,13 @@ def make_train_step(net: UNet, cfg: PipelineConfig, vgg_params,
     before both optimizers; both step by ``lr * lr_scale``. The step,
     forward and backward, runs in full float32 (TF32 off,
     :func:`read_tpu_torch.utils.fp32.full_f32`) whatever the caller's
-    flags, and restores them."""
+    flags, and restores them.
+
+    With ``cfg.drop_points`` or ``cfg.perturb_points`` each step first
+    runs :func:`augment` on ``xyz`` with the state's step; ``draws`` (see
+    there) replaces its generator, e.g. with given uniforms. A
+    ``use_mesh`` batch carries ``'uv2d' [N, 2]`` and, for the triangle
+    raster, ``'faces' [T, 3]``."""
     _check_trainable(cfg)
 
     def train_step(state: TrainState, xyz: torch.Tensor, batch: dict):
@@ -677,14 +801,19 @@ def make_train_step(net: UNet, cfg: PipelineConfig, vgg_params,
             return _train_step(state, xyz, batch)
 
     def _train_step(state: TrainState, xyz: torch.Tensor, batch: dict):
+        xyz, jitter = augment(cfg, state.step, xyz, draws)
+        if jitter is not None:
+            batch = dict(batch, ndc_jitter=jitter)
         metrics, new_bs, im, g_net, g_tex = _loss_and_grads(
             net, cfg, vgg_params, state, xyz, batch, freeze_net)
         with torch.no_grad():
-            up_tex, tex_opt = rms_update(_guard_grad(g_tex, cfg.grad_clip),
-                                         state.tex_opt)
+            up_tex, tex_opt = rms_update(
+                tuple(_guard_grad(g, cfg.grad_clip) for g in g_tex),
+                state.tex_opt)
             lr_tex = cfg.texture_lr * state.lr_scale
-            changes = dict(step=state.step + 1,
-                           texture=state.texture + lr_tex * up_tex,
+            texture = tuple(t + lr_tex * u
+                            for t, u in zip(state.texture, up_tex))
+            changes = dict(step=state.step + 1, texture=texture,
                            tex_opt=tex_opt)
             if not freeze_net:
                 up_net, net_opt = adam_update(

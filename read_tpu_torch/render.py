@@ -12,7 +12,13 @@ checkpoints trained with extra input modalities, ``infer``,
 The renderer loads a ``read_tpu`` checkpoint directory (numpy only),
 rebuilds the pipeline config from its embedded ``config``, and renders
 project -> z-buffer -> exact 2x2 pyramid pool -> descriptor gather ->
-UNet (K2, K3). The z-buffer is the checkpoint's own: the default
+UNet (K2, K3). A ``use_mesh`` checkpoint holds mesh tables in place of
+the descriptor table; they are sampled at the uv of the scene's triangle
+raster when the scene has ``faces`` (``ops.rasterize_mesh``, every
+level), else at each level's winning point's ``uv2d``, as
+``read_tpu/render.py:134-148`` feeds them (``scene.io.mesh_inputs``: a
+manifest's ``mesh`` lends them where the point cloud has none). The
+z-buffer is the checkpoint's own: the default
 ``sort`` runs K5 (exact), ``pallas``/``scatter1`` K1 (packed key);
 ``--raster-method`` overrides it, as the JAX CLI's flag does. A
 checkpoint whose ``input_format`` splats (``p3`` and up, or ``ps``), or
@@ -49,6 +55,7 @@ import torch
 
 from read_tpu_torch.data import image_io
 from read_tpu_torch.scene import camera
+from read_tpu_torch.scene.io import mesh_inputs
 from read_tpu_torch.models.unet import unet_from_state
 from read_tpu_torch.ops import rasterize as R
 from read_tpu_torch.ops import render_modes as RM
@@ -103,8 +110,9 @@ class NeuralRenderer:
     ``view_matrix``, ``point_sizes``, the point attributes of the raw
     and extra modes and a ``texture`` image). ``device`` defaults to
     CUDA; ``'cpu'`` runs the plain twins instead of the kernels.
-    ``xyz`` and ``texture`` may be reassigned together (as many rows
-    each) to render an edited or stitched scene."""
+    ``xyz`` and ``texture`` (the tuple of the point table) may be
+    reassigned together (as many rows each) to render an edited or
+    stitched scene."""
 
     def __init__(self, scene: Union[str, dict], ckpt_path: str,
                  viewport: Optional[tuple] = None,
@@ -148,10 +156,20 @@ class NeuralRenderer:
                 scene["point_sizes"], np.float32).reshape(-1)).to(
                     self.device)
         state, texture = CV.variables_from_flat(flat)
-        if texture.shape[0] != xyz.shape[0]:
-            raise ValueError(f"texture rows {texture.shape[0]} != points "
-                             f"{xyz.shape[0]}")
-        self.texture = texture.to(self.device)
+        if self.cfg.use_mesh != (texture[0].dim() == 3):
+            raise ValueError("the checkpoint's texture does not match its "
+                             f"config (use_mesh={self.cfg.use_mesh})")
+        if not self.cfg.use_mesh and texture[0].shape[0] != xyz.shape[0]:
+            raise ValueError(f"texture rows {texture[0].shape[0]} != "
+                             f"points {xyz.shape[0]}")
+        self.texture = tuple(t.to(self.device) for t in texture)
+        # the mesh path's scene inputs, as the training step got them
+        self.uv2d = self.faces = None
+        if self.cfg.use_mesh:
+            uv2d, faces = mesh_inputs(scene)
+            self.uv2d = self._attr(uv2d)
+            if faces is not None:
+                self.faces = torch.from_numpy(faces).to(self.device)
         self.net = unet_from_state(state).to(self.device)
         if self.device.type == "cuda":   # fold BNs and pack weights now
             self.net.prepare(self.cfg.operands)
@@ -192,7 +210,8 @@ class NeuralRenderer:
                                 shape=(self.vh, self.vw),
                                 point_sizes=self.point_sizes,
                                 pointcloud=self.pc_attrs,
-                                view_m=self._view_arg(view_matrix))
+                                view_m=self._view_arg(view_matrix),
+                                uv2d=self.uv2d, faces=self.faces)
 
     def index_pyramid(self, view_matrix: np.ndarray,
                       K: Optional[np.ndarray] = None):
@@ -272,7 +291,11 @@ class NeuralRenderer:
         principal components (:func:`pca_color`)."""
         idx, dep = self.raster(view_matrix, K)
         if mode == "pca":
-            colors = pca_color(self.texture.cpu().numpy())
+            if self.cfg.use_mesh:
+                raise ValueError(
+                    "pca descriptor view needs a point texture "
+                    "(checkpoint was trained with --use-mesh)")
+            colors = pca_color(self.texture[0].cpu().numpy())
             out = RM.gather_attribute(self._attr(colors), idx)
             return out[0].cpu().numpy()
         if mode == "depth":

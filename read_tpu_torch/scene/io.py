@@ -25,7 +25,7 @@ __all__ = ["read_ply", "import_model3d", "load_scene_data",
            "intrinsics_from_xml", "intrinsics_from_ini",
            "intrinsics_from_txt", "extrinsics_from_xml",
            "extrinsics_from_txt", "extrinsics_from_view_matrix",
-           "get_valid_matrices", "fix_relative_path"]
+           "get_valid_matrices", "fix_relative_path", "mesh_inputs"]
 
 _PLY_DTYPES = {
     "char": "i1", "int8": "i1", "uchar": "u1", "uint8": "u1",
@@ -347,3 +347,24 @@ def load_scene_data(path: str) -> dict:
         "net_ckpt": net_ckpt,
         "tex_ckpt": tex_ckpt,
     }
+
+
+def mesh_inputs(scene_data: dict):
+    """``(uv2d [N, 2] float32, faces [T, 3] int32 or None)`` for mesh
+    textures. ``read_tpu`` reads both from the point cloud, where a PLY
+    point cloud gives zero uv and no faces, so from a manifest it never
+    reaches its triangle raster; here a manifest's ``mesh`` with the
+    point cloud's vertex count (its vertices are the points) lends its
+    texture coordinates and faces when the point cloud has no faces."""
+    pc = scene_data["pointcloud"]
+    src = pc
+    mesh = scene_data.get("mesh")
+    if pc.get("faces") is None and mesh is not None \
+            and mesh.get("faces") is not None and mesh.get("uv2d") is not None \
+            and len(mesh["xyz"]) == len(pc["xyz"]):
+        src = mesh
+    uv2d = np.asarray(src["uv2d"], np.float32)
+    faces = src.get("faces")
+    if faces is not None:
+        faces = np.asarray(faces, np.int64).reshape(-1, 3).astype(np.int32)
+    return uv2d, faces

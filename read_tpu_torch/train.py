@@ -5,8 +5,8 @@ Usage::
     python -m read_tpu_torch.train --config configs/demo_drive.yaml \\
         [--crop-size 256x256] [--epochs 100] ...
 
-Counterpart of ``read_tpu/train.py`` for ``--pipeline texture``: the
-same flags and defaults (``build_argparser``), an experiment config
+Counterpart of ``read_tpu/train.py``: the same flags and defaults
+(``build_argparser``), an experiment config
 that sets defaults which the command line overrides (``load_args``), an
 experiment directory with ``args.yaml``, a ``log.txt`` copy of the
 console and ``splits.json`` (``setup_experiment``), and ``main``:
@@ -20,7 +20,11 @@ console and ``splits.json`` (``setup_experiment``), and ``main``:
   (on the device once a scene), label images and view matrices;
   ``--resume`` restores whole states (net, textures, both optimizers,
   step) from ``read_tpu``-format checkpoints; ``--freeze-net`` fits the
-  textures alone;
+  textures alone; the train dataset's ``drop_points``/``perturb_points``
+  augment every step (drawn on the device, seeded by the step);
+  ``--use-mesh`` trains mesh textures of ``--texture-size`` (the scene's
+  ``uv2d``, and its triangle ``faces`` where it has them,
+  ``scene.io.mesh_inputs``);
 - the epoch interleaves the scenes' batches; with ``--max-scenes-hbm``
   the scenes train in chunks of that many, and the other scenes'
   textures and texture-optimizer moments wait in pinned host memory
@@ -34,6 +38,12 @@ console and ``splits.json`` (``setup_experiment``), and ``main``:
   ``read_tpu_torch.render`` both load them;
 - ``--eval`` (with ``--eval-all``, ``--eval-dir``) validates only and
   dumps the predictions as PNG;
+- ``--pipeline pix2pix`` (the UNet on raw ``colors`` pyramids, Adam) and
+  ``--pipeline rgb_texture`` (an RGB mesh texture, RMSprop, no net; with
+  ``--use-mesh`` and scene faces through the triangle raster):
+  :func:`run_alt_pipeline`, ``read_tpu``'s loop (:328-523) with its val
+  PSNR, plateau decay, ``ckpt_<pipeline>_<scene>_<epoch>`` (the newest 3
+  kept), ``best_<pipeline>_<scene>`` and ``--resume``;
 - every ``--log-freq`` steps a train composite (output | target |
   depth) under ``train_imgs/``, and tensorboard scalars when
   ``tensorboardX`` is installed.
@@ -48,9 +58,8 @@ device and without that flag it exits with an error. It needs none of
 PyYAML, ``cv2``, ``imageio``, ``matplotlib`` or ``tensorboardX``:
 configs may be JSON (:mod:`read_tpu_torch.utils.config_io`), images PNG
 (:mod:`read_tpu_torch.data.image_io`). What the port does not have yet
-(``--pipeline pix2pix|rgb_texture``, ``--mesh``, ``--use-mesh``,
-``--dtype bfloat16``, point dropout and jitter, ``vgg_ens``) exits with
-the ``ROADMAP.md`` item that will bring it.
+(``--mesh``, ``--dtype bfloat16``) exits with the ``ROADMAP.md`` item
+that will bring it; ``vgg_ens`` exits as not ported.
 """
 
 from __future__ import annotations
@@ -66,7 +75,8 @@ import numpy as np
 import torch
 
 __all__ = ["parse_size", "build_argparser", "load_args",
-           "setup_experiment", "config_dict", "SceneStateStore", "main"]
+           "setup_experiment", "config_dict", "SceneStateStore",
+           "run_alt_pipeline", "main"]
 
 
 def parse_size(s) -> tuple:
@@ -84,8 +94,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--config", type=str, default=None,
                    help="experiment YAML (or JSON); flags override it")
     p.add_argument("--pipeline", type=str, default="texture",
-                   choices=["texture", "pix2pix", "rgb_texture"],
-                   help="only 'texture' is ported")
+                   choices=["texture", "pix2pix", "rgb_texture"])
     p.add_argument("--paths-file", dest="paths_file", type=str)
     p.add_argument("--dataset-names", dest="dataset_names", nargs="*",
                    default=None)
@@ -185,7 +194,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="renormalize loss by mask mean + pull background "
                         "to black")
     p.add_argument("--use-mesh", dest="use_mesh", action="store_true",
-                   help="mesh textures (not ported)")
+                   help="mesh textures sampled at the scene's uv2d (with "
+                        "its triangle faces where it has them)")
     p.add_argument("--texture-size", dest="texture_size", type=int,
                    default=512)
     p.add_argument("--temporal-average", dest="temporal_average",
@@ -248,12 +258,12 @@ def config_dict(args) -> dict:
                               type(None)))}
 
 
-def _to_host(t: torch.Tensor) -> torch.Tensor:
-    """A host copy of ``t``: pinned when ``t`` is on a CUDA device."""
-    if t.is_cuda:
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        return host.copy_(t)
-    return t.clone()
+def _to_host(tables: tuple) -> tuple:
+    """Host copies of a texture's ``tables`` (or their RMS moments):
+    pinned where they lie on a CUDA device."""
+    return tuple(torch.empty(t.shape, dtype=t.dtype,
+                             pin_memory=True).copy_(t) if t.is_cuda
+                 else t.clone() for t in tables)
 
 
 class SceneStateStore:
@@ -324,31 +334,32 @@ class SceneStateStore:
             self._lru.remove(sid)
         self._lru.append(sid)
         if self.is_offloaded(sid):
-            st = st.replace(
-                texture=st.texture.to(self.device, non_blocking=True),
-                tex_opt=RmsState(st.tex_opt.nu.to(self.device,
-                                                  non_blocking=True)))
+            st = st.replace(texture=_to_device(st.texture, self.device),
+                            tex_opt=RmsState(_to_device(st.tex_opt.nu,
+                                                        self.device)))
             self._states[sid] = st
             del self._host[sid]
         self._evict()
         return st
 
 
+def _to_device(tables: tuple, device) -> tuple:
+    return tuple(t.to(device, non_blocking=True) for t in tables)
+
+
 def _shapes(layout) -> dict:
     return dict(zip(layout.names, layout.shapes))
 
 
+def _texture_shapes(tables: tuple) -> list:
+    return [tuple(t.shape) for t in tables]
+
+
 def _refuse_unported(args) -> None:
     """Exit, naming the ``ROADMAP.md`` item, for what is not ported."""
-    if args.pipeline != "texture":
-        raise SystemExit(f"--pipeline {args.pipeline} is not ported to "
-                         "read_tpu_torch (ROADMAP queue 1, item 10)")
     if args.mesh:
         raise SystemExit("--mesh (multi-device training) is not ported to "
                          "read_tpu_torch (ROADMAP queue 1, item 12)")
-    if args.use_mesh:
-        raise SystemExit("--use-mesh (mesh textures) is not ported to "
-                         "read_tpu_torch (ROADMAP queue 1, item 9)")
     if args.dtype != "float32":
         raise SystemExit("--dtype bfloat16 (bfloat16 training) is not "
                          "ported to read_tpu_torch (ROADMAP queue 1, "
@@ -367,6 +378,209 @@ def _device(args) -> torch.device:
         raise SystemExit("no CUDA device; pass --headless-platform cpu to "
                          "run on the CPU with the kernels' plain twins")
     return torch.device("cuda")
+
+
+def run_alt_pipeline(args, cfg, ds_train, ds_val, writer, exp_dir: str,
+                     vgg_params, device: torch.device) -> int:
+    """The loops of the pipelines without point textures
+    (``read_tpu/train.py:328-523``): ``pix2pix``, the UNet alone on raw
+    rendered ``colors`` (one state for all scenes); ``rgb_texture``, an
+    RGB mesh texture per scene, no net (with ``--use-mesh`` and the
+    scene's faces through the triangle raster). Each epoch runs the
+    scenes one after another (at most ``--max-steps-per-epoch`` steps,
+    counted over the epoch as ``read_tpu`` counts them), then the val
+    views at full frame for their PSNR, whose negative drives the
+    plateau decay; ``ckpt_<pipeline>_<scene>_<epoch>`` is saved every
+    ``--save-freq`` epochs and on a better val PSNR (the newest 3 kept),
+    ``best_<pipeline>_<scene>`` on a better one; ``--resume`` loads a
+    scene's checkpoint dir or the newest under the given root. The
+    experiment's ``history.json`` holds each epoch's train loss, val
+    PSNR, lr scale and step wall times."""
+    from read_tpu_torch.criterions import losses as L
+    from read_tpu_torch.data.dataset import BatchIterator, PrefetchIterator
+    from read_tpu_torch.ops import rasterize as R
+    from read_tpu_torch.ops import render_modes as RM
+    from read_tpu_torch.pipelines import pix2pix_pipeline as P2P
+    from read_tpu_torch.pipelines import rgb_texture_pipeline as RGB
+    from read_tpu_torch.pipelines import texture_pipeline as TP
+    from read_tpu_torch.scene.io import mesh_inputs
+    from read_tpu_torch.utils import ckpt as CK
+    from read_tpu_torch.utils import fp32
+    from read_tpu_torch.utils.perform import AccumDict
+
+    def to_dev(a) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    ckpt_root = os.path.join(exp_dir, "checkpoints")
+    scene_pc = {ds.id: ds.scene_data["pointcloud"] for ds in ds_train}
+    xyz_dev = {sid: to_dev(np.asarray(pc["xyz"], np.float32))
+               for sid, pc in scene_pc.items()}
+    pix2pix = args.pipeline == "pix2pix"
+    if pix2pix:
+        state, net = P2P.create_pix2pix_state(
+            torch.Generator().manual_seed(args.seed), cfg, in_channels=3,
+            device=device)
+        rgb = {sid: to_dev(np.asarray(pc["rgb"], np.float32))
+               for sid, pc in scene_pc.items()}
+        steps = {sid: P2P.make_pix2pix_step(net, cfg, vgg_params,
+                                            {"rgb": rgb[sid]},
+                                            mode="colors")
+                 for sid in scene_pc}
+
+        @torch.no_grad()
+        def eval_image(sid, total_m, shape):
+            with fp32.full_f32():
+                levels = R.rasterize_pyramid_pooled(xyz_dev[sid], total_m,
+                                                    shape, cfg.num_scales)
+                pyr = [RM.gather_attribute(rgb[sid], ix) for ix, _ in levels]
+                out = torch.func.functional_call(
+                    net, {**state.params, **state.batch_stats}, tuple(pyr),
+                    {"train": False})
+                return out["im_out"]
+
+        def to_flat(sid):
+            return P2P.flat_from_pix2pix_state(state)
+    else:
+        h, w = cfg.crop_size
+        states, steps, mesh = {}, {}, {}
+        for ds in ds_train:
+            states[ds.id] = RGB.create_rgb_texture_state(args.texture_size,
+                                                         device=device)
+            uv2d, faces = mesh_inputs(ds.scene_data)
+            mesh[ds.id] = (to_dev(uv2d), to_dev(faces) if args.use_mesh
+                           and faces is not None else None)
+            steps[ds.id] = RGB.make_rgb_texture_step(
+                args.texture_lr, {"uv2d": mesh[ds.id][0]}, h, w,
+                reg_weight=args.reg_weight, faces=mesh[ds.id][1])
+
+        @torch.no_grad()
+        def eval_image(sid, total_m, shape):
+            with fp32.full_f32():
+                uv_map, mask = RGB.uv_and_mask(xyz_dev[sid], total_m,
+                                               mesh[sid][0], *shape,
+                                               mesh[sid][1])
+                return RGB.rgb_texture_forward(states[sid].tables, uv_map,
+                                               mask)
+
+        def to_flat(sid):
+            return RGB.flat_from_rgb_state(states[sid])
+
+    if args.resume:
+        for ds in ds_train:
+            cand = args.resume
+            if not os.path.exists(os.path.join(cand, "state.npz")):
+                cand = CK.latest_checkpoint(
+                    args.resume, f"ckpt_{args.pipeline}_{ds.name}") or \
+                    os.path.join(args.resume,
+                                 f"best_{args.pipeline}_{ds.name}")
+            flat, _ = CK.load_checkpoint(cand)
+            if pix2pix:
+                restored = P2P.pix2pix_state_from_flat(flat, device)
+                if _shapes(restored.layout) != _shapes(state.layout):
+                    raise SystemExit(f"--resume {cand}: the checkpoint's "
+                                     "net does not match the configured "
+                                     "one")
+                state = restored
+            else:
+                restored = RGB.rgb_state_from_flat(flat, device)
+                if _texture_shapes(restored.tables) != \
+                        _texture_shapes(states[ds.id].tables):
+                    raise SystemExit(f"--resume {cand}: the checkpoint's "
+                                     "tables do not match --texture-size")
+                states[ds.id] = restored
+            print(f"resumed {ds.name} from {cand} (step {restored.step})")
+            if pix2pix:
+                break   # one shared state
+
+    sched = TP.ReduceLROnPlateau(factor=args.plateau_factor,
+                                 patience=args.plateau_patience)
+    best_val = float("inf")
+    history = []
+    for epoch in range(args.epochs):
+        acc = AccumDict()
+        step_count = 0
+        step_ms = []
+        for ds in ds_train:
+            it = PrefetchIterator(BatchIterator(
+                ds, args.batch_size, shuffle=True,
+                seed=args.seed + epoch), depth=2)
+            t_ask = time.perf_counter()
+            for batch in it:
+                dev_batch = {"total_m": to_dev(batch["total_m"]),
+                             "target": to_dev(batch["target"])}
+                if pix2pix:
+                    state, metrics = steps[ds.id](state, xyz_dev[ds.id],
+                                                  dev_batch)
+                else:
+                    states[ds.id], metrics = steps[ds.id](
+                        states[ds.id], xyz_dev[ds.id], dev_batch)
+                acc.update({k: float(v) for k, v in metrics.items()})
+                t_done = time.perf_counter()
+                step_ms.append((t_done - t_ask) * 1e3)
+                t_ask = t_done
+                step_count += 1
+                if step_count % args.log_freq == 0:
+                    print(f"epoch {epoch} it {step_count}: {acc}")
+                if args.max_steps_per_epoch and \
+                        step_count >= args.max_steps_per_epoch:
+                    break
+        # val: full-frame PSNR
+        vacc = AccumDict()
+        t0 = time.perf_counter()
+        for ds in ds_val:
+            for i in range(len(ds.view_list)):
+                item = ds[i]
+                shape = tuple(item["target"].shape[:2])
+                img = eval_image(ds.id, to_dev(item["total_m"][None]), shape)
+                vacc.update({"psnr": float(L.psnr(
+                    img[0], to_dev(item["target"])))})
+        val_s = time.perf_counter() - t0
+        val_psnr = vacc.mean("psnr") if vacc["psnr"] else 0.0
+        val_loss = -val_psnr
+        scale = sched.step(val_loss)
+        lr = torch.tensor(scale, dtype=torch.float32, device=device)
+        if pix2pix:
+            state = state.replace(lr_scale=lr)
+        else:
+            for sid in states:
+                states[sid] = states[sid].replace(lr_scale=lr)
+        train_loss = acc.mean("loss") if acc["loss"] else float("inf")
+        print(f"epoch {epoch}: train {train_loss:.5f} val psnr "
+              f"{val_psnr:.2f} lr_scale {scale:.4f}")
+        steady = step_ms[2:] or step_ms
+        n_val = len(vacc["psnr"])
+        if steady:
+            print(f"epoch {epoch} timing: {len(step_ms)} steps, "
+                  f"{np.mean(steady):.2f} ms/step after the first 2; val "
+                  f"{n_val} views, {1e3 * val_s / max(n_val, 1):.2f} "
+                  "ms/view")
+        history.append({"epoch": epoch, "train_loss": train_loss,
+                        "val_psnr": val_psnr, "lr_scale": scale,
+                        "step_ms": step_ms, "val_seconds": val_s})
+        with open(os.path.join(exp_dir, "history.json"), "w") as f:
+            json.dump(history, f, indent=1)
+        if writer:
+            writer.add_scalar("train/loss", train_loss, epoch)
+            writer.add_scalar("val/psnr", val_psnr, epoch)
+            writer.add_scalar("lr_scale", scale, epoch)
+        if val_loss < best_val or epoch % args.save_freq == 0:
+            for ds in ds_train:
+                flat = to_flat(ds.id)
+                extra = {"epoch": epoch, "val_psnr": val_psnr}
+                CK.save_checkpoint(
+                    os.path.join(ckpt_root, f"ckpt_{args.pipeline}_"
+                                 f"{ds.name}_{epoch}"),
+                    flat, config=config_dict(args), extra=extra)
+                CK.rotate_checkpoints(
+                    ckpt_root, f"ckpt_{args.pipeline}_{ds.name}", keep=3)
+                if val_loss < best_val:
+                    CK.save_checkpoint(
+                        os.path.join(ckpt_root,
+                                     f"best_{args.pipeline}_{ds.name}"),
+                        flat, config=config_dict(args), extra=extra)
+            best_val = min(best_val, val_loss)
+    print(f"done; best val psnr {-best_val:.2f}")
+    return 0
 
 
 def main(argv=None) -> int:
@@ -388,10 +602,11 @@ def _run(args, exp_dir: str, device: torch.device) -> int:
     from read_tpu_torch.criterions import vgg as V
     from read_tpu_torch.data.dataset import BatchIterator, PrefetchIterator
     from read_tpu_torch.data.scenes import get_datasets
-    from read_tpu_torch.models import texture as T
     from read_tpu_torch.ops import render_modes as RM
     from read_tpu_torch.pipelines import texture_pipeline as TP
+    from read_tpu_torch.scene.io import mesh_inputs
     from read_tpu_torch.utils import ckpt as CK
+    from read_tpu_torch.utils import convert as CV
     from read_tpu_torch.utils.perform import AccumDict
 
     print(f"experiment dir: {exp_dir}")
@@ -434,6 +649,10 @@ def _run(args, exp_dir: str, device: torch.device) -> int:
             print("WARNING: no --vgg-weights; using seeded random VGG "
                   "features")
 
+    if args.pipeline != "texture":
+        return run_alt_pipeline(args, cfg, ds_train, ds_val, writer, exp_dir,
+                                vgg_params, device)
+
     # per-scene states sharing one net; with --max-scenes-hbm only that
     # many scenes' texture tables stay on the device
     gen = torch.Generator().manual_seed(args.seed)
@@ -446,15 +665,14 @@ def _run(args, exp_dir: str, device: torch.device) -> int:
                 texture_init=args.texture_init, device=device)
             st = shared
         else:   # one net: scene 0's, with this scene's own texture
-            tex = T.init_point_texture(tr.n_points, cfg.descriptor_size,
-                                       args.texture_init,
-                                       generator=gen).to(device)
-            st = shared.replace(texture=tex,
-                                tex_opt=TP.RmsState(torch.zeros_like(tex)))
+            tex = TP.init_texture(cfg, tr.n_points, args.texture_init, gen,
+                                  device)
+            st = shared.replace(texture=tex, tex_opt=TP.RmsState(
+                tuple(torch.zeros_like(t) for t in tex)))
         if tex_ckpt:
             flat, _ = CK.load_checkpoint(tex_ckpt)
-            st = st.replace(texture=torch.from_numpy(
-                np.array(flat["texture"], np.float32)).to(device))
+            st = st.replace(texture=CV.texture_from_flat(flat, "texture",
+                                                         device))
         states[tr.id] = st
     if args.net_ckpt:
         flat, _ = CK.load_checkpoint(args.net_ckpt)
@@ -482,7 +700,8 @@ def _run(args, exp_dir: str, device: torch.device) -> int:
             restored = TP.state_from_flat(flat, device)
             want = states[ds.id]
             if _shapes(restored.layout) != _shapes(want.layout) or \
-                    restored.texture.shape != want.texture.shape:
+                    _texture_shapes(restored.texture) != \
+                    _texture_shapes(want.texture):
                 raise SystemExit(f"--resume {cand}: the checkpoint's net "
                                  "or texture does not match the "
                                  "configured one")
@@ -510,6 +729,7 @@ def _run(args, exp_dir: str, device: torch.device) -> int:
 
     psize_cache: Dict[int, Optional[torch.Tensor]] = {}
     pc_cache: Dict[int, Dict[str, torch.Tensor]] = {}
+    mesh_cache: Dict[int, Dict[str, torch.Tensor]] = {}
     extra = {m for g in cfg.extra_modes for m in g}
     view_dependent = bool(extra & set(RM.VIEW_DEPENDENT))
 
@@ -529,7 +749,15 @@ def _run(args, exp_dir: str, device: torch.device) -> int:
         per-point sizes (``point_sizes``, on the device once a scene),
         and with extra modes the point attributes (``pointcloud``), the
         label image under ``label_in_input`` (training batches) and the
-        camera-to-world ``view_matrix`` for ``normals_l/r/d``."""
+        camera-to-world ``view_matrix`` for ``normals_l/r/d``; with
+        ``--use-mesh`` the scene's ``uv2d`` and triangle ``faces``."""
+        if cfg.use_mesh:
+            if sid not in mesh_cache:
+                uv2d, faces = mesh_inputs(scene_by_id[sid].scene_data)
+                mesh_cache[sid] = {"uv2d": to_dev(uv2d)}
+                if faces is not None:
+                    mesh_cache[sid]["faces"] = to_dev(faces)
+            dev_batch.update(mesh_cache[sid])
         if sid not in psize_cache:
             ps = scene_by_id[sid].scene_data.get("point_sizes")
             psize_cache[sid] = None if ps is None else to_dev(

@@ -1141,3 +1141,84 @@ def test_raw_modes_on_cuda_match_cpu(dev):
                               view_matrix=view)
         assert got.device.type == "cuda"
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=tol)
+
+
+# --------------------------------------------------------------------------
+# K1, K5 and the splat projection with the NDC jitter
+# --------------------------------------------------------------------------
+
+def _edge_jitter(n, px, hw, seed=3):
+    """Orthographic-ish points (clip w = 1), a third within a few pixels
+    of the four edges, and ``[n, 2]`` jitter of up to ``px`` pixels, so
+    centres land at negative u and v and one or more past the last
+    column and row."""
+    rng = np.random.default_rng(seed)
+    xyz = rng.uniform(-1, 1, size=(n, 3)).astype(np.float32)
+    k = n // 3
+    side = rng.integers(0, 4, k)
+    edge = rng.uniform(0.9, 1.0, k).astype(np.float32)
+    xyz[:k, 0] = np.where(side == 0, -edge, np.where(side == 1, edge,
+                                                     xyz[:k, 0]))
+    xyz[:k, 1] = np.where(side == 2, -edge, np.where(side == 3, edge,
+                                                     xyz[:k, 1]))
+    xyz[:, 2] = np.round(xyz[:, 2], 2)      # exact depth ties
+    u = rng.uniform(size=(n, 2)).astype(np.float32)
+    scale = np.array([2.0 * px / hw[1], 2.0 * px / hw[0]], np.float32)
+    jit = ((u - np.float32(0.5)) * scale).astype(np.float32)
+    ms = np.stack([np.eye(4, dtype=np.float32)] * 2)
+    ms[1, 0, 3] = 0.01
+    return xyz, ms, jit
+
+
+@pytest.mark.parametrize("px", [1.0, 12.0])
+@pytest.mark.parametrize("case", ["k1", "k5", "k6_sort", "k6_pallas"])
+def test_jittered_kernels_bit_equal(dev, case, px):
+    hw = (32, 48)
+    xyz, ms, jit = (torch.from_numpy(a).to(dev)
+                    for a in _edge_jitter(6000, px, hw))
+    if case == "k1":
+        name = "zbuffer_jitter"
+        before = RK.launches[name]
+        got = RK.zbuffer(xyz, ms, *hw, jitter=jit)
+        want = RK.zbuffer_plain(xyz, ms, *hw, jitter=jit)
+        plain = RK.zbuffer(xyz, ms, *hw)
+        got, want, plain = got[0], want[0], plain[0]
+    elif case == "k5":
+        name = "zbuffer_exact_jitter"
+        before = RK.launches[name]
+        got = RK.zbuffer_pyramid(xyz, ms, *hw, 4, "sort", "exact",
+                                 jitter=jit)
+        want = RK.zbuffer_pyramid_plain(xyz, ms, *hw, 4, "sort", "exact",
+                                        jitter=jit)
+        plain = RK.zbuffer_pyramid(xyz, ms, *hw, 4, "sort", "exact")
+    else:
+        method = case.split("_")[1]
+        name = "zbuffer_splat_jitter"
+        before = RK.launches[name]
+        args = (xyz, ms, *hw, 4, method, "exact", 1)
+        got = RK.zbuffer_splat(*args, jitter=jit)
+        want = RK.zbuffer_splat_plain(*args, jitter=jit)
+        plain = RK.zbuffer_splat(*args)
+    torch.cuda.synchronize()
+    assert RK.launches[name] == before + 1
+    flat = (lambda x: [t for lv in x for t in lv]) if isinstance(
+        got, list) else (lambda x: [x])
+    for a, b in zip(flat(got), flat(want)):
+        assert torch.equal(a, b)
+    assert not all(torch.equal(a, b) for a, b in zip(flat(got),
+                                                     flat(plain)))
+
+
+def test_jitter_pass_reprojects_the_unjittered_depth(dev):
+    """K1's pass re-projects each winner for its level-0 depth: with the
+    jitter it is the winner's own unjittered depth, as the twin's."""
+    hw = (32, 48)
+    xyz, ms, jit = (torch.from_numpy(a).to(dev)
+                    for a in _edge_jitter(6000, 3.0, hw))
+    (index, depth), = RK.zbuffer_pyramid(xyz, ms, *hw, 1, "pallas",
+                                         "exact", jitter=jit)
+    ndc, _ = R.project_points(xyz, ms)
+    want = torch.gather((ndc[..., 2] + 1.0) * 0.5, 1,
+                        index.clamp(min=0).view(2, -1).long()).view_as(depth)
+    hit = index >= 0
+    assert bool(hit.any()) and torch.equal(depth[hit], want[hit])

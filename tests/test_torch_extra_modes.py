@@ -147,7 +147,7 @@ def test_pyramid_matches_read_tpu(data, name):
         cfg_j, jnp.asarray(texture), jnp.asarray(xyz), jb["total_m"],
         pointcloud=jb["pointcloud"], gt_label=jb["label"],
         view_m=jb["view_matrix"])
-    got = TP.build_pyramid(cfg, torch.from_numpy(texture),
+    got = TP.build_pyramid(cfg, (torch.from_numpy(texture),),
                            torch.from_numpy(xyz), tb["total_m"],
                            pointcloud=tb["pointcloud"], gt_label=tb["label"],
                            view_m=tb["view_matrix"])
@@ -188,7 +188,7 @@ def test_label_in_input_refuses_supersampling(data):
                            jb["total_m"], pointcloud=jb["pointcloud"],
                            gt_label=jb["label"])
     with pytest.raises(ValueError, match="supersampling"):
-        TP.build_pyramid(cfg, torch.from_numpy(texture),
+        TP.build_pyramid(cfg, (torch.from_numpy(texture),),
                          torch.from_numpy(xyz), tb["total_m"],
                          pointcloud=tb["pointcloud"], gt_label=tb["label"])
 
@@ -198,7 +198,7 @@ def test_view_dependent_modes_need_view_matrices(data):
     _, cfg = _configs("depth_normals_l")
     tb = _torch_batch(batch, pc)
     with pytest.raises(ValueError, match="view_matrix"):
-        TP.build_pyramid(cfg, torch.from_numpy(texture),
+        TP.build_pyramid(cfg, (torch.from_numpy(texture),),
                          torch.from_numpy(xyz), tb["total_m"],
                          pointcloud=tb["pointcloud"])
 
@@ -254,18 +254,18 @@ def test_first_step_and_eval_match_jax(data, jax_states, name):
                                rtol=1e-4)
     got = {"params/" + k.replace(".", "/"): g.numpy()
            for k, g in tstate.layout.views(g_flat).items()}
-    got["texture"] = g_tex.numpy()
+    got["texture"] = g_tex[0].numpy()
     assert set(got) == set(want)
     s64 = dataclasses.replace(
         tstate, flat_params=tstate.flat_params.double(),
         batch_stats={k: v.double() for k, v in tstate.batch_stats.items()},
-        texture=tstate.texture.double())
+        texture=(tstate.texture[0].double(),))
     b64 = dict(tb, target=tb["target"].double())
     _, _, _, g64, t64 = TP._loss_and_grads(
         tnet, cfg, None, s64, txyz, b64, False)
     truth = {"params/" + k.replace(".", "/"): g.numpy()
              for k, g in tstate.layout.views(g64).items()}
-    truth["texture"] = t64.numpy()
+    truth["texture"] = t64[0].numpy()
 
     def off(g, key):
         return float(np.abs(np.asarray(g) - truth[key]).max()

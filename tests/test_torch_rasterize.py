@@ -166,7 +166,7 @@ def test_pyramid_pools_match_jax(pool_impl):
 
 
 @pytest.mark.parametrize("kw", [dict(method="sort2"), dict(method="scatter"),
-                                dict(method="pallas",
+                                dict(method="sort1q",
                                      ndc_jitter=np.zeros((3000, 2)))])
 def test_unported_options_raise(kw):
     xyz, ms = _scene()

@@ -110,7 +110,7 @@ def test_remat_step_equals_plain_step(ref, freeze_net):
         net, cfg, vgg, state, xyz, batches = _port(ref, remat)
         metrics, stats, _, g_net, g_tex = TP._loss_and_grads(
             net, cfg, vgg, state, xyz, batches[0], freeze_net)
-        grads = {"texture": g_tex}
+        grads = {"texture": g_tex[0]}
         if g_net is not None:
             grads.update(state.layout.views(g_net))
         runs.append((metrics, stats, grads))

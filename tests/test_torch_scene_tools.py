@@ -204,7 +204,7 @@ def drive(tmp_path_factory):
                                  generator=torch.Generator().manual_seed(0))
     ckpt = str(root / "ckpt")
     CK.save_checkpoint(ckpt, CV.flat_from_variables(net.state_dict(),
-                                                    table), config={})
+                                                    (table,)), config={})
     return str(root / "scene.json"), ckpt, poses, root
 
 

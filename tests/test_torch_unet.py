@@ -63,7 +63,7 @@ def test_unet_matches_flax_from_checkpoint(jax_case):
     pyr, ref, path, texture = jax_case
     flat, meta = CK.load_checkpoint(path)
     assert meta["config"] == {"dtype": "x"}
-    state, tex = CV.variables_from_flat(flat)
+    state, (tex,) = CV.variables_from_flat(flat)
     np.testing.assert_array_equal(tex.numpy(), texture)
     net = U.unet_from_state(state)
     assert net.num_classes == 3 and net.Encoder0.num_res == 1
@@ -102,7 +102,7 @@ def test_port_checkpoint_loads_in_read_tpu(tmp_path):
     package's loader with the same arrays."""
     net = U.UNet(base_channel=8, num_res=1).init_weights(
         torch.Generator().manual_seed(0))
-    flat = CV.flat_from_variables(net.state_dict(), torch.rand(10, 8))
+    flat = CV.flat_from_variables(net.state_dict(), (torch.rand(10, 8),))
     path = CK.save_checkpoint(str(tmp_path / "c"), flat,
                               config={"raster_method": "pallas"})
     flat_j, meta = JCK.load_checkpoint(path)
