@@ -1682,22 +1682,6 @@ CLI_SCENES = ("drive_a", "drive_b")
 CLI_POSES, CLI_EPOCHS, CLI_STEPS = 20, 2, 8
 
 
-def write_ply(path, xyz, rgb8):
-    """A binary little-endian PLY of float32 xyz and uchar rgb."""
-    arr = np.empty(len(xyz), np.dtype([
-        ("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
-        ("red", "u1"), ("green", "u1"), ("blue", "u1")]))
-    arr["x"], arr["y"], arr["z"] = xyz.T
-    arr["red"], arr["green"], arr["blue"] = rgb8.T
-    header = ("ply\nformat binary_little_endian 1.0\n"
-              f"element vertex {len(xyz)}\n"
-              "property float x\nproperty float y\nproperty float z\n"
-              "property uchar red\nproperty uchar green\n"
-              "property uchar blue\nend_header\n")
-    with open(path, "wb") as f:
-        f.write(header.encode("ascii") + arr.tobytes())
-
-
 def drive_world(rng, n_points):
     """``(xyz [N, 3], rgb [N, 3])`` float32: a street along -z in the
     layout of ``scripts/make_demo_scene.py``'s world: road with lane
@@ -1749,12 +1733,13 @@ def make_drive_scene(root, name, seed, dev, n_points, hw, poses):
     from read_tpu_torch.models import texture as T
     from read_tpu_torch.ops import rasterize as R
     from read_tpu_torch.scene import camera
+    from read_tpu_torch.scene import io as IO
     h, w = hw
     d = os.path.join(root, name)
     os.makedirs(os.path.join(d, "images"), exist_ok=True)
     xyz, colors = drive_world(np.random.default_rng(seed), n_points)
     rgb8 = (colors * 255).astype(np.uint8)
-    write_ply(os.path.join(d, "pc.ply"), xyz, rgb8)
+    IO.write_ply(os.path.join(d, "pc.ply"), xyz, rgb8)
     K = np.array([[720.0, 0, w / 2], [0, 720.0, h / 2], [0, 0, 1]])
     np.savetxt(os.path.join(d, "cam.txt"), np.vstack([[w, h, 0], K]))
     P = camera.gl_projection(K, (w, h), znear=0.1, zfar=1000.0)
@@ -1784,17 +1769,20 @@ def make_drive_scene(root, name, seed, dev, n_points, hw, poses):
             "target_name": "{label:06d}.png"}
 
 
-def expected_checkpoints(history, names, save_freq, keep=3):
+def expected_checkpoints(history, names, save_freq, keep=3,
+                         metric=lambda h: h["val_loss"]):
     """The checkpoint dirs ``read_tpu.train``'s rules leave after the
     epochs of ``history``: ``ckpt_<scene>_<epoch>`` at every
-    ``save_freq``-th epoch and at every improvement, the newest ``keep``
-    kept, and ``best_<scene>`` after an improvement."""
+    ``save_freq``-th epoch and at every improvement of ``metric`` (lower
+    is better: the val loss, or minus the val PSNR under
+    ``--plateau-metric psnr``), the newest ``keep`` kept, and
+    ``best_<scene>`` after an improvement."""
     best, kept, out = float("inf"), [], set()
     for h in history:
-        if h["epoch"] % save_freq == 0 or h["val_loss"] < best:
+        if h["epoch"] % save_freq == 0 or metric(h) < best:
             kept = (kept + [h["epoch"]])[-keep:]
-        if h["val_loss"] < best:
-            best = h["val_loss"]
+        if metric(h) < best:
+            best = metric(h)
             out |= {f"best_{n}" for n in names}
     return out | {f"ckpt_{n}_{e}" for n in names for e in kept}
 
@@ -2945,12 +2933,13 @@ def write_mesh_scene(root, name, dev, verts, faces, uv, atlas, hw, poses):
     a JSON manifest. Returns the paths-file entry."""
     import torch
     from read_tpu_torch.data import image_io
+    from read_tpu_torch.scene import io as IO
     d = os.path.join(root, name)
     os.makedirs(os.path.join(d, "images"), exist_ok=True)
     rgb8 = (np.clip(atlas[(uv[:, 1] * (atlas.shape[0] - 1)).astype(int),
                           (uv[:, 0] * (atlas.shape[1] - 1)).astype(int)],
                     0, 1) * 255).astype(np.uint8)
-    write_ply(os.path.join(d, "pc.ply"), verts, rgb8)
+    IO.write_ply(os.path.join(d, "pc.ply"), verts, rgb8)
     vert = np.empty(len(verts), np.dtype([
         ("x", "<f4"), ("y", "<f4"), ("z", "<f4"), ("s", "<f4"),
         ("t", "<f4")]))
@@ -3217,6 +3206,378 @@ def phase_alt_pipelines(report, ctx, dev, workdir):
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# bfloat16 training, config 3 (the 10M-point scene and its probe recipe)
+# and the viewer
+# ---------------------------------------------------------------------------
+
+BF16_LOSS_RTOL = 2e-2     # tests/test_torch_bf16_train.py's METRIC_RTOL
+
+
+def phase_bf16_train(report, ctx, dev):
+    """bfloat16 training at the bench point (256x256, B=8, 1M points,
+    VGG, ``sort``, the full-width UNet): the first loss of each dtype
+    from one fresh state (the bf16 one within ``BF16_LOSS_RTOL`` of the
+    f32 one, and not equal to it); 3 bf16 steps, then ``WARMUP`` +
+    ``TIMED`` more with K5 and the pass once a step and the loss falling
+    (``loss_fell``), and the f32 step from the state they leave, in the
+    same window. Peak memory of each window."""
+    import torch
+    from read_tpu_torch.pipelines import texture_pipeline as TP
+    from read_tpu_torch.utils import profiling
+    t_phase = time.perf_counter()
+    net, cfg, vgg, state, xyz, batch = train_setup(dev)
+    cfg_b = dataclasses.replace(cfg, dtype="bfloat16")
+    step_f, step_b = (TP.make_train_step(net, c, vgg) for c in (cfg, cfg_b))
+    first = {}
+    for name, step in (("f32", step_f), ("bf16", step_b)):
+        _, m = step(state, xyz, batch)
+        first[name] = float(m["loss"])
+    rel = abs(first["bf16"] - first["f32"]) / abs(first["f32"])
+    if not 0 < rel <= BF16_LOSS_RTOL:
+        raise SmokeFailure(f"bf16_train: first loss {first['bf16']:.6g} vs "
+                           f"f32 {first['f32']:.6g} from the same state "
+                           f"(rel {rel:.3g}; want 0 < rel <= "
+                           f"{BF16_LOSS_RTOL})")
+    head = []
+    for _ in range(3):
+        state, m = step_b(state, xyz, batch)
+        head.append(m["loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    bf16_s, losses, state = timed_steps(step_b, state, xyz, batch)
+    counts = launches()
+    peak_b = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = loss_fell("bf16_train", head, losses)
+    pyramid_ran("bf16_train", counts, "zbuffer_exact", WARMUP + TIMED)
+    report["zbuffer_exact"]["bf16_train_launches"] = counts["zbuffer_exact"]
+    torch.cuda.reset_peak_memory_stats()
+    f32_s, f32_losses, _ = timed_steps(step_f, state, xyz, batch)
+    peak_f = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not np.isfinite([float(x) for x in f32_losses]).all():
+        raise SmokeFailure("bf16_train: f32 losses not finite")
+    # both steps again from one state, on CUDA events, in turns
+    same = {}
+    for name, step in (("bf16", step_b), ("f32", step_f), ("bf16", step_b),
+                       ("f32", step_f)):
+        same.setdefault(name, []).append(profiling.device_timeit(
+            step, state, xyz, batch, iters=TIMED, warmup=1)["mean_ms"])
+    ctx["bf16_train_ms"] = (bf16_s * 1e3, f32_s * 1e3)
+    print(f"[bf16_train] {TRAIN_B}x{TRAIN_HW}^2 crops, {N_POINTS} points, "
+          f"full-width UNet, VGG on: bf16 {bf16_s * 1e3:.2f} ms/step, peak "
+          f"memory {peak_b:.2f} GiB; f32 in the same window "
+          f"{f32_s * 1e3:.2f} ms/step, peak {peak_f:.2f} GiB (each the "
+          f"mean of {TIMED} after {WARMUP} warm-up); first loss from one "
+          f"fresh state bf16 {first['bf16']:.6g}, f32 {first['f32']:.6g} "
+          f"(rel {rel:.3g}, bound {BF16_LOSS_RTOL}); from one state on "
+          f"CUDA events (profiling.device_timeit, {TIMED} steps after 1, "
+          f"in turns) bf16 "
+          + " / ".join(f"{x:.2f}" for x in same["bf16"]) + ", f32 "
+          + " / ".join(f"{x:.2f}" for x in same["f32"])
+          + f" ms/step; bf16 loss "
+          f"{float(head[0]):.6g} -> {losses[0]:.6g} -> {losses[-1]:.6g}; "
+          f"K5 {counts['zbuffer_exact']}, pass {counts['zbuffer_pyramid']}; "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    del net, state, step_f, step_b
+    torch.cuda.empty_cache()
+
+
+# config 3 (configs/scene10m_probe.yaml): the 10M-point drive of
+# read_tpu_torch.make_demo_scene, its probe recipe through the CLI in both
+# dtypes, with and without --remat
+CONFIG3 = "configs/scene10m_probe.yaml"
+CONFIG3_POINTS, CONFIG3_VIEWS = 10_000_000, 24
+CONFIG3_RUNS = (("bfloat16", False), ("bfloat16", True), ("float32", False),
+                ("float32", True))
+CONFIG3_HW = HW             # the recipe's crop, the native frame
+
+
+def phase_config3(report, ctx, dev, workdir):
+    """Config 3 on the card: ``python -m read_tpu_torch.make_demo_scene
+    --points 10000000 --views 24`` in this process (K6's splat projection
+    with K5's key, once a view), then ``read_tpu_torch.train.main`` with
+    ``configs/scene10m_probe.yaml`` as it is (read without PyYAML) and
+    ``--paths-file`` on the new scene, in bf16 and f32, each with and
+    without ``--remat``: ms/step, peak memory, val PSNR/SSIM, the
+    checkpoints the reference's rules leave, the epochs' train loss
+    falling, K5 and the pass once a train step and val batch."""
+    import torch
+    from read_tpu_torch import make_demo_scene
+    from read_tpu_torch.utils import config_io
+    t_phase = time.perf_counter()
+    root = os.path.join(workdir, "scene10m")
+    shutil.rmtree(root, ignore_errors=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    with without_modules():
+        rc = make_demo_scene.main([
+            "--out", root, "--points", str(CONFIG3_POINTS), "--views",
+            str(CONFIG3_VIEWS), "--width", str(CONFIG3_HW[1]), "--height",
+            str(CONFIG3_HW[0]), "--device", dev.type])
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = launches()
+    check = dev.type == "cuda"
+    if rc != 0 or check and (counts["zbuffer_splat"],
+                             counts["zbuffer_pyramid"]) != \
+            (CONFIG3_VIEWS, CONFIG3_VIEWS):
+        raise SmokeFailure(f"config3 scene: rc {rc}, launches {counts}, want "
+                           f"{CONFIG3_VIEWS} splat projections and passes")
+    report["zbuffer_splat"]["scene10m_launches"] = counts["zbuffer_splat"]
+    pngs = sorted(os.listdir(os.path.join(root, "images")))
+    if pngs != [f"{i:06}.png" for i in range(CONFIG3_VIEWS)]:
+        raise SmokeFailure(f"config3 scene: images {pngs}")
+    with without_modules():
+        recipe = config_io.load(CONFIG3)
+    val_step = recipe["splitter_args"]["val_step"]
+    n_val = len(range(0, CONFIG3_VIEWS, val_step))
+    per_epoch = CONFIG3_VIEWS - n_val     # the recipe's whole epochs
+    epochs = recipe["epochs"]
+    # the CLI's train composite (every log_freq-th step) rasterizes too
+    dumps = epochs * (per_epoch // recipe.get("log_freq", 50))
+    logs = os.path.join(root, "logs")
+    rows = []
+    for dtype, remat in CONFIG3_RUNS:
+        name = f"{dtype}{'_remat' if remat else ''}"
+        flags = ["--config", CONFIG3, "--paths-file",
+                 os.path.join(root, "paths.yaml"), "--dtype", dtype]
+        if remat:
+            flags.append("--remat")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with without_modules():
+            exp, hist, ran = _cli_run(logs, name, flags, dev)
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        steps = sum(len(h["train_timing"]["step_ms"]) for h in hist)
+        val_batches = sum(h["val_timing"]["batches"] for h in hist)
+        if (len(hist), steps, val_batches) != (epochs, epochs * per_epoch,
+                                               epochs * n_val):
+            raise SmokeFailure(f"config3 {name}: {len(hist)} epochs, {steps} "
+                               f"steps, {val_batches} val batches")
+        want = steps + val_batches + dumps
+        if check and ran != (want, want):
+            raise SmokeFailure(f"config3 {name}: K5 and the pass launched "
+                               f"{ran}, want {want} each (train steps, val "
+                               "batches, train composites)")
+        # the epoch's mean train loss: the val loss of a 3-epoch probe at
+        # lr 1e-3 and batch 1 can rise for an epoch (BatchNorm's running
+        # statistics trail the batch ones)
+        train = [h["train_loss"] for h in hist]
+        val = [h["val_loss"] for h in hist]
+        if not np.isfinite(train + val).all() or not train[-1] < train[0]:
+            raise SmokeFailure(f"config3 {name}: train loss {train} did not "
+                               f"fall (val {val})")
+        with open(os.path.join(exp, "args.yaml")) as f:
+            args_dtype = json.load(f)["dtype"]
+        ck = os.path.join(exp, "checkpoints")
+        kept = expected_checkpoints(hist, ["demo_drive"],
+                                    recipe["save_freq"],
+                                    metric=lambda h: -h["val"]["psnr"])
+        if set(os.listdir(ck)) != kept or args_dtype != dtype:
+            raise SmokeFailure(f"config3 {name}: checkpoints "
+                               f"{sorted(os.listdir(ck))}, the reference's "
+                               f"rules give {sorted(kept)}; dtype "
+                               f"{args_dtype}")
+        ms_step, wait, n_timed = _steady(hist)
+        last = hist[-1]["val"]
+        rows.append((name, ms_step, peak, last["psnr"], last["ssim"]))
+        report["zbuffer_exact"].setdefault("config3_launches", 0)
+        report["zbuffer_exact"]["config3_launches"] += ran[0]
+        print(f"[config3] {name}: {ms_step:.2f} ms/step over {n_timed} "
+              f"steps (each epoch's first 2 left out; {100 * wait:.1f}% "
+              f"waiting on data), peak memory {peak:.2f} GiB, val PSNR "
+              + " -> ".join(f"{h['val']['psnr']:.3f}" for h in hist)
+              + f", SSIM {hist[0]['val']['ssim']:.4f} -> "
+              f"{last['ssim']:.4f}, train loss {train[0]:.6g} -> "
+              f"{train[-1]:.6g}, val loss {val[0]:.6g} -> {val[-1]:.6g};"
+              " epochs " + ", ".join(f"{h['seconds']:.2f}" for h in hist)
+              + " s"
+              + f"; K5 {ran[0]}; run {run_s:.1f} s")
+    ctx["config3"] = rows
+    probe_profile(dev, root, recipe)
+    print(f"[config3] scene: {CONFIG3_POINTS} points, {CONFIG3_VIEWS} views "
+          f"at {CONFIG3_HW[1]}x{CONFIG3_HW[0]} by "
+          f"read_tpu_torch.make_demo_scene in {gen_s:.2f} s "
+          f"({counts['zbuffer_splat']} splat projections); recipe "
+          f"{CONFIG3} ({epochs} epochs x {per_epoch} steps, crop "
+          f"{recipe['crop_size']}, batch {recipe['batch_size']}, "
+          f"{recipe['criterion']}); phase {time.perf_counter() - t_phase:.1f}"
+          " s")
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def step_profile(step, args, logdir, top=5):
+    """One step traced by ``utils.profiling.trace`` after one untraced:
+    ``(device ms of its kernels, the ``top`` kernels by device time as
+    (name, ms, calls))``; ``(None, [])`` where the trace holds no device
+    activity."""
+    import torch
+    from read_tpu_torch.utils import profiling
+    step(*args)
+    with profiling.trace(logdir) as prof:
+        step(*args)
+    rows = [(e.key, getattr(e, "self_device_time_total", 0) / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not rows:
+        return None, []
+    rows.sort(key=lambda r: -r[1])
+    return sum(r[1] for r in rows), rows[:top]
+
+
+def probe_profile(dev, root, recipe):
+    """Where a probe step's device time goes, per dtype: a fresh state
+    on the 10M-point scene and its first view at the recipe's crop (the
+    native frame, B=1, VGG), one step traced (:func:`step_profile`,
+    Chrome traces under ``<root>/trace_<dtype>``)."""
+    import torch
+    from read_tpu_torch.criterions import vgg as V
+    from read_tpu_torch.data import image_io
+    from read_tpu_torch.pipelines import texture_pipeline as TP
+    from read_tpu_torch.scene import camera
+    from read_tpu_torch.scene import io as IO
+    scene = IO.load_scene_data(os.path.join(root, "scene.yaml"))
+    w, h = scene["config"]["viewport_size"]
+    P = camera.gl_projection(np.asarray(scene["intrinsic_matrix"]), (w, h),
+                             znear=0.1, zfar=1000.0)
+    m = camera.total_matrix(P, np.asarray(scene["view_matrix"][0]))
+    target = image_io.imread(os.path.join(root, "images", "000000.png"))
+    batch = {"total_m": torch.from_numpy(m.astype(np.float32)[None]).to(dev),
+             "target": torch.from_numpy(
+                 target[..., ::-1].astype(np.float32)[None] / 255).to(dev)}
+    xyz = torch.from_numpy(np.asarray(scene["pointcloud"]["xyz"],
+                                      np.float32)).to(dev)
+    vgg = V.random_vgg_params(torch.Generator().manual_seed(0), device=dev)
+    for dtype in ("float32", "bfloat16"):
+        cfg = TP.config_from_dict(dict(recipe, dtype=dtype), crop_size=(h, w))
+        state, net = TP.create_state(torch.Generator().manual_seed(0), cfg,
+                                     len(xyz), device=dev)
+        total, rows = step_profile(TP.make_train_step(net, cfg, vgg),
+                                   (state, xyz, batch),
+                                   os.path.join(root, f"trace_{dtype}"))
+        print(f"[config3] traced probe step {dtype} ({w}x{h}, B=1, "
+              f"{len(xyz)} points): "
+              + ("no device activity in the trace" if total is None else
+                 f"device {total:.2f} ms in kernels; top: " + "; ".join(
+                     f"{name[:60]} {ms:.2f} ms x{n}" for name, ms, n in rows)))
+        del state, net
+        torch.cuda.empty_cache()
+
+
+VIEWER_FRAMES = 20
+
+
+def phase_viewer(report, ctx, dev):
+    """The viewer on the CLI phase's best ``sort`` checkpoint of its 1M-
+    point drive at 1216x368: ``viewer.main([..., '--offscreen', '20'])``
+    as a user runs it (no cv2: K5 and the pass once a frame, K2's and the
+    1x1 loop as their routes predict for its neural frames), then a
+    ``ViewerApp``: ``VIEWER_FRAMES`` neural frames (fps, ms/frame) beside
+    ``NeuralRenderer.infer`` on the same poses in the same window, the
+    app's frame bit-equal to ``infer``'s, ``+`` through K6's splat
+    projection and ``-`` back to 1-px points (the frame as before), ``t``,
+    and every raw mode the scene has attributes for, once each."""
+    import io
+    import torch
+    from read_tpu_torch import viewer
+    from read_tpu_torch.utils import profiling
+    t_phase = time.perf_counter()
+    scene, ckpt, targets = ctx["drive"]
+    # 1. the CLI, offscreen
+    out = io.StringIO()
+    reset_launches()
+    with without_modules(), contextlib.redirect_stdout(out):
+        rc = viewer.main(["--scene", scene, "--ckpt", ckpt, "--offscreen",
+                          str(VIEWER_FRAMES), "--nearest-train", "--gt",
+                          os.path.join(targets, "*.png"), "--device",
+                          dev.type])
+    torch.cuda.synchronize()
+    counts = launches()
+    lines = out.getvalue().strip().splitlines()
+    # read_tpu's smoke: the trajectory's frames and the keys w, d, 1, n
+    # render neural frames; m, c, v, p and the replay raw ones
+    neural = VIEWER_FRAMES + 4
+    frames = neural + 4 + 3
+    if rc != 0 or not lines[-1].startswith(f"offscreen ok: {frames} "
+                                           "frames") \
+            or "loaded" not in lines[-2]:
+        raise SmokeFailure(f"viewer --offscreen: rc {rc}, output {lines}")
+    check = dev.type == "cuda"
+    if check:
+        pyramid_ran("viewer --offscreen", counts, "zbuffer_exact", frames)
+        routed_loops_ran(ctx, "viewer --offscreen", counts, neural)
+    report["zbuffer_exact"]["viewer_launches"] = counts["zbuffer_exact"]
+
+    # 2. the app beside the renderer
+    app = viewer.ViewerApp(scene, ckpt, device=dev)
+    r = app.r
+    views = r.scene_data["view_matrix"]
+    poses = [np.asarray(views[i % len(views)], np.float64)
+             for i in range(VIEWER_FRAMES)]
+    for pose in poses[:2]:                     # warm-up
+        app.tb.m = pose.copy()
+        app.render()
+        r.infer(pose)
+    app.frame_times.clear()
+    for pose in poses:
+        app.tb.m = pose.copy()
+        app.render()
+    fps = app.fps
+    infer_ms = profiling.device_timeit(r.infer, poses[3],
+                                       iters=VIEWER_FRAMES)["mean_ms"]
+    app.tb.m = poses[3].copy()
+    frame = app.render()
+    if not np.array_equal(frame, r.infer(app.tb.view_matrix())):
+        raise SmokeFailure("viewer: the app's neural frame differs from "
+                           "NeuralRenderer.infer's for the same pose")
+    reset_launches()
+    app.handle_key("+")
+    splat = app.render()
+    plus = launches()
+    app.handle_key("-")
+    back = app.render()
+    if check and (plus["zbuffer_splat"], plus["zbuffer_exact"]) != (1, 0) or \
+            r.cfg.point_radius != 0 or not np.array_equal(back, frame) or \
+            np.array_equal(splat, frame):
+        raise SmokeFailure(f"viewer: '+' launches {plus}, radius back to "
+                           f"{r.cfg.point_radius}, '-' frame as before "
+                           f"{np.array_equal(back, frame)}")
+    report["zbuffer_splat"]["viewer_launches"] = plus["zbuffer_splat"]
+    app.handle_key("t")
+    ta = [app.render() for _ in range(2)]
+    app.handle_key("t")
+    if not (r.temporal_average is False and all(np.isfinite(a).all()
+                                                for a in ta)):
+        raise SmokeFailure("viewer: 't' did not toggle temporal averaging")
+    mode_ms = {}
+    # texture2d needs a scene texture image; the drive has none
+    for key in "cvblph" + "mmmm":
+        app.handle_key(key)
+        t0 = time.perf_counter()
+        img = app.render()
+        mode_ms[app.mode] = (time.perf_counter() - t0) * 1e3
+        if img.shape != frame.shape or not np.isfinite(img).all():
+            raise SmokeFailure(f"viewer: mode {app.mode} gave a bad frame")
+    app.handle_key("n")
+    print(f"[viewer] --offscreen {VIEWER_FRAMES}: {lines[-1]} (no cv2; K5 "
+          f"{counts['zbuffer_exact']}, K2 wgmma "
+          f"{counts['gated_conv_kxk_wgmma']} for {neural} neural frames); "
+          f"app: {fps:.3f} fps, {1e3 / fps:.3f} ms/frame over "
+          f"{VIEWER_FRAMES} neural frames beside NeuralRenderer.infer "
+          f"{infer_ms:.3f} ms/frame in the same window (one pose, CUDA "
+          f"events, profiling.device_timeit); frame bit-equal "
+          f"to infer; '+' splat launches {plus['zbuffer_splat']}, '-' back "
+          f"to radius 0 bit-equal; raw modes ms "
+          + ", ".join(f"{k} {v:.1f}" for k, v in mode_ms.items())
+          + f"; phase {time.perf_counter() - t_phase:.1f} s")
+    del app, r
+    torch.cuda.empty_cache()
+
+
 def check_report(report):
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "max_abs_err")
@@ -3273,6 +3634,9 @@ def main() -> int:
               ("mesh", lambda: phase_mesh(report, ctx, dev, workdir)),
               ("alt_pipelines",
                lambda: phase_alt_pipelines(report, ctx, dev, workdir)),
+              ("bf16_train", lambda: phase_bf16_train(report, ctx, dev)),
+              ("config3", lambda: phase_config3(report, ctx, dev, workdir)),
+              ("viewer", lambda: phase_viewer(report, ctx, dev)),
               ("frame_vs_twin", lambda: phase_frame_vs_twin(ctx, dev)),
               ("frames", lambda: phase_frames(ctx, dev)),
               ("r2_band_route", lambda: phase_r2_band_route(dev)),

@@ -43,9 +43,16 @@ does not matter) and leaves the running statistics alone: they move
 once a step, as without ``remat``.
 
 Inputs and outputs are NHWC ``[B, h, w, C]``; ``B > 1`` is a real batch.
-``operands='bf16'`` (serving only) rounds every conv and matmul operand
-to bfloat16 and accumulates in float32 (JAX's ``bf16_mxu``); activations
-stay float32.
+``operands='bf16'`` means two things. On the serving route it rounds
+every conv and matmul operand to bfloat16 and accumulates in float32
+(JAX's ``bf16_mxu``); activations stay float32. On the differentiable
+route it runs what flax runs with ``dtype=bfloat16, param_dtype=float32``
+(``read_tpu/models/unet.py:142-199``): each conv's input, kernel and bias
+in bfloat16, the conv's output rounded to bfloat16 before the bias add,
+the gate in bfloat16, BatchNorm in float32 on the gate's output cast up
+(its statistics stay float32) and its result cast back; the residual
+adds, resamples and concats then run on bfloat16 tensors, and
+``im_out``/``seg_out`` come back float32.
 """
 
 from __future__ import annotations
@@ -117,8 +124,18 @@ def _bilinear_up4_lerp(x: torch.Tensor) -> torch.Tensor:
     """:func:`_bilinear_up4` built from slices and element-wise lerps, for
     the differentiable route: its backward is slicing and adds, so it is
     deterministic on CUDA, where ``F.interpolate``'s bilinear backward
-    accumulates with atomics in no fixed order."""
+    accumulates with atomics in no fixed order. A bfloat16 ``x`` resizes
+    as ``jax.image.resize`` does it: one contraction an axis, W first,
+    each in float32 and rounded to bfloat16."""
+    if x.dtype == torch.bfloat16:
+        x = _lerp_up4(x.float(), 2).to(torch.bfloat16)
+        return _lerp_up4(x.float(), 1).to(torch.bfloat16)
     return _lerp_up4(_lerp_up4(x, 1), 2)
+
+
+def _widen(x: torch.Tensor) -> torch.Tensor:
+    """A bfloat16 ``x`` as float32; other dtypes as they are."""
+    return x.float() if x.dtype == torch.bfloat16 else x
 
 
 def _resample(x: torch.Tensor, mode: str, f: int,
@@ -249,7 +266,7 @@ class BasicConv(nn.Module):
                 train: Optional[bool] = None,
                 res: Optional[torch.Tensor] = None) -> torch.Tensor:
         if train is not None:
-            return self._differentiable(x, train, res)
+            return self._differentiable(x, train, res, bf16)
         scale, offset = self.folded_bn()
         w, b = self.conv_fm.kernel, self.conv_fm.bias
         # the wrappers call the cache's getter only on a wgmma route
@@ -263,16 +280,25 @@ class BasicConv(nn.Module):
                                  if bf16 else self.packed_kxk_tf32)
 
     def _differentiable(self, x: torch.Tensor, train: bool,
-                        res: Optional[torch.Tensor]) -> torch.Tensor:
-        fm = F.conv2d(x.permute(0, 3, 1, 2),
-                      self.conv_fm.kernel.permute(3, 2, 0, 1),
-                      self.conv_fm.bias, stride=self.stride,
+                        res: Optional[torch.Tensor],
+                        bf16: bool = False) -> torch.Tensor:
+        w, b = self.conv_fm.kernel, self.conv_fm.bias
+        if bf16:
+            # flax nn.Conv(dtype=bfloat16): the conv's output is rounded
+            # to bfloat16, then the bfloat16 bias is added
+            x, w, b = (t.to(torch.bfloat16) for t in (x, w, b))
+        fm = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                      None if bf16 else b, stride=self.stride,
                       padding=(self.k - 1) // 2).permute(0, 2, 3, 1)
+        if bf16:
+            fm = fm + b
         c = fm.shape[-1] // 2
         f, m = fm[..., :c], fm[..., c:]
         if self.relu:
             f = F.elu(f)
-        out = self.norm(f * torch.sigmoid(m), train)
+        out = f * torch.sigmoid(m)
+        out = (self.norm(out.float(), train).to(torch.bfloat16) if bf16
+               else self.norm(out, train))
         return out if res is None else out + res
 
     def comb(self, parts, bf16: bool = False,
@@ -286,7 +312,7 @@ class BasicConv(nn.Module):
         if train is not None:
             x = torch.cat([_resample(x, mode, f, train)
                            for x, mode, f in parts], dim=-1)
-            return self(x, train=train)
+            return self(x, bf16, train=train)
         if len(parts) <= GC.MAX_CAT and all(mode == "id"
                                             for _, mode, _ in parts):
             scale, offset = self.folded_bn()
@@ -453,19 +479,16 @@ class UNet(nn.Module):
                 remat: bool = False) -> Dict[str, torch.Tensor]:
         """``train=None`` (default): the serving route, no autograd.
         ``train=True``/``False``: the differentiable route with batch /
-        running BN statistics (float32 operands only); ``remat``
-        checkpoints its EBlocks and DBlocks while autograd records."""
+        running BN statistics, float32 or flax's bfloat16 activations
+        (``operands``, see the module docstring); ``remat`` checkpoints
+        its EBlocks and DBlocks while autograd records."""
         if operands not in _OPERANDS:
             raise ValueError(f"operands must be one of {_OPERANDS}")
+        bf16 = operands == "bf16"
         if train is None:
             with torch.no_grad():
-                return self._forward(x, x_2, x_4, x_8, operands == "bf16",
-                                     None, False)
-        if operands != "f32":
-            raise NotImplementedError(
-                "the differentiable (training) route runs float32 "
-                "operands only; bfloat16 training is not ported")
-        return self._forward(x, x_2, x_4, x_8, False, bool(train),
+                return self._forward(x, x_2, x_4, x_8, bf16, None, False)
+        return self._forward(x, x_2, x_4, x_8, bf16, bool(train),
                              remat and torch.is_grad_enabled())
 
     def _block(self, name: str, x: torch.Tensor, bf16: bool,
@@ -485,7 +508,7 @@ class UNet(nn.Module):
         def run(x, *values):
             return torch.func.functional_call(
                 block, {**dict(zip(names, values)), **stats},
-                (x, False, train))
+                (x, bf16, train))
 
         return torch.utils.checkpoint.checkpoint(
             run, x, *params.values(), use_reentrant=False,
@@ -532,9 +555,10 @@ class UNet(nn.Module):
         z = self.feat4(block("Decoder2", z), *r)
         z = self.Convs2.comb([(z, "bilinear", 4), (r1, "id", 1)], *r)
         feats = block("Decoder3", z)
-        out = {"im_out": self.feat5(feats, *r)}
+        # flax casts the heads to float32 (a float64 run stays float64)
+        out = {"im_out": _widen(self.feat5(feats, *r))}
         if self.num_classes is not None:
-            out["seg_out"] = self.seg_head(feats, *r)
+            out["seg_out"] = _widen(self.seg_head(feats, *r))
         return out
 
 

@@ -144,7 +144,7 @@ def loss_and_grad(net: UNet, cfg: TP.PipelineConfig, vgg_params,
     bs = {k: v.clone() for k, v in state.batch_stats.items()}
     out = torch.func.functional_call(
         net, {**state.layout.views(flat), **bs}, tuple(pyr),
-        {"train": True, "remat": cfg.remat})
+        {"train": True, "remat": cfg.remat, "operands": cfg.operands})
     loss, metrics = TP._losses(cfg, vgg_params, out, batch)
     (g,) = torch.autograd.grad(loss, [flat])
     return loss, metrics, bs, g
@@ -158,7 +158,8 @@ def make_pix2pix_step(net: UNet, cfg: TP.PipelineConfig, vgg_params,
     ``pointcloud``'s attributes, run the UNet in train mode, the texture
     pipeline's losses, the guard, Adam (:func:`loss_and_grad`, then the
     update). ``batch``: ``'total_m' [B, 4, 4]``, ``'target' [B, h, w,
-    3]``. Full float32 (TF32 off), as the texture pipeline's step."""
+    3]``. Full float32 (TF32 off), as the texture pipeline's step; with
+    ``cfg.dtype='bfloat16'`` the net runs flax's bfloat16 activations."""
     pc = {"rgb": pointcloud["rgb"]}
 
     def step(state: Pix2PixState, xyz: torch.Tensor, batch: dict):

@@ -56,9 +56,14 @@ with the scene's triangle ``faces`` a triangle raster per level
 (:mod:`read_tpu_torch.ops.rasterize_mesh`) and the perspective-correct
 uv, else the uv of each level's winning point (``uv2d``).
 
-Configurations that need code the port does not have yet raise
-``NotImplementedError``: bfloat16 training (ROADMAP queue 1, item 8)
-and the VGG ensemble ('Not ported').
+With ``dtype='bfloat16'`` the net's differentiable route runs flax's
+bfloat16 activations (``models.unet.UNet``, ``operands='bf16'``: conv
+operands and activations bfloat16, BatchNorm float32); the parameters,
+the texture, the pyramid, the losses (VGG included), the gradient guard
+and both optimizers stay float32, as ``read_tpu`` keeps them with
+``param_dtype=float32``.
+
+The VGG ensemble ('Not ported') raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -132,8 +137,8 @@ class PipelineConfig:
     perturb_points: float = 0.0
     extra_modes: Tuple[Tuple[str, ...], ...] = ()
     label_in_input: bool = False
-    # 'bfloat16' serves with bf16 conv operands and float32 accumulation
-    # and activations; training runs float32 only
+    # 'bfloat16' serves with bf16 conv operands, float32 accumulation and
+    # float32 activations, and trains with flax's bf16 activations
     dtype: str = "float32"
     raster_method: str = "sort"
     remat: bool = False
@@ -195,8 +200,6 @@ def _check_trainable(cfg: PipelineConfig) -> None:
     _check_geometry(cfg)
     if cfg.vgg_ensemble:
         _unported("the VGG ensemble (vgg_ens)", "'Not ported'")
-    if cfg.dtype != "float32":
-        _unported("bfloat16 training", "queue 1, item 8")
 
 
 def _crop_size(d: dict, crop_size) -> Tuple[int, int]:
@@ -654,7 +657,8 @@ def _forward(net: UNet, cfg: PipelineConfig, params: Tensors,
         batch_stats = {k: v.clone() for k, v in batch_stats.items()}
     out = torch.func.functional_call(net, {**params, **batch_stats},
                                      tuple(pyr),
-                                     {"train": train, "remat": cfg.remat})
+                                     {"train": train, "remat": cfg.remat,
+                                      "operands": cfg.operands})
     return out, batch_stats, pyr
 
 

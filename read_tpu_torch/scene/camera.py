@@ -2,8 +2,8 @@
 
 The port's copy of ``read_tpu/scene/camera.py`` (``gl_projection``
 :38-60, ``rewrite_near_far`` :63-73, ``rescale_K`` :94-103,
-``total_matrix`` :122-129), the functions the renderer, the frame and
-the scene loader call. All matrices are row-major numpy 4x4 arrays; the
+``total_matrix`` :122-129, ``look_at`` :142-160), the functions the
+renderer, the frame, the scene loader and the scene generator call. All matrices are row-major numpy 4x4 arrays; the
 clip position of a world point ``p`` is ``total_m @ [p, 1]`` followed by
 the divide by its ``w`` component.
 """
@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["gl_projection", "rewrite_near_far", "rescale_K",
-           "total_matrix"]
+           "total_matrix", "look_at"]
 
 
 def gl_projection(K: np.ndarray, image_size, znear: float = 0.01,
@@ -66,3 +66,23 @@ def total_matrix(proj: np.ndarray, view: np.ndarray) -> np.ndarray:
     camera-to-world matrix (GL convention)."""
     return np.asarray(proj, dtype=np.float64) @ np.linalg.inv(
         np.asarray(view, dtype=np.float64))
+
+
+def look_at(eye, center, up=(0.0, 0.0, 1.0)) -> np.ndarray:
+    """Camera-to-world matrix of a GL camera (looking down its -z) at
+    ``eye`` looking at ``center``: the columns are the world-frame
+    right, up and backward axes and the position."""
+    eye = np.asarray(eye, dtype=np.float64)
+    center = np.asarray(center, dtype=np.float64)
+    up = np.asarray(up, dtype=np.float64)
+    fwd = center - eye
+    fwd = fwd / np.linalg.norm(fwd)
+    right = np.cross(fwd, up)
+    right = right / np.linalg.norm(right)
+    true_up = np.cross(right, fwd)
+    view = np.eye(4)
+    view[:3, 0] = right
+    view[:3, 1] = true_up
+    view[:3, 2] = -fwd
+    view[:3, 3] = eye
+    return view

@@ -50,16 +50,21 @@ console and ``splits.json`` (``setup_experiment``), and ``main``:
 
 Beyond ``read_tpu``'s outputs the experiment directory holds
 ``history.json``: per epoch the losses, each train step's wall time and
-the part of it spent waiting for the next batch, and the val time.
+the part of it spent waiting for the next batch, the val time and the
+epoch's wall time (``seconds``: its steps and its val epoch, without the
+checkpoints written after it).
 
 The CLI runs on the CUDA device; ``--headless-platform cpu`` runs it on
 the CPU with the kernels' plain twins (the tests do). Without a CUDA
 device and without that flag it exits with an error. It needs none of
 PyYAML, ``cv2``, ``imageio``, ``matplotlib`` or ``tensorboardX``:
-configs may be JSON (:mod:`read_tpu_torch.utils.config_io`), images PNG
-(:mod:`read_tpu_torch.data.image_io`). What the port does not have yet
-(``--mesh``, ``--dtype bfloat16``) exits with the ``ROADMAP.md`` item
-that will bring it; ``vgg_ens`` exits as not ported.
+configs are then read as JSON or block-style YAML
+(:mod:`read_tpu_torch.utils.config_io`), images as PNG
+(:mod:`read_tpu_torch.data.image_io`). ``--dtype bfloat16`` trains the
+net with flax's bfloat16 activations (``models.unet``); the checkpoints
+record the dtype in their config. What the port does not have yet
+(``--mesh``) exits with the ``ROADMAP.md`` item that will bring it;
+``vgg_ens`` exits as not ported.
 """
 
 from __future__ import annotations
@@ -160,7 +165,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
-                   help="bfloat16 training is not ported")
+                   help="the net's activations and conv operands in "
+                        "training and evaluation")
     p.add_argument("--remat", action="store_true", default=None,
                    help="recompute the UNet's EBlocks and DBlocks in the "
                         "backward pass instead of keeping their "
@@ -360,10 +366,6 @@ def _refuse_unported(args) -> None:
     if args.mesh:
         raise SystemExit("--mesh (multi-device training) is not ported to "
                          "read_tpu_torch (ROADMAP queue 1, item 12)")
-    if args.dtype != "float32":
-        raise SystemExit("--dtype bfloat16 (bfloat16 training) is not "
-                         "ported to read_tpu_torch (ROADMAP queue 1, "
-                         "item 8)")
 
 
 def _device(args) -> torch.device:
@@ -435,7 +437,7 @@ def run_alt_pipeline(args, cfg, ds_train, ds_val, writer, exp_dir: str,
                 pyr = [RM.gather_attribute(rgb[sid], ix) for ix, _ in levels]
                 out = torch.func.functional_call(
                     net, {**state.params, **state.batch_stats}, tuple(pyr),
-                    {"train": False})
+                    {"train": False, "operands": cfg.operands})
                 return out["im_out"]
 
         def to_flat(sid):
@@ -1024,7 +1026,7 @@ def _run(args, exp_dir: str, device: torch.device) -> int:
         history.append({"epoch": epoch, "train_loss": train_loss,
                         "val_loss": val_loss, "val": vacc.means(),
                         "lr_scale": scale, "train_timing": tt,
-                        "val_timing": vt})
+                        "val_timing": vt, "seconds": time.time() - t0})
         write_history()
         if writer:
             writer.add_scalar("val/loss", val_loss, epoch)

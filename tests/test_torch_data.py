@@ -14,8 +14,9 @@
   files (every filter, 1-4 channels, gray+alpha included); the
   encoder's files read back equal;
 - ``config_io``: every ``configs/*.yaml`` as ``yaml.safe_load`` reads
-  it, and as JSON with PyYAML blocked; ``scene.io.load_scene_data`` on a
-  JSON manifest with PyYAML blocked.
+  it, and with PyYAML blocked both as JSON and as it is (the block-style
+  YAML subset); a file outside that subset raises naming itself;
+  ``scene.io.load_scene_data`` on a JSON manifest with PyYAML blocked.
 
 ``WARP_ATOL = 1e-5``: the numpy warp follows the vector path of OpenCV
 5's warp (float32 source coordinates, each row's offsets multiplied and
@@ -355,9 +356,13 @@ def test_config_io_reads_every_config(tmp_path, monkeypatch):
         assert config_io.load(js) == want, path
         with open(js) as f:
             assert yaml.safe_load(f) == want, path
-        with pytest.raises(config_io.ConfigFormatError,
-                           match=os.path.basename(path)):
-            config_io.load(path)
+        assert config_io.load(path) == want, path
+    for i, text in enumerate(["a: &x 1\nb: *x\n", "a:\n- b: 1\n",
+                              "a: |\n  text\n", "---\na: 1\n"]):
+        bad = tmp_path / f"bad{i}.yaml"
+        bad.write_text(text)
+        with pytest.raises(config_io.ConfigFormatError, match=bad.name):
+            config_io.load(str(bad))
 
 
 def test_scene_manifest_as_json_without_yaml(scene, monkeypatch):
@@ -373,6 +378,11 @@ def test_scene_manifest_as_json_without_yaml(scene, monkeypatch):
     for key in ("xyz", "rgb"):
         np.testing.assert_array_equal(got["pointcloud"][key],
                                       want["pointcloud"][key], err_msg=key)
-    with pytest.raises(config_io.ConfigFormatError, match="scene.yaml"):
-        IO.load_scene_data(str(scene / "scene.yaml"))
+    # the YAML manifest reads through the block-style subset alike
+    again = IO.load_scene_data(str(scene / "scene.yaml"))
+    assert again["config"] == want["config"]
+    np.testing.assert_array_equal(np.stack(again["view_matrix"]),
+                                  np.stack(want["view_matrix"]))
+    np.testing.assert_array_equal(again["pointcloud"]["xyz"],
+                                  want["pointcloud"]["xyz"])
 

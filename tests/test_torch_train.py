@@ -253,16 +253,13 @@ def test_eval_step_matches_jax(ref):
 
 
 @pytest.mark.parametrize("change", [
-    dict(vgg_ensemble=3, drop_points=0.1),
-    dict(dtype="bfloat16", perturb_points=1.0),
-    dict(vgg_ensemble=3), dict(dtype="bfloat16"),
-    dict(dtype="bfloat16", use_mesh=True)])
+    dict(vgg_ensemble=3, drop_points=0.1), dict(vgg_ensemble=3)])
 def test_unported_training_configs_raise(change):
-    """bfloat16 training and the VGG ensemble raise naming their ROADMAP
-    place, also beside the ported dropout, jitter and mesh textures."""
+    """The VGG ensemble raises naming its ROADMAP place, also beside the
+    ported dropout."""
     cfg = TP.PipelineConfig(crop_size=HW, **change)
     net = UNet(base_channel=8, num_res=1)
-    item = "item 8" if "dtype" in change else "'Not ported'"
+    item = "'Not ported'"
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         TP.make_train_step(net, cfg, None)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):

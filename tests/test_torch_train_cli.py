@@ -375,11 +375,8 @@ def test_cli_runs_without_optional_packages(setup, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--pipeline", "pix2pix", "--dtype", "bfloat16"], "item 8"),
     (["--pipeline", "rgb_texture", "--mesh", "2x2"], "item 12"),
     (["--mesh", "2x2"], "item 12"),
-    (["--use-mesh", "--dtype", "bfloat16"], "item 8"),
-    (["--dtype", "bfloat16"], "item 8"),
     (["--criterion", "vgg_ens"], "'Not ported'"),
     ("drop_points", "item 12"),
 ])
@@ -422,6 +419,39 @@ def _one_step(setup, name, flags):
     assert np.isfinite([hist["train_loss"], hist["val_loss"]]).all()
     assert len(hist["train_timing"]["step_ms"]) == 1
     return exp, hist, shapes
+
+
+def test_cli_trains_and_resumes_in_bfloat16(setup):
+    """``--dtype bfloat16``: 2 steps whose checkpoints record the dtype,
+    then a resume from them that continues the step in bfloat16 (the
+    net's route is bfloat16 in the steps and the val pass)."""
+    routes = []
+    real = UNet.forward
+
+    def spy(self, *a, operands="f32", **k):
+        routes.append(operands)
+        return real(self, *a, operands=operands, **k)
+
+    flags = ["--dtype", "bfloat16", "--epochs", "1",
+             "--max-steps-per-epoch", "2", "--dataset-names", "toyA"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(UNet, "forward", spy)
+        exp = _run(setup["root"], "bf16", flags)
+        ck = exp / "checkpoints"
+        flat, meta = CK.load_checkpoint(str(ck / "ckpt_toyA_0"))
+        assert meta["config"]["dtype"] == "bfloat16"
+        assert int(flat["step"]) == 2
+        assert flat["params/feat0/conv_fm/kernel"].dtype == np.float32
+        again = _run(setup["root"], "bf16_resume",
+                     flags + ["--resume", str(ck)])
+    assert routes and set(routes) == {"bf16"}
+    with open(again / "history.json") as f:
+        (h,) = json.load(f)
+    assert h["train_timing"]["first_step"] == 3
+    assert np.isfinite([h["train_loss"], h["val_loss"]]).all()
+    flat, meta = CK.load_checkpoint(str(again / "checkpoints"
+                                        / "ckpt_toyA_0"))
+    assert int(flat["step"]) == 4 and meta["config"]["dtype"] == "bfloat16"
 
 
 def test_cli_trains_with_supersampling(setup):

@@ -137,11 +137,15 @@ def test_nearest_resamples_match_flax():
 
 
 def test_train_mode_raises():
-    """The differentiable (training) route runs float32 operands only."""
+    """The differentiable (training) route takes float32 or bfloat16
+    operands (``tests/test_torch_bf16_train.py`` holds the latter against
+    flax) and raises for any other name."""
     net = U.UNet(base_channel=8, num_res=1)
     x = [torch.zeros(1, 16 // f, 16 // f, 8) for f in (1, 2, 4, 8)]
-    with pytest.raises(NotImplementedError):
-        net(*x, train=True, operands="bf16")
+    with pytest.raises(ValueError):
+        net(*x, train=True, operands="fp16")
+    out = net(*x, train=True, operands="bf16")["im_out"]
+    assert out.dtype == torch.float32 and out.requires_grad
 
 
 @pytest.mark.parametrize("train", [True, False])
