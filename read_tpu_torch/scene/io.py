@@ -17,8 +17,6 @@ from __future__ import annotations
 import configparser
 import os
 import xml.etree.ElementTree as ET
-from typing import Optional
-
 import numpy as np
 
 from read_tpu_torch.scene import camera
@@ -136,41 +134,26 @@ def read_ply(path: str) -> dict:
         return _read_binary(f.read(), endian, elements, out)
 
 
-def write_ply(path: str, xyz: np.ndarray, rgb: Optional[np.ndarray] = None,
-              normals: Optional[np.ndarray] = None,
-              binary: bool = True) -> None:
-    """Write a point cloud PLY: float32 xyz, then float32 normals and
-    uchar rgb where given (``rgb`` float in [0, 1] is clipped and scaled
-    by 255, truncated; uint8 is written as it is), binary little-endian
-    or ascii, byte for byte as ``read_tpu``'s ``write_ply``."""
+def write_ply(path: str, xyz: np.ndarray, rgb: np.ndarray) -> None:
+    """Write a point cloud as a binary little-endian PLY: float32 xyz and
+    uchar rgb (``rgb`` float in [0, 1] is clipped and scaled by 255,
+    truncated; uint8 is written as it is), byte for byte as
+    ``read_tpu``'s ``write_ply`` writes it."""
     n = xyz.shape[0]
-    props = [("x", "f4"), ("y", "f4"), ("z", "f4")]
-    if normals is not None:
-        props += [("nx", "f4"), ("ny", "f4"), ("nz", "f4")]
-    if rgb is not None:
-        props += [("red", "u1"), ("green", "u1"), ("blue", "u1")]
+    props = [("x", "f4"), ("y", "f4"), ("z", "f4"),
+             ("red", "u1"), ("green", "u1"), ("blue", "u1")]
     arr = np.empty(n, np.dtype([(p, "<" + d) for p, d in props]))
     arr["x"], arr["y"], arr["z"] = xyz[:, 0], xyz[:, 1], xyz[:, 2]
-    if normals is not None:
-        arr["nx"], arr["ny"], arr["nz"] = (normals[:, 0], normals[:, 1],
-                                           normals[:, 2])
-    if rgb is not None:
-        r8 = (rgb if rgb.dtype == np.uint8
-              else (np.clip(rgb, 0, 1) * 255).astype(np.uint8))
-        arr["red"], arr["green"], arr["blue"] = r8[:, 0], r8[:, 1], r8[:, 2]
-    header = ["ply", "format binary_little_endian 1.0" if binary
-              else "format ascii 1.0", f"element vertex {n}"]
+    r8 = (rgb if rgb.dtype == np.uint8
+          else (np.clip(rgb, 0, 1) * 255).astype(np.uint8))
+    arr["red"], arr["green"], arr["blue"] = r8[:, 0], r8[:, 1], r8[:, 2]
+    header = ["ply", "format binary_little_endian 1.0", f"element vertex {n}"]
     header += [f"property {'float' if d == 'f4' else 'uchar'} {p}"
                for p, d in props]
     header.append("end_header")
     with open(path, "wb") as f:
         f.write(("\n".join(header) + "\n").encode("ascii"))
-        if binary:
-            f.write(arr.tobytes())
-        else:
-            for row in arr:
-                f.write((" ".join(str(v) for v in row) + "\n")
-                        .encode("ascii"))
+        f.write(arr.tobytes())
 
 
 def _xyz_colors(xyz: np.ndarray) -> np.ndarray:

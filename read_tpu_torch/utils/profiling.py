@@ -20,21 +20,20 @@ __all__ = ["trace", "device_timeit"]
 
 
 @contextlib.contextmanager
-def trace(logdir: str, name: str = "trace.json", cuda=None):
-    """Record a trace of the block and write ``<logdir>/<name>`` (a
-    Chrome trace) when it ends:
+def trace(logdir: str):
+    """Record a trace of the block and write ``<logdir>/trace.json`` (a
+    Chrome trace) when it ends, with the device's activity where CUDA is
+    available:
 
     >>> with trace("runs/tr") as prof:
     ...     train_step(state, xyz, batch)
 
-    ``cuda`` (default: whether CUDA is available) adds the device's
-    activity. Yields the ``torch.profiler.profile``, whose
-    ``key_averages()`` tabulate the operators."""
+    Yields the ``torch.profiler.profile``, whose ``key_averages()``
+    tabulate the operators."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    if cuda is None:
-        cuda = torch.cuda.is_available()
+    cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU]
     if cuda:
         activities.append(ProfilerActivity.CUDA)
@@ -43,7 +42,7 @@ def trace(logdir: str, name: str = "trace.json", cuda=None):
         yield prof
         if cuda:
             torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(logdir, name))
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
 def device_timeit(fn, *args, iters: int = 10, warmup: int = 1,

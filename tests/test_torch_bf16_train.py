@@ -16,27 +16,34 @@ bounds say so:
 
 - **forward** (``train=True`` and ``False``, random pyramids): the port's
   output within a relative L2 distance of ``0.12`` (train) / ``0.012``
-  (eval) of JAX's bfloat16 output; the port no further from JAX's float32
-  output than twice JAX's own bfloat16 output is; and further from it
-  than the float32 route's bound (``5e-4 * max``), the proof that it ran
-  in bfloat16. Train-mode BatchNorm over a 4x8 bottleneck magnifies the
+  (eval) of JAX's bfloat16 output; the port's L2 distance from JAX's
+  float32 output at most ``1.075x`` JAX's own bfloat16 output's (the
+  port reads 0.975x in train mode and 0.898x in eval mode; with
+  BatchNorm run wholly in bfloat16 it reads 1.077x, with the bias added
+  to the conv's float32 sum before the rounding 1.128x, both in train
+  mode; at init the eval-mode BatchNorm is exact in bfloat16); and
+  further from it than the float32 route's bound (``5e-4 * max``), the
+  proof that it ran in bfloat16. Train-mode BatchNorm over a 4x8 bottleneck magnifies the
   noise: JAX's own bfloat16 output lies ~8% (L2) from its float32 one
   there, ~0.6% in eval mode;
-- **first step**: the loss within ``rtol 2e-2``; each gradient tensor
-  held to a float64 referee (the port's own step in float64, the
-  function both packages compute), by ``tests/test_torch_splat.py``'s
-  rule with bfloat16's floor: the port's distance from it (``max|g -
-  g64| / max|g64|``) at most ``2.25x`` JAX's bfloat16 distance or
-  ``2.25x`` the floor, and summed over the tensors at most ``1.25x``
-  JAX's sum. The float32 rule's floor is ``2e-4 * max|g|``, float32's
-  noise at this size; bfloat16's is the median of JAX's own distances
-  over the tensors (~0.2 here: train-mode BatchNorm over a 4x8x2
-  bottleneck turns 8-bit rounding into gradients 5-50% off). Two
-  bfloat16 runs are two draws of that noise: per tensor the port's
-  distance over JAX's spreads from 0.3 to 3.3 (median 0.8), and the
-  port's over its own with oneDNN's convolution from 0.64 to 2.0, so a
-  tensor where JAX's draw fell close to float64 says nothing of the
-  port's;
+- **first step**: the loss within ``rtol 2e-2``, and each gradient tensor
+  against JAX's bfloat16 gradient, with read_tpu's float64 gradient (the
+  Flax UNet run in float64 under ``jax.enable_x64``, as in
+  ``tests/test_torch_pipelines_extra.py``) as the referee. With ``d`` =
+  ``max|g - g64| / max|g64|``: ``max|g_port - g_jax|`` at most ``3.5 *
+  max(d_jax, 2e-4) * max|g64|``, and ``d_port`` summed over the tensors
+  at most ``1.25x`` ``d_jax`` summed. Two bfloat16 runs are two draws of
+  rounding noise that this size magnifies (train-mode BatchNorm over a
+  4x8x2 bottleneck turns 8-bit rounding into gradients ~24% off, the
+  median ``d_jax``); they round at different places (XLA's bfloat16
+  sigmoid differs from PyTorch's in a third of the elements), so
+  ``d_port / d_jax`` spreads from 0.14 to 3.3 over the 205 tensors and
+  ``max|g_port - g_jax| / (d_jax * max|g64|)`` reaches 2.9. BatchNorm run
+  wholly in bfloat16 takes it to 4.2; a fault of one rounding (the bias
+  added before the rounding, the gate in float32, a resample not
+  rounded) stays inside the noise, at 64x128 too (there ``d_jax`` is
+  ~65%): these bounds catch a function that differs, not where one
+  rounding falls;
 - **the state after the step**: losses and PSNR ``rtol 2e-2``, the new
   running statistics within ``atol 2e-2`` (JAX's own bfloat16 statistics
   lie up to ~1e-2 from its float32 ones), the parameters, texture and
@@ -52,7 +59,6 @@ PyTorch's oneDNN CPU convolution is off, as in ``tests/
 test_torch_train.py``. Each JAX function is compiled once.
 """
 
-import dataclasses
 import functools
 
 import jax
@@ -62,6 +68,7 @@ import pytest
 import torch
 
 from read_tpu.criterions import vgg as JV
+from read_tpu.models import unet as JU
 from read_tpu.models.unet import UNet as FlaxUNet
 from read_tpu.pipelines import pix2pix_pipeline as JP2P
 from read_tpu.pipelines import texture_pipeline as JTP
@@ -77,9 +84,11 @@ N, B, HW = 2000, 2, (32, 64)
 SMALL = dict(base_channel=8, num_res=1)
 F32_TOL = 5e-4          # x max|out|: tests/test_torch_unet.py's bound
 FWD_L2 = {True: 0.12, False: 0.012}
+FWD_F32_RATIO = 1.075   # port's L2 distance from f32 over JAX's bf16's
 METRIC_RTOL = 2e-2
 STATS_ATOL = 2e-2
 GRAD_ATOL = 2e-4        # x max|g|
+GRAD_FACTOR = 3.5       # x max(d_jax, GRAD_ATOL) * max|g64|
 METRIC_KEYS = ("loss", "huber_loss", "vgg_loss", "psnr")
 
 
@@ -108,6 +117,21 @@ def _scene(rng):
             "total_m": np.stack(ms).astype(np.float32),
             "target": rng.uniform(size=(B, h, w, 3)).astype(np.float32)})
     return xyz, rng.uniform(size=(N, 3)).astype(np.float32), batches
+
+
+class _Float64Numpy:
+    """``jax.numpy`` with ``float32`` read as ``float64``. Patched into
+    ``read_tpu.models.unet`` (its BatchNorm and output casts name
+    float32), it runs the Flax UNet in float64 under ``jax.enable_x64``:
+    read_tpu's own float64 gradient, the referee."""
+    float32 = jnp.float64
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+
+def _f64(tree):
+    return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), tree)
 
 
 def _np(metrics):
@@ -186,6 +210,21 @@ def ref(tmp_path_factory):
     fwd = dict(zip(cases, map(np.asarray, forwards(variables, *pyr))))
     (s1, m1), grads = _captured_grads(
         JTP.make_train_step(net, cfg, vgg), state, jxyz, jb[0])
+    cfg64 = JTP.PipelineConfig(crop_size=HW)
+
+    def loss_fn(params, texture, net, batch_stats, vgg, target):
+        out, _, _ = JTP._forward(net, cfg64, params, batch_stats, texture,
+                                 jxyz, jb[0]["total_m"], train=True)
+        return JTP._losses(cfg64, vgg, out, dict(jb[0], target=target))[0]
+
+    with pytest.MonkeyPatch.context() as mp, jax.enable_x64(True):
+        mp.setattr(JU, "jnp", _Float64Numpy())
+        g64 = jax.jit(jax.grad(loss_fn, argnums=(0, 1)), static_argnums=2)(
+            _f64(state.params), _f64(state.texture),
+            FlaxUNet(**SMALL, dtype=jnp.float64), _f64(state.batch_stats),
+            _f64(vgg), batches[0]["target"].astype(np.float64))
+    grads64 = {k: np.asarray(v) for k, v in JCK._flatten(
+        {"params": g64[0], "texture": g64[1]}).items()}
     im, ev = JTP.make_eval_step(net, cfg, vgg)(s1, jxyz, jb[1])
 
     with pytest.MonkeyPatch.context() as mp:
@@ -200,7 +239,7 @@ def ref(tmp_path_factory):
     return dict(
         path=path, xyz=xyz, rgb=rgb, batches=batches, pyr=pyr, fwd=fwd,
         vgg=[(np.asarray(w), np.asarray(b)) for w, b in vgg],
-        grads=grads, step1=_np(m1), state1=JCK._flatten(s1),
+        grads=grads, grads64=grads64, step1=_np(m1), state1=JCK._flatten(s1),
         eval=(np.asarray(im), _np(ev)),
         p_path=p_path, p_step=_np(p_m),
         p_stats=JCK._flatten({"batch_stats": p_new["batch_stats"]}))
@@ -231,8 +270,9 @@ def _assert_metrics(got, want, keys=METRIC_KEYS):
 @pytest.mark.parametrize("train", [True, False])
 def test_bf16_forward_matches_flax(ref, train):
     """The net alone from JAX's state: within the mode's L2 bound of
-    flax's bfloat16 output, no further from its float32 output than twice
-    flax's bfloat16 is, and visibly bfloat16 (beyond the float32 bound).
+    flax's bfloat16 output, no further from its float32 output than
+    1.075x flax's bfloat16 is, and visibly bfloat16 (beyond the float32
+    bound).
     The output comes back float32; the parameters stay float32."""
     flat, _ = CK.load_checkpoint(ref["path"])
     net = UNet(**SMALL)
@@ -245,15 +285,17 @@ def test_bf16_forward_matches_flax(ref, train):
     got = out.detach().numpy()
     f32, bf16 = ref["fwd"][False, train], ref["fwd"][True, train]
     assert _rel_l2(got, bf16) <= FWD_L2[train], _rel_l2(got, bf16)
-    assert _rel_l2(got, f32) <= 2 * _rel_l2(bf16, f32)
+    assert _rel_l2(got, f32) <= FWD_F32_RATIO * _rel_l2(bf16, f32), \
+        (_rel_l2(got, f32), _rel_l2(bf16, f32))
     assert float(np.abs(got - f32).max()) > F32_TOL * np.abs(f32).max()
     assert all(p.dtype == torch.float32 for p in net.parameters())
 
 
 def test_first_bf16_step_gradients_match_jax(ref):
-    """The first step's loss and every gradient tensor, held to the
-    port's float64 step: the port's bfloat16 distance at most 2.25x
-    JAX's bfloat16 distance, or 2e-4 * max|g|."""
+    """The first step's loss, and every gradient tensor against JAX's
+    bfloat16 gradient with read_tpu's float64 gradient as the referee:
+    ``max|g_port - g_jax|`` at most ``3.5 * max(d_jax, 2e-4) * max|g64|``,
+    and the port's distances from float64 summed at most 1.25x JAX's."""
     net, cfg, vgg, state, xyz, batches = _port(ref)
     metrics, _, _, g_flat, g_tex = TP._loss_and_grads(
         net, cfg, vgg, state, xyz, batches[0], False)
@@ -262,34 +304,24 @@ def test_first_bf16_step_gradients_match_jax(ref):
     got = {"params/" + k.replace(".", "/"): g.numpy()
            for k, g in state.layout.views(g_flat).items()}
     got["texture"] = g_tex[0].numpy()
-    want = ref["grads"]
-    assert set(got) == set(want)
+    want, truth = ref["grads"], ref["grads64"]
+    assert set(got) == set(want) == set(truth)
     assert all(g.dtype == np.float32 for g in got.values())
 
-    s64 = dataclasses.replace(
-        state, flat_params=state.flat_params.double(),
-        batch_stats={k: v.double() for k, v in state.batch_stats.items()},
-        texture=(state.texture[0].double(),))
-    b64 = dict(batches[0], target=batches[0]["target"].double())
-    _, _, _, g64, t64 = TP._loss_and_grads(
-        net, dataclasses.replace(cfg, dtype="float32"),
-        [(w.double(), b.double()) for w, b in vgg], s64, xyz, b64, False)
-    truth = {"params/" + k.replace(".", "/"): g.numpy()
-             for k, g in state.layout.views(g64).items()}
-    truth["texture"] = t64[0].numpy()
-
     def off(g, key):
-        return float(np.abs(np.asarray(g) - truth[key]).max()
+        return float(np.abs(np.asarray(g, np.float64) - truth[key]).max()
                      / np.abs(truth[key]).max())
 
     port = {key: off(got[key], key) for key in truth}
     jax_off = {key: off(want[key], key) for key in truth}
-    floor = max(float(np.median(list(jax_off.values()))), GRAD_ATOL)
     for key in truth:
-        assert port[key] <= 2.25 * max(jax_off[key], floor), \
-            (key, port[key], jax_off[key], floor)
-    assert sum(port.values()) <= 1.25 * sum(jax_off.values())
-    # bfloat16 shows: float32 gradients lie ~2e-5 * max|g| from float64
+        atol = GRAD_FACTOR * max(jax_off[key], GRAD_ATOL) * float(
+            np.abs(truth[key]).max())
+        np.testing.assert_allclose(got[key], want[key], rtol=0, atol=atol,
+                                   err_msg=key)
+    assert sum(port.values()) <= 1.25 * sum(jax_off.values()), \
+        (sum(port.values()), sum(jax_off.values()))
+    # bfloat16 shows: float32 gradients lie ~2e-3 * max|g| from float64
     assert float(np.median(list(port.values()))) > 1e-2
 
 
