@@ -18,7 +18,7 @@ __all__ = ["huber_loss", "l1_loss", "cross_entropy_ignore0",
 
 
 def _mean(v: torch.Tensor, per_item: bool) -> torch.Tensor:
-    return v.reshape(v.shape[0], -1).mean(dim=1) if per_item else v.mean()
+    return v.flatten(1).mean(dim=1) if per_item else v.mean()
 
 
 def huber_loss(pred: torch.Tensor, target: torch.Tensor, delta: float = 1.0,

@@ -157,7 +157,7 @@ def vgg_loss(params: VggParams, pred: torch.Tensor, target: torch.Tensor,
         loss = 0.0
         for a, b in zip(fp, ft):
             d = torch.abs(a - b)
-            loss = loss + (d.reshape(d.shape[0], -1).mean(dim=1)
+            loss = loss + (d.flatten(1).mean(dim=1)
                            if per_item else d.mean())
         return loss
 

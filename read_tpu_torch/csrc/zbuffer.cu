@@ -107,6 +107,9 @@ constexpr int kTileH = 32, kTileW = 64;
 constexpr int kMaxRadius = 16;       // the splat's largest half-width
 constexpr unsigned kEmpty32 = 0x7fffffffu;   // INT32_MAX
 constexpr unsigned long long kEmpty64 = ~0ull;
+// an empty pixel of a key buffer merged by a signed MIN reduction
+// (zbuffer_pool_keys): INT64_MAX, the reduction's identity
+constexpr unsigned long long kEmptyMax64 = 0x7fffffffffffffffull;
 
 __device__ __forceinline__ float row_dot(const float* r, float x, float y,
                                          float z) {
@@ -362,7 +365,10 @@ struct PyramidArgs {
 
 // Level 0 of one (view, tile): VEC keys a thread-load, their (index,
 // depth) written out and their pooling keys put in pool0 (pitch tile_w).
-template <bool EXACT_IN, bool EXACT_POOL, int VEC, typename PoolKey>
+// MAX_EMPTY: an exact key at or above INT64_MAX is empty (the keys of
+// zbuffer_pool_keys), not only ~0; no real key comes near either.
+template <bool EXACT_IN, bool EXACT_POOL, int VEC, typename PoolKey,
+          bool MAX_EMPTY = false>
 __device__ __forceinline__ void level0(const PyramidArgs& a, const float* m,
                                        int b, int y0, int x0, int rows,
                                        int cols, PoolKey* pool0) {
@@ -395,7 +401,7 @@ __device__ __forceinline__ void level0(const PyramidArgs& a, const float* m,
     for (int j = 0; j < VEC; ++j) {
       PoolKey pk;
       if constexpr (EXACT_IN) {
-        const bool empty = k[j] == kEmpty64;
+        const bool empty = MAX_EMPTY ? k[j] >= kEmptyMax64 : k[j] == kEmpty64;
         ix[j] = empty ? -1 : (int)(unsigned)(k[j] & 0xffffffffull);
         dp[j] = empty ? 0.0f : __uint_as_float((unsigned)(k[j] >> 32));
         if constexpr (EXACT_POOL) {
@@ -439,8 +445,8 @@ __device__ __forceinline__ void level0(const PyramidArgs& a, const float* m,
 
 // One block per (tile of level 0, view): grid (tiles across, tiles down,
 // B). Dynamic shared memory: tile_h * tile_w * 5/4 pooling keys when
-// levels > 1.
-template <bool EXACT_IN, bool EXACT_POOL>
+// levels > 1. MAX_EMPTY as level0's.
+template <bool EXACT_IN, bool EXACT_POOL, bool MAX_EMPTY = false>
 __global__ void __launch_bounds__(kThreads)
     pyramid_kernel(const PyramidArgs a, int vec) {
   using PoolKey = typename std::conditional<EXACT_POOL, unsigned long long,
@@ -459,10 +465,11 @@ __global__ void __launch_bounds__(kThreads)
                       (PoolKey*)smem + a.tile_h * a.tile_w};
   PoolKey* pool0 = a.levels > 1 ? pool[0] : nullptr;
   if (vec) {
-    level0<EXACT_IN, EXACT_POOL, EXACT_IN ? 2 : 4>(a, m, b, y0, x0, rows,
-                                                   cols, pool0);
+    level0<EXACT_IN, EXACT_POOL, EXACT_IN ? 2 : 4, PoolKey, MAX_EMPTY>(
+        a, m, b, y0, x0, rows, cols, pool0);
   } else {
-    level0<EXACT_IN, EXACT_POOL, 1>(a, m, b, y0, x0, rows, cols, pool0);
+    level0<EXACT_IN, EXACT_POOL, 1, PoolKey, MAX_EMPTY>(a, m, b, y0, x0,
+                                                        rows, cols, pool0);
   }
   long long off = 0;   // level l's first pixel in index / depth
   int hl = a.h, wl = a.w;
@@ -485,7 +492,7 @@ __global__ void __launch_bounds__(kThreads)
       int ix;
       float dp;
       if constexpr (EXACT_POOL) {
-        const bool empty = k == kEmpty64;
+        const bool empty = MAX_EMPTY ? k >= kEmptyMax64 : k == kEmpty64;
         ix = empty ? -1 : (int)(unsigned)(k & 0xffffffffull);
         dp = empty ? 0.0f : __uint_as_float((unsigned)(k >> 32));
       } else {
@@ -501,12 +508,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool EXACT_IN, bool EXACT_POOL>
+template <bool EXACT_IN, bool EXACT_POOL, bool MAX_EMPTY = false>
 cudaError_t launch_pyramid(const PyramidArgs& a, cudaStream_t s) {
   const size_t key = EXACT_POOL ? 8 : 4;
   const size_t smem =
       a.levels > 1 ? key * a.tile_h * a.tile_w * 5 / 4 : 0;
-  auto kernel = pyramid_kernel<EXACT_IN, EXACT_POOL>;
+  auto kernel = pyramid_kernel<EXACT_IN, EXACT_POOL, MAX_EMPTY>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -584,6 +591,27 @@ extern "C" int zbuffer_project(const float* xyz, const float* mats, int n,
 
 namespace {
 
+PyramidArgs pyramid_args(const void* keys, const float* xyz,
+                         const float* mats, int b, int h, int w, int levels,
+                         int idb, int qmax, int* index, float* depth) {
+  const int span = 1 << (levels - 1);
+  PyramidArgs a;
+  a.keys = keys;
+  a.xyz = xyz;
+  a.mats = mats;
+  a.nviews = b;
+  a.h = h;
+  a.w = w;
+  a.levels = levels;
+  a.tile_h = span > kTileH ? span : kTileH;
+  a.tile_w = span > kTileW ? span : kTileW;
+  a.idb = idb;
+  a.qmax = qmax;
+  a.index = index;
+  a.depth = depth;
+  return a;
+}
+
 // The fill, the projection (K1 or K5; the splat projection where splat
 // is not null) and the pyramid pass, on one stream.
 int fill_project_pyramid(const float* xyz, const float* mats, int n, int b,
@@ -610,22 +638,9 @@ int fill_project_pyramid(const float* xyz, const float* mats, int n, int b,
     err = cudaGetLastError();
   }
   if (err != cudaSuccess) return (int)err;
-  const int span = 1 << (levels - 1);
-  PyramidArgs a;
-  a.keys = keys;
-  a.xyz = xyz;
-  a.mats = mats;
-  a.nviews = b;
-  a.h = h;
-  a.w = w;
-  a.levels = levels;
-  a.tile_h = span > kTileH ? span : kTileH;
-  a.tile_w = span > kTileW ? span : kTileW;
-  a.idb = idb;
-  a.qmax = qmax;
-  a.index = index;
-  a.depth = depth;
-  return (int)pyramid(a, exact_in, exact_pool, s);
+  return (int)pyramid(pyramid_args(keys, xyz, mats, b, h, w, levels, idb,
+                                   qmax, index, depth),
+                      exact_in, exact_pool, s);
 }
 
 }  // namespace
@@ -673,4 +688,21 @@ extern "C" int zbuffer_splat_pyramid(const float* xyz, const float* mats,
   return fill_project_pyramid(xyz, mats, n, b, h, w, levels, exact_in,
                               exact_pool, idb, qmax, keys, index, depth,
                               jitter, &sp, (cudaStream_t)stream);
+}
+
+// The pyramid pass alone, on an exact key buffer the caller made: keys
+// [B, h*w] uint64 (16-byte aligned), (float bits of depth) << 32 | id,
+// INT64_MAX (or ~0) where empty; index and depth as zbuffer_pyramid's,
+// the exact pool. The multi-device z-merge hands it the keys a MIN
+// all-reduce merged over the points shards (read_tpu/parallel/
+// sharded.py `_local_raster_merge` and `sharded_rasterize_pyramid`
+// :61-97). No fill, no projection. Returns the first CUDA error.
+extern "C" int zbuffer_pool_keys(const void* keys, int b, int h, int w,
+                                 int levels, int* index, float* depth,
+                                 void* stream) {
+  if ((long long)b * h * w <= 0) return (int)cudaGetLastError();
+  return (int)launch_pyramid<true, true, true>(
+      pyramid_args(keys, nullptr, nullptr, b, h, w, levels, 0, 0, index,
+                   depth),
+      (cudaStream_t)stream);
 }

@@ -42,6 +42,16 @@ checkpoint as inputs, so a ``functional_call`` that has since returned
 does not matter) and leaves the running statistics alone: they move
 once a step, as without ``remat``.
 
+Inside :func:`global_batch_norm` the train-mode BatchNorm takes its
+statistics over a batch spread across processes, as ``read_tpu``'s
+``'split'`` multi-device step takes them over the global batch
+(:mod:`read_tpu_torch.parallel.sharded`): the given differentiable
+reduce (an all-reduce sum over the mesh's process group) sums each
+layer's per-channel sums and count, then its squared deviations from
+the global mean; the running statistics move toward those global
+moments, the same on every process. A remat recomputation reduces
+again, as its forward did. Outside it nothing changes.
+
 Inputs and outputs are NHWC ``[B, h, w, C]``; ``B > 1`` is a real batch.
 ``operands='bf16'`` means two things. On the serving route it rounds
 every conv and matmul operand to bfloat16 and accumulates in float32
@@ -69,21 +79,39 @@ from torch import nn
 
 from read_tpu_torch.ops import gated_conv as GC
 
-__all__ = ["BasicConv", "UNet", "unet_from_state"]
+__all__ = ["BasicConv", "UNet", "unet_from_state", "global_batch_norm"]
 
 _BN_EPS = 1e-5
 _BN_MOMENTUM = 0.9  # flax's: running = 0.9 * running + 0.1 * batch
 _OPERANDS = ("f32", "bf16")
 _recompute = threading.local()   # .active: a checkpoint is recomputing
+_bn_reduce = threading.local()   # .fn: global_batch_norm's reduce
 
 
 @contextlib.contextmanager
-def _recomputing():
+def _recomputing(reduce=None):
+    """A checkpoint's recomputation: no running-statistics update, and
+    the BatchNorm reduce its forward ran with (it may run on the
+    autograd engine's thread)."""
     _recompute.active = True
+    try:
+        with global_batch_norm(reduce):
+            yield
+    finally:
+        _recompute.active = False
+
+
+@contextlib.contextmanager
+def global_batch_norm(reduce):
+    """Inside the block, train-mode BatchNorm statistics are global:
+    ``reduce(t)`` must return the sum of ``t`` over every process of the
+    batch, differentiably (its backward sums the cotangents alike)."""
+    saved = getattr(_bn_reduce, "fn", None)
+    _bn_reduce.fn = reduce
     try:
         yield
     finally:
-        _recompute.active = False
+        _bn_reduce.fn = saved
 
 
 def _nearest_down(x: torch.Tensor, f: int) -> torch.Tensor:
@@ -174,11 +202,20 @@ class _Norm(nn.Module):
         mean and the two-pass **biased** variance (``use_fast_variance=
         False``) and moves the running statistics toward them with
         momentum 0.9; ``nn.BatchNorm2d`` would update with the unbiased
-        variance. A checkpoint's recomputation does not move them again."""
+        variance. A checkpoint's recomputation does not move them again.
+        Inside :func:`global_batch_norm` both passes are sums reduced
+        over the processes of the batch."""
         if train:
             dims = tuple(range(x.dim() - 1))
-            mean = x.mean(dim=dims)
-            var = torch.square(x - mean).mean(dim=dims)
+            reduce = getattr(_bn_reduce, "fn", None)
+            if reduce is None:
+                mean = x.mean(dim=dims)
+                var = torch.square(x - mean).mean(dim=dims)
+            else:
+                count = x.new_full((1,), float(x.numel() // x.shape[-1]))
+                sums = reduce(torch.cat([x.sum(dim=dims), count]))
+                mean = sums[:-1] / sums[-1]
+                var = reduce(torch.square(x - mean).sum(dim=dims)) / sums[-1]
             if not getattr(_recompute, "active", False):
                 with torch.no_grad():
                     self.mean.copy_(_BN_MOMENTUM * self.mean
@@ -510,10 +547,12 @@ class UNet(nn.Module):
                 block, {**dict(zip(names, values)), **stats},
                 (x, bf16, train))
 
+        reduce = getattr(_bn_reduce, "fn", None)
         return torch.utils.checkpoint.checkpoint(
             run, x, *params.values(), use_reentrant=False,
             preserve_rng_state=False,
-            context_fn=lambda: (contextlib.nullcontext(), _recomputing()))
+            context_fn=lambda: (contextlib.nullcontext(),
+                                _recomputing(reduce)))
 
     def _forward(self, x, x_2, x_4, x_8, bf16: bool,
                  train: Optional[bool], remat: bool):

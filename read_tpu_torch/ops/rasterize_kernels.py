@@ -22,7 +22,10 @@ the 64-bit exact key for the exact pool (``_pool2x2_zbuffer``
 :574-599: the lexicographic (depth, id) minimum) or the packed int32 key
 for the packed pool (``_pool2x2_packed`` :602-634). :func:`zbuffer_pyramid`
 runs the projection and the pass, :func:`zbuffer_exact` the same with
-one level.
+one level. :func:`zbuffer_pool` runs the pass alone on an exact key
+buffer the caller made: the multi-device z-merge
+(:mod:`read_tpu_torch.parallel.sharded`) hands it the keys that a MIN
+all-reduce merged over the points shards.
 
 K6, the packed int32 key on keys the caller made: counterpart of
 ``rasterize_pallas.py`` ``zbuffer_pallas3`` / ``_kernel3`` (:234-292)
@@ -50,7 +53,8 @@ tensor goes to the plain twin, a CUDA tensor to the kernel, anything
 else raises. ``launches[<name>]`` counts kernel launches: ``zbuffer``
 and ``zbuffer_exact`` a projection (K1, K5), ``zbuffer_splat`` a splat
 projection, each with ``_jitter`` appended where it ran with a jitter
-(and then only there), ``zbuffer_pyramid`` a pass.
+(and then only there), ``zbuffer_pyramid`` a pass, ``zbuffer_pool`` a
+pass on given keys.
 """
 
 from __future__ import annotations
@@ -63,10 +67,12 @@ import torch
 from read_tpu_torch import _build
 
 __all__ = ["INT32_MAX", "INT64_MAX", "MAX_LEVELS", "key_bits",
-           "pack_keys", "pack_exact_keys", "unpack_exact", "unpack_packed",
+           "pack_keys", "pack_exact_keys", "exact_keys", "unpack_exact",
+           "unpack_packed",
            "scatter_min", "pool_pyramid_plain", "zbuffer", "zbuffer_plain",
            "zbuffer_exact", "zbuffer_exact_plain", "zbuffer_pyramid",
-           "zbuffer_pyramid_plain", "MAX_SPLAT_RADIUS", "splat_expand",
+           "zbuffer_pyramid_plain", "zbuffer_pool", "zbuffer_pool_plain",
+           "MAX_SPLAT_RADIUS", "splat_expand",
            "splat_keys", "zbuffer_splat", "zbuffer_splat_plain",
            "zbuffer_keys", "zbuffer_keys_plain", "launches"]
 
@@ -85,7 +91,8 @@ _SPLAT_THR = [float(np.float32(k - 1e-4)) for k in range(MAX_SPLAT_RADIUS + 1)]
 # kernel launches (a CPU call runs the twin and counts nothing)
 launches = {"zbuffer": 0, "zbuffer_exact": 0, "zbuffer_keys": 0,
             "zbuffer_pyramid": 0, "zbuffer_splat": 0, "zbuffer_jitter": 0,
-            "zbuffer_exact_jitter": 0, "zbuffer_splat_jitter": 0}
+            "zbuffer_exact_jitter": 0, "zbuffer_splat_jitter": 0,
+            "zbuffer_pool": 0}
 
 
 def _counted(name: str, jitter) -> str:
@@ -130,6 +137,17 @@ def pack_exact_keys(pix: torch.Tensor, depth: torch.Tensor,
     bits = depth.to(torch.float32).view(torch.int32).to(torch.int64)
     key = (bits << 32) | ids.to(torch.int64)
     return torch.where(pix < n_pixels, key, INT64_MAX)
+
+
+def exact_keys(index: torch.Tensor, depth: torch.Tensor,
+               id_offset: int = 0) -> torch.Tensor:
+    """K5's int64 key of a z-buffer's ``(index, depth)`` (-1 = empty):
+    ``(float bits of depth) << 32 | (index + id_offset)``, ``INT64_MAX``
+    where empty; the inverse of :func:`unpack_exact` for ``id_offset``
+    0."""
+    bits = depth.view(torch.int32).to(torch.int64)
+    return torch.where(index < 0, INT64_MAX,
+                       (bits << 32) | (index.to(torch.int64) + id_offset))
 
 
 def unpack_exact(buf: torch.Tensor):
@@ -214,9 +232,7 @@ def pool_pyramid_plain(index: torch.Tensor, depth: torch.Tensor,
     id; coarse depths are the bins ``q / qmax``). Empty pixels are -1
     with depth 0 at every level."""
     if pool_impl == "exact":
-        bits = depth.view(torch.int32).to(torch.int64)
-        key = torch.where(index < 0, INT64_MAX,
-                          (bits << 32) | index.to(torch.int64))
+        key = exact_keys(index, depth)
     else:
         idb, qmax = key_bits(n_ids)
         q = torch.clamp(depth * qmax, 0, qmax - 1).to(torch.int32)
@@ -349,6 +365,17 @@ def zbuffer_exact(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
     return index.view(b, h * w), depth.view(b, h * w)
 
 
+def _check_levels(name: str, h: int, w: int, num_scales: int) -> None:
+    """The pass's refusals of a level count and size."""
+    if not 1 <= num_scales <= MAX_LEVELS:
+        raise ValueError(f"{name}: num_scales {num_scales} not "
+                         f"in 1..{MAX_LEVELS}")
+    span = 1 << (num_scales - 1)
+    if h % span or w % span:
+        raise ValueError(f"{name}: {h}x{w} is not divisible by "
+                         f"2^(num_scales - 1) = {span}")
+
+
 def _check_pyramid(xyz: torch.Tensor, h: int, w: int, num_scales: int,
                    method: str, pool_impl: str) -> None:
     """The pyramid's refusals, alike on every device."""
@@ -357,13 +384,7 @@ def _check_pyramid(xyz: torch.Tensor, h: int, w: int, num_scales: int,
                          "'sort' (K5) or 'pallas' (K1)")
     if pool_impl not in ("exact", "packed"):
         raise ValueError(f"unknown pool_impl {pool_impl!r}")
-    if not 1 <= num_scales <= MAX_LEVELS:
-        raise ValueError(f"zbuffer_pyramid: num_scales {num_scales} not "
-                         f"in 1..{MAX_LEVELS}")
-    span = 1 << (num_scales - 1)
-    if h % span or w % span:
-        raise ValueError(f"zbuffer_pyramid: {h}x{w} is not divisible by "
-                         f"2^(num_scales - 1) = {span}")
+    _check_levels("zbuffer_pyramid", h, w, num_scales)
     if xyz.shape[0] >= 2 ** 31:
         raise ValueError("zbuffer_pyramid: point ids must fit in 31 bits")
     if method == "pallas" or pool_impl == "packed":
@@ -382,11 +403,8 @@ def _pyramid_launch(name: str, xyz: torch.Tensor, total_m: torch.Tensor,
     exact_in = method == "sort"
     idb, qmax = (key_bits(n) if not exact_in or pool_impl == "packed"
                  else (0, 0))
-    sizes = [(h >> i, w >> i) for i in range(num_scales)]
-    counts = [b * hh * ww for hh, ww in sizes]
-    part = -(-sum(counts) // 4) * 4     # int32 words, a multiple of 16 B
-    buf = torch.empty(2 * part + b * h * w * (2 if exact_in else 1),
-                      dtype=torch.int32, device=xyz.device)
+    buf, part = _level_buffer(b, h, w, num_scales,
+                              b * h * w * (2 if exact_in else 1), xyz.device)
     base = buf.data_ptr()
     args = (xyz.data_ptr(), total_m.data_ptr(), n, b, h, w, num_scales,
             int(exact_in), int(pool_impl == "exact"), idb, qmax,
@@ -406,15 +424,78 @@ def _pyramid_launch(name: str, xyz: torch.Tensor, total_m: torch.Tensor,
                     radius, int(relative), min_size, thr)
         launches[_counted("zbuffer_splat", jitter)] += 1
     launches["zbuffer_pyramid"] += 1
-    # one as_strided a view: the cheapest on the host
+    return _level_views(buf, part, b, h, w, num_scales)
+
+
+def _level_buffer(b: int, h: int, w: int, num_scales: int, scratch: int,
+                  device):
+    """``(buf, part)``: one int32 buffer for every level's index, then
+    every level's depth, then ``scratch`` words, each part ``part`` words
+    long and 16-byte aligned."""
+    total = sum(b * (h >> i) * (w >> i) for i in range(num_scales))
+    part = -(-total // 4) * 4     # int32 words, a multiple of 16 B
+    return torch.empty(2 * part + scratch, dtype=torch.int32,
+                       device=device), part
+
+
+def _level_views(buf: torch.Tensor, part: int, b: int, h: int, w: int,
+                 num_scales: int):
+    """The levels ``(index, depth)`` as views of :func:`_level_buffer`'s
+    buffer (one as_strided a view: the cheapest on the host)."""
     depth = buf.view(torch.float32)
     out, off = [], 0
-    for (hh, ww), c in zip(sizes, counts):
+    for i in range(num_scales):
+        hh, ww = h >> i, w >> i
         shape, stride = (b, hh, ww), (hh * ww, ww, 1)
         out.append((buf.as_strided(shape, stride, off),
                     depth.as_strided(shape, stride, part + off)))
-        off += c
+        off += b * hh * ww
     return out
+
+
+def zbuffer_pool_plain(keys: torch.Tensor, num_scales: int):
+    """Plain PyTorch twin of :func:`zbuffer_pool` (same contract):
+    :func:`unpack_exact`, then :func:`pool_pyramid_plain`'s exact pool."""
+    index, depth = unpack_exact(keys)
+    return pool_pyramid_plain(index, depth, num_scales, "exact", 0)
+
+
+_POOL_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 4 \
+    + [ctypes.c_void_p] * 3
+
+
+def zbuffer_pool(keys: torch.Tensor, num_scales: int):
+    """The pyramid pass alone on a given exact key buffer ``keys [B, h,
+    w]`` int64 (:func:`exact_keys`: ``(float bits of depth) << 32 | id``,
+    ``INT64_MAX`` where empty; depths non-negative): level 0
+    unpacked and ``num_scales - 1`` exact 2x2 pools, as
+    :func:`zbuffer_pyramid` returns them (``rasterize_pyramid_pooled``'s
+    list of ``(index, depth)``, -1 and 0 where empty). ``h`` and ``w``
+    must be divisible by ``2^(num_scales - 1)``, ``num_scales <=
+    MAX_LEVELS``. On the card: one pass, no fill and no projection
+    (``csrc/zbuffer.cu`` ``zbuffer_pool_keys``); a CUDA buffer must be
+    contiguous and 16-byte aligned."""
+    if keys.dtype != torch.int64:
+        raise TypeError("zbuffer_pool: keys must be int64")
+    if keys.dim() != 3:
+        raise ValueError(f"zbuffer_pool: want keys [B, h, w]; got "
+                         f"{tuple(keys.shape)}")
+    b, h, w = keys.shape
+    _check_levels("zbuffer_pool", h, w, num_scales)
+    if keys.device.type == "cpu":
+        return zbuffer_pool_plain(keys, num_scales)
+    if keys.device.type != "cuda":
+        raise RuntimeError(f"zbuffer_pool: no kernel for device "
+                           f"{keys.device}")
+    if not keys.is_contiguous() or keys.data_ptr() % 16:
+        raise ValueError("zbuffer_pool: keys must be contiguous and "
+                         "16-byte aligned")
+    buf, part = _level_buffer(b, h, w, num_scales, 0, keys.device)
+    fn = _build.function("zbuffer", "zbuffer_pool_keys", _POOL_ARGTYPES)
+    _build.call(fn, keys.device, "zbuffer_pool", keys.data_ptr(), b, h, w,
+                num_scales, buf.data_ptr(), buf.data_ptr() + 4 * part)
+    launches["zbuffer_pool"] += 1
+    return _level_views(buf, part, b, h, w, num_scales)
 
 
 def zbuffer_pyramid(xyz: torch.Tensor, total_m: torch.Tensor, h: int,

@@ -46,7 +46,22 @@ console and ``splits.json`` (``setup_experiment``), and ``main``:
   kept), ``best_<pipeline>_<scene>`` and ``--resume``;
 - every ``--log-freq`` steps a train composite (output | target |
   depth) under ``train_imgs/``, and tensorboard scalars when
-  ``tensorboardX`` is installed.
+  ``tensorboardX`` is installed;
+- ``--mesh DATAxPOINTS`` trains on ``D x P`` ranks, one process each
+  (:mod:`read_tpu_torch.parallel.launch`: NCCL when every rank has a
+  card of its own, else gloo, which ranks sharing a card use), with
+  ``read_tpu``'s sharded step (:mod:`read_tpu_torch.parallel.sharded`,
+  'split'). Every rank reads the same batches in the same order and
+  keeps its own rows, so no data crosses ranks; rank 0 alone writes the
+  log, ``history.json``, images and checkpoints, validates on the
+  unsharded state and saves it unsharded, so a one-device run, the
+  renderer and ``read_tpu`` load it. ``read_tpu.train``'s rules hold:
+  the mesh line is printed; ``--max-scenes-hbm`` and ``--freeze-net``
+  with ``--mesh`` exit; the other pipelines run as without ``--mesh``;
+  a manifest's ``point_sizes`` are dropped, and under ``--use-mesh`` a
+  scene's triangle faces are ignored (printed); the sharded step
+  applies no ``drop_points``/``perturb_points``, no supersampling, no
+  z-scaled sizes and no temporal average (one warning says which).
 
 Beyond ``read_tpu``'s outputs the experiment directory holds
 ``history.json``: per epoch the losses, each train step's wall time and
@@ -62,9 +77,7 @@ configs are then read as JSON or block-style YAML
 (:mod:`read_tpu_torch.utils.config_io`), images as PNG
 (:mod:`read_tpu_torch.data.image_io`). ``--dtype bfloat16`` trains the
 net with flax's bfloat16 activations (``models.unet``); the checkpoints
-record the dtype in their config. What the port does not have yet
-(``--mesh``) exits with the ``ROADMAP.md`` item that will bring it;
-``vgg_ens`` exits as not ported.
+record the dtype in their config. ``vgg_ens`` exits as not ported.
 """
 
 from __future__ import annotations
@@ -82,6 +95,10 @@ import torch
 __all__ = ["parse_size", "build_argparser", "load_args",
            "setup_experiment", "config_dict", "SceneStateStore",
            "run_alt_pipeline", "main"]
+
+# the sharded run's collective timeout: rank 0 validates while the other
+# ranks wait in one
+MESH_TIMEOUT_S = 3600
 
 
 def parse_size(s) -> tuple:
@@ -194,7 +211,9 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="'cpu' runs on the CPU with the kernels' plain "
                         "twins; default: the CUDA device")
     p.add_argument("--mesh", type=str, default=None,
-                   help="multi-device mesh 'DATAxPOINTS' (not ported)")
+                   help="multi-device mesh 'DATAxPOINTS' (e.g. 2x4): "
+                        "D x P ranks, batch rows over DATA, the point "
+                        "cloud and its descriptors over POINTS")
     p.add_argument("--masked-background", dest="masked_background",
                    action="store_true",
                    help="renormalize loss by mask mean + pull background "
@@ -361,11 +380,17 @@ def _texture_shapes(tables: tuple) -> list:
     return [tuple(t.shape) for t in tables]
 
 
-def _refuse_unported(args) -> None:
-    """Exit, naming the ``ROADMAP.md`` item, for what is not ported."""
-    if args.mesh:
-        raise SystemExit("--mesh (multi-device training) is not ported to "
-                         "read_tpu_torch (ROADMAP queue 1, item 12)")
+def _mesh_shape(args):
+    """``(D, P)`` of ``--mesh DxP``, or None."""
+    if not args.mesh:
+        return None
+    try:
+        n_data, n_points = (int(x) for x in args.mesh.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh {args.mesh!r}: want DATAxPOINTS, e.g. 2x4")
+    if n_data < 1 or n_points < 1:
+        raise SystemExit(f"--mesh {args.mesh!r}: both axes must be >= 1")
+    return n_data, n_points
 
 
 def _device(args) -> torch.device:
@@ -587,11 +612,13 @@ def run_alt_pipeline(args, cfg, ds_train, ds_val, writer, exp_dir: str,
 
 def main(argv=None) -> int:
     args = load_args(argv)
-    _refuse_unported(args)
     device = _device(args)
+    shape = _mesh_shape(args)
     streams = sys.stdout, sys.stderr
     exp_dir = setup_experiment(args)
     try:
+        if shape is not None:
+            return _launch_mesh(args, exp_dir, device, shape)
         return _run(args, exp_dir, device)
     finally:
         tees = sys.stdout, sys.stderr
@@ -600,7 +627,103 @@ def main(argv=None) -> int:
             tee.close()
 
 
-def _run(args, exp_dir: str, device: torch.device) -> int:
+def _launch_mesh(args, exp_dir: str, device: torch.device, shape) -> int:
+    """``--mesh``: ``read_tpu.train``'s rules, then the ranks. The other
+    pipelines run here as without ``--mesh``."""
+    from read_tpu_torch.parallel import launch
+    from read_tpu_torch.pipelines import texture_pipeline as TP
+
+    n_data, n_points = shape
+    print(f"mesh: data={n_data} x points={n_points} over "
+          f"{n_data * n_points} ranks")
+    try:
+        cfg = TP.config_from_dict(vars(args),
+                                  crop_size=parse_size(args.crop_size),
+                                  train_dataset_args=args.train_dataset_args)
+    except (ValueError, NotImplementedError) as e:
+        raise SystemExit(str(e))
+    if cfg.use_mesh:
+        print("mesh + use_mesh: replicated 2D tables, sharded uv2d "
+              "(point-splat uv variant; triangle faces ignored)")
+    if args.pipeline != "texture":
+        return _run(args, exp_dir, device)
+    if args.max_scenes_hbm is not None:
+        raise SystemExit("--max-scenes-hbm is not supported with --mesh "
+                         "(sharded tables are already the large-scene "
+                         "path); drop one of the flags")
+    if args.freeze_net:
+        raise SystemExit("--freeze-net is not supported with --mesh "
+                         "(texture-only fitting is a single-chip "
+                         "workflow; drop one of the flags)")
+    ignored = [name for name, on in (
+        ("drop_points", cfg.drop_points > 0),
+        ("perturb_points", cfg.perturb_points > 0),
+        ("supersampling", cfg.supersampling > 1),
+        ("z-scaled point sizes ('ps' input formats)",
+         cfg.relative_point_size),
+        ("temporal_average", cfg.temporal_average)) if on]
+    if ignored:
+        print("WARNING: the sharded step (as read_tpu's) does not apply "
+              + ", ".join(ignored) + " under --mesh")
+    launch.spawn(_mesh_rank, n_data * n_points, device.type,
+                 args=(args, exp_dir, shape, TP.UNet),
+                 timeout_s=MESH_TIMEOUT_S)
+    return 0
+
+
+def _mesh_rank(rank: int, world: int, device: torch.device, args,
+               exp_dir: str, shape, unet) -> None:
+    """One rank of a ``--mesh`` run: ``_run`` on this rank's part of the
+    mesh. Rank 0 writes to the console and ``log.txt``; the others are
+    silent but for errors. ``unet`` is the launching process's
+    ``texture_pipeline.UNet`` (the class, or a caller's narrowed factory,
+    pickled by reference with its arguments): every rank builds the net
+    that process would build."""
+    from read_tpu_torch.parallel import sharded as SH
+    from read_tpu_torch.pipelines import texture_pipeline as TP
+    from read_tpu_torch.utils.perform import Tee
+
+    TP.UNet = unet
+    streams = sys.stdout, sys.stderr
+    if rank == 0:
+        sys.stdout = Tee(os.path.join(exp_dir, "log.txt"), sys.__stdout__)
+        sys.stderr = Tee(os.path.join(exp_dir, "log.txt"), sys.__stderr__)
+    else:
+        sys.stdout = open(os.devnull, "w")
+    try:
+        mesh = SH.make_mesh(*shape, device)
+        print(f"mesh rank {rank} of {world} on {device}: backend "
+              f"{mesh.backend}")
+        rc = _run(args, exp_dir, device, mesh)
+    finally:
+        mine = sys.stdout, sys.stderr
+        sys.stdout, sys.stderr = streams
+        for stream in set(mine) - set(streams):
+            stream.close()
+    if rc:
+        raise RuntimeError(f"rank {rank}: exit code {rc}")
+
+
+def _run(args, exp_dir: str, device: torch.device, mesh=None) -> int:
+    """The texture pipeline's loop (and the others'); with ``mesh`` (a
+    ``parallel.sharded.Mesh``) this rank's part of a sharded run. Rank 0
+    (or the one process) writes tensorboard scalars when
+    ``tensorboardX`` is installed, closing the writer at the end."""
+    writer = None
+    if mesh is None or mesh.rank == 0:
+        try:
+            from tensorboardX import SummaryWriter
+            writer = SummaryWriter(exp_dir, flush_secs=10)
+        except Exception:
+            pass
+    try:
+        return _train(args, exp_dir, device, writer, mesh)
+    finally:
+        if writer is not None:
+            writer.close()
+
+
+def _train(args, exp_dir: str, device: torch.device, writer, mesh) -> int:
     from read_tpu_torch.criterions import vgg as V
     from read_tpu_torch.data.dataset import BatchIterator, PrefetchIterator
     from read_tpu_torch.data.scenes import get_datasets
@@ -611,15 +734,12 @@ def _run(args, exp_dir: str, device: torch.device) -> int:
     from read_tpu_torch.utils import convert as CV
     from read_tpu_torch.utils.perform import AccumDict
 
+    lead = mesh is None or mesh.rank == 0   # writes logs, images, files
+    if mesh is not None:
+        from read_tpu_torch.parallel import sharded as SH
     print(f"experiment dir: {exp_dir}")
     print(f"devices: {device}" + (f" ({torch.cuda.get_device_name(device)})"
                                   if device.type == "cuda" else ""))
-
-    try:
-        from tensorboardX import SummaryWriter
-        writer = SummaryWriter(exp_dir, flush_secs=10)
-    except Exception:
-        writer = None
 
     h, w = parse_size(args.crop_size)
     try:
@@ -636,10 +756,11 @@ def _run(args, exp_dir: str, device: torch.device) -> int:
               f"{len(tr.view_list)} train views, "
               f"{len(va.view_list)} val views")
     # split lists saved for reproducibility
-    with open(os.path.join(exp_dir, "splits.json"), "w") as f:
-        json.dump({tr.name: {"train": tr.target_list,
-                             "val": va.target_list}
-                   for tr, va in zip(ds_train, ds_val)}, f, indent=1)
+    if lead:
+        with open(os.path.join(exp_dir, "splits.json"), "w") as f:
+            json.dump({tr.name: {"train": tr.target_list,
+                                 "val": va.target_list}
+                       for tr, va in zip(ds_train, ds_val)}, f, indent=1)
 
     vgg_params = None
     if cfg.vgg_ratio:
@@ -713,18 +834,28 @@ def _run(args, exp_dir: str, device: torch.device) -> int:
     if args.freeze_net and not (args.net_ckpt or args.resume):
         print("WARNING: --freeze-net without --net-ckpt/--resume freezes "
               "RANDOM net weights")
-    train_step = TP.make_train_step(net, cfg, vgg_params,
-                                    freeze_net=args.freeze_net,
-                                    return_images=True)
+    if mesh is None:
+        train_step = TP.make_train_step(net, cfg, vgg_params,
+                                        freeze_net=args.freeze_net,
+                                        return_images=True)
+    else:
+        # this rank's part: the point table and its RMS moment padded to
+        # P rows and sharded over the points ranks
+        for ds in ds_train:
+            states[ds.id] = SH.prepare_scene_state(mesh, states[ds.id])
+        sharded_step = SH.make_sharded_train_step(net, cfg, vgg_params, mesh)
     eval_step = TP.make_eval_step(net, cfg, vgg_params)
     sched = TP.ReduceLROnPlateau(factor=args.plateau_factor,
                                  patience=args.plateau_patience)
 
     scene_by_id = {ds.id: ds for ds in ds_train}
 
-    def scene_xyz(ds) -> torch.Tensor:
-        return torch.from_numpy(np.asarray(
+    def scene_xyz(ds, whole: bool = False) -> torch.Tensor:
+        """The scene's points on the device; under ``--mesh`` this
+        rank's shard, unless ``whole`` (validation)."""
+        xyz = torch.from_numpy(np.asarray(
             ds.scene_data["pointcloud"]["xyz"], np.float32)).to(device)
+        return xyz if mesh is None or whole else SH.shard_points(mesh, xyz)
 
     def to_dev(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -745,6 +876,23 @@ def _run(args, exp_dir: str, device: torch.device) -> int:
                              if pc.get(a) is not None}
         return pc_cache[sid]
 
+    sharded_pc: Dict[int, Dict[str, torch.Tensor]] = {}
+
+    def sharded_attrs(sid: int) -> Dict[str, torch.Tensor]:
+        """Under ``--mesh``: this rank's rows of the point attributes the
+        extra modes read, and of ``uv2d`` with ``--use-mesh``."""
+        if sid not in sharded_pc:
+            attrs = dict(point_attrs(sid)) if extra else {}
+            if cfg.use_mesh:
+                uv2d, faces = mesh_inputs(scene_by_id[sid].scene_data)
+                attrs["uv2d"] = to_dev(uv2d)
+                if faces is not None:
+                    print(f"scene {sid}: triangle faces ignored under "
+                          "--mesh (sharded path uses the point-splat uv "
+                          "variant)")
+            sharded_pc[sid] = SH.shard_pointcloud_attrs(mesh, attrs)
+        return sharded_pc[sid]
+
     def add_scene_inputs(dev_batch: dict, sid: int, batch: dict,
                          train: bool) -> None:
         """The pyramid's inputs beyond the poses: the scene manifest's
@@ -752,7 +900,21 @@ def _run(args, exp_dir: str, device: torch.device) -> int:
         and with extra modes the point attributes (``pointcloud``), the
         label image under ``label_in_input`` (training batches) and the
         camera-to-world ``view_matrix`` for ``normals_l/r/d``; with
-        ``--use-mesh`` the scene's ``uv2d`` and triangle ``faces``."""
+        ``--use-mesh`` the scene's ``uv2d`` and triangle ``faces``.
+        Under ``--mesh`` no sizes and no faces; a training batch's point
+        attributes come apart (:func:`sharded_attrs`)."""
+        if mesh is not None:
+            if not train:   # the unsharded eval step, read_tpu's inputs
+                if cfg.use_mesh:
+                    dev_batch["uv2d"] = to_dev(
+                        mesh_inputs(scene_by_id[sid].scene_data)[0])
+                if extra:
+                    dev_batch["pointcloud"] = point_attrs(sid)
+            elif cfg.label_in_input and extra:
+                dev_batch["label"] = to_dev(batch["label"])
+            if view_dependent:
+                dev_batch["view_matrix"] = to_dev(batch["view_matrix"])
+            return
         if cfg.use_mesh:
             if sid not in mesh_cache:
                 uv2d, faces = mesh_inputs(scene_by_id[sid].scene_data)
@@ -865,8 +1027,13 @@ def _run(args, exp_dir: str, device: torch.device) -> int:
             if args.num_classes:
                 dev_batch["label"] = to_dev(batch["label"])
             add_scene_inputs(dev_batch, sid, batch, train=True)
-            st, metrics, im = train_step(states.activate(sid),
-                                         xyz_cache[sid], dev_batch)
+            if mesh is None:
+                st, metrics, im = train_step(states.activate(sid),
+                                             xyz_cache[sid], dev_batch)
+            else:   # no images come back from the sharded step
+                (st, metrics), im = sharded_step(
+                    states[sid], xyz_cache[sid], dev_batch,
+                    sharded_attrs(sid)), None
             states[sid] = st
             last_sid = sid
             acc.update({k: float(v) for k, v in metrics.items()})
@@ -880,7 +1047,7 @@ def _run(args, exp_dir: str, device: torch.device) -> int:
                 if writer:
                     for k, v in acc.means().items():
                         writer.add_scalar(f"train/{k}", v, gstep)
-                if args.log_num_images:
+                if args.log_num_images and im is not None:
                     try:
                         dump_train_composite(
                             step_count // args.log_freq - 1, im, batch,
@@ -914,8 +1081,10 @@ def _run(args, exp_dir: str, device: torch.device) -> int:
         for ds in ds_val:
             if not len(ds.view_list):
                 continue
-            xyz = scene_xyz(ds)
-            st = states.activate(ds.id)
+            st = eval_state(ds.id)
+            if not lead:
+                continue
+            xyz = scene_xyz(ds, whole=True)
             bs = max(1, args.batch_size_val)
 
             def val_batches(ds=ds, bs=bs):
@@ -980,14 +1149,35 @@ def _run(args, exp_dir: str, device: torch.device) -> int:
         timing = {"views": len(views), "batches": n_batches,
                   "seconds": time.perf_counter() - t0}
         loss = acc.mean("loss") if acc["loss"] else float("inf")
+        if mesh is not None:
+            # rank 0's loss and PSNR to every rank, for the schedule
+            psnr = acc.mean("psnr") if acc["psnr"] else float("nan")
+            got = mesh.all_reduce(torch.tensor(
+                [loss, psnr] if lead else [0.0, 0.0], dtype=torch.float64,
+                device=device))
+            loss, psnr = (float(v) for v in got)
+            if not lead:
+                acc = AccumDict()
+                acc.update({"loss": loss, "psnr": psnr}
+                           if np.isfinite(psnr) else {"loss": loss})
         return loss, acc, views, timing
+
+    def eval_state(sid: int):
+        """The state the unsharded eval step and the checkpoints take:
+        under ``--mesh`` gathered and stripped of the texture padding on
+        rank 0 (None on the others; the ranks of data block 0 must all
+        ask), else the scene's with its tables on the device."""
+        if mesh is None:
+            return states.activate(sid)
+        return SH.unshard_state(mesh, states[sid], scene_by_id[sid].n_points)
 
     ckpt_root = os.path.join(exp_dir, "checkpoints")
     history = []
 
     def write_history():
-        with open(os.path.join(exp_dir, "history.json"), "w") as f:
-            json.dump(history, f, indent=1)
+        if lead:
+            with open(os.path.join(exp_dir, "history.json"), "w") as f:
+                json.dump(history, f, indent=1)
 
     if args.eval:
         dump = args.eval_dir or os.path.join(exp_dir, "eval")
@@ -1034,23 +1224,28 @@ def _run(args, exp_dir: str, device: torch.device) -> int:
                 writer.add_scalar(f"val/{k}", v, epoch)
             writer.add_scalar("lr_scale", scale, epoch)
 
+        # checkpoints are saved unsharded (read_tpu's rule), by rank 0
         if epoch % args.save_freq == 0 or sched_metric < best_val:
             for ds in ds_train:
+                st = eval_state(ds.id)
+                if not lead:
+                    continue
                 CK.save_checkpoint(
                     os.path.join(ckpt_root, f"ckpt_{ds.name}_{epoch}"),
-                    TP.flat_from_state(states.activate(ds.id)),
-                    config=config_dict(args),
+                    TP.flat_from_state(st), config=config_dict(args),
                     extra={"epoch": epoch, "val_loss": val_loss})
                 CK.rotate_checkpoints(ckpt_root, f"ckpt_{ds.name}", keep=3)
             if sched_metric < best_val:
                 best_val = sched_metric
                 for ds in ds_train:
-                    CK.save_checkpoint(
-                        os.path.join(ckpt_root, f"best_{ds.name}"),
-                        TP.flat_from_state(states.activate(ds.id)),
-                        config=config_dict(args),
-                        extra={"epoch": epoch, "val_loss": val_loss,
-                               "val_psnr": vacc.mean("psnr")})
+                    st = eval_state(ds.id)
+                    if lead:
+                        CK.save_checkpoint(
+                            os.path.join(ckpt_root, f"best_{ds.name}"),
+                            TP.flat_from_state(st),
+                            config=config_dict(args),
+                            extra={"epoch": epoch, "val_loss": val_loss,
+                                   "val_psnr": vacc.mean("psnr")})
     print(f"done; best val loss {best_val:.5f}")
     return 0
 

@@ -6,7 +6,8 @@ every test skips. On a GPU machine, which need not have JAX installed::
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 TF32 is switched off for the twins (full float32 convolutions and
-matmuls). K1, K5, the pyramid pass (every level), K6 (its given-key
+matmuls). K1, K5, the pyramid pass (every level; also alone on given keys,
+``zbuffer_pool``), K6 (its given-key
 kernel, and on its user path the splat projection, every level, plain,
 per-point and z-scaled sizes and the edge cases of
 tests/test_torch_splat.py) and K8
@@ -133,6 +134,35 @@ def test_zbuffer_pyramid_kernel_bit_equal(dev, method, pool_impl, batch, n,
     for (ig, dg), (iw, dw) in zip(got, want):
         assert torch.equal(ig, iw) and torch.equal(dg, dw)
     assert (got[0][0] >= 0).float().mean() > 0.2
+
+
+@pytest.mark.parametrize("num_scales", [1, 2, 4, 5])
+@pytest.mark.parametrize("batch,n,hw,dup", _PYRAMID_CASES)
+def test_zbuffer_pool_kernel_bit_equal(dev, batch, n, hw, dup, num_scales):
+    """The pass alone on given exact keys (the multi-device z-merge's):
+    K5's level-0 keys with INT64_MAX where empty, every level bit-equal to
+    the twin and to the pyramid K5 and the pass give; one launch; an
+    all-empty buffer gives -1 and 0 everywhere; a view at an 8-byte
+    offset is refused."""
+    xyz, ms = frame_inputs(batch, n // dup, hw, focal=hw[1] * 0.6)
+    xyz = np.tile(xyz, (dup, 1))
+    xyz, ms = torch.from_numpy(xyz).to(dev), torch.from_numpy(ms).to(dev)
+    key = RK.exact_keys(*RK.zbuffer_exact(xyz, ms, *hw)).view(batch, *hw)
+    before = RK.launches["zbuffer_pool"]
+    got = RK.zbuffer_pool(key, num_scales)
+    assert RK.launches["zbuffer_pool"] == before + 1
+    want = RK.zbuffer_pool_plain(key, num_scales)
+    ref = RK.zbuffer_pyramid(xyz, ms, *hw, num_scales, "sort", "exact")
+    torch.cuda.synchronize()
+    for (ig, dg), (iw, dw), (ir, dr) in zip(got, want, ref):
+        assert torch.equal(ig, iw) and torch.equal(dg, dw)
+        assert torch.equal(ig, ir) and torch.equal(dg, dr)
+    for ig, dg in RK.zbuffer_pool(torch.full_like(key, RK.INT64_MAX),
+                                  num_scales):
+        assert bool((ig == -1).all()) and bool((dg == 0).all())
+    flat = torch.empty(key.numel() + 1, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        RK.zbuffer_pool(flat[1:].view_as(key), num_scales)
     if dup > 1:
         assert int(got[0][0].max()) < n // dup
 

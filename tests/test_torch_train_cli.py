@@ -31,7 +31,14 @@ the runs and their checkpoints small.
   (``colors``, ``normals_l``) train a step, validate and write a
   checkpoint the renderer loads;
 - every unported flag exits naming its ``ROADMAP.md`` item, and without
-  a CUDA device the CLI refuses to run unless told ``cpu``.
+  a CUDA device the CLI refuses to run unless told ``cpu``;
+- ``--mesh`` keeps ``read_tpu.train``'s rules (``--max-scenes-hbm`` and
+  ``--freeze-net`` exit; ``--pipeline rgb_texture`` runs as without it;
+  ``drop_points`` warns), and a ``--mesh 1x2`` fit of both scenes on two
+  gloo ranks saves the unsharded run's checkpoints, which
+  ``NeuralRenderer`` loads on one device, with the unsharded run's
+  losses. The spawned ranks build their UNet with this process's
+  ``TP.UNet`` (the CLI hands it to them), so the swap reaches them.
 """
 
 import functools
@@ -375,27 +382,81 @@ def test_cli_runs_without_optional_packages(setup, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--pipeline", "rgb_texture", "--mesh", "2x2"], "item 12"),
-    (["--mesh", "2x2"], "item 12"),
     (["--criterion", "vgg_ens"], "'Not ported'"),
-    ("drop_points", "item 12"),
 ])
 def test_unported_flags_exit_with_their_item(setup, tmp_path, flags, item):
-    """What is still not ported exits naming its item, also beside the
-    flags and configs that are ported (the other pipelines, mesh
-    textures, point dropout)."""
-    if flags == "drop_points":
-        config = dict(setup["config"])
-        config["train_dataset_args"] = dict(
-            config["train_dataset_args"], drop_points=0.1)
-        path = tmp_path / "config.json"
-        with open(path, "w") as f:
-            json.dump(config, f)
-        flags = ["--config", str(path), "--mesh", "2x2"]
-    else:
-        flags = ["--config", str(setup["root"] / "config.json")] + flags
+    """What is still not ported exits naming its item."""
+    flags = ["--config", str(setup["root"] / "config.json")] + flags
     with pytest.raises(SystemExit, match=f"ROADMAP.*{item}"):
         TRAIN.main(flags + ["--save-dir", str(tmp_path / "logs")])
+
+
+@pytest.mark.parametrize("case", ["max_scenes_hbm", "freeze_net",
+                                  "rgb_texture", "drop_points"])
+def test_mesh_keeps_read_tpu_rules(setup, tmp_path, case):
+    """``--mesh`` as ``read_tpu.train`` has it: with ``--max-scenes-hbm``
+    or ``--freeze-net`` it exits; ``--pipeline rgb_texture`` runs as
+    without it (after the mesh line); a config with ``drop_points`` trains
+    sharded and warns that the sharded step does not apply it."""
+    config = dict(setup["config"])
+    if case == "drop_points":
+        config["train_dataset_args"] = dict(
+            config["train_dataset_args"], drop_points=0.1)
+    with open(tmp_path / "config.json", "w") as f:
+        json.dump(config, f)
+    short = ["--epochs", "1", "--max-steps-per-epoch", "1",
+             "--dataset-names", "toyA"]
+    if case in ("max_scenes_hbm", "freeze_net"):
+        flag = {"max_scenes_hbm": ["--max-scenes-hbm", "1"],
+                "freeze_net": ["--freeze-net"]}[case]
+        with pytest.raises(SystemExit, match=f"{flag[0]} is not supported "
+                                             "with --mesh"):
+            TRAIN.main(["--config", str(tmp_path / "config.json"),
+                        "--save-dir", str(tmp_path / "logs"), "--mesh",
+                        "1x2"] + flag)
+        return
+    flags = (["--pipeline", "rgb_texture", "--mesh", "1x2"]
+             if case == "rgb_texture" else ["--mesh", "1x1"])
+    exp = _run(tmp_path, case, flags + short)
+    with open(exp / "log.txt") as f:
+        log = f.read()
+    assert "mesh: data=1 x points=" in log
+    if case == "rgb_texture":
+        assert "backend" not in log   # no ranks were started
+        assert (exp / "checkpoints" / "best_rgb_texture_toyA").exists()
+    else:
+        assert "does not apply drop_points under --mesh" in log
+        assert "backend gloo" in log   # rank 0's line
+        assert (exp / "checkpoints" / "best_toyA").exists()
+
+
+def test_mesh_fit_matches_unsharded(setup):
+    """``--mesh 1x2`` (two gloo ranks; with batch 1 the second takes no
+    rows in stage 2) for one epoch of both scenes: the checkpoints an
+    unsharded run leaves, unsharded, loading in ``NeuralRenderer`` on one
+    device; the train and val losses of the unsharded run within 1e-4."""
+    flags = ["--epochs", "1", "--max-steps-per-epoch", "2"]
+    runs = {name: _run(setup["root"], name, flags + extra)
+            for name, extra in (("mesh1x2", ["--mesh", "1x2"]),
+                                ("unsharded", []))}
+    hist = {}
+    for name, exp in runs.items():
+        with open(exp / "history.json") as f:
+            (hist[name],) = json.load(f)
+    for key in ("train_loss", "val_loss"):
+        assert abs(hist["mesh1x2"][key] - hist["unsharded"][key]) <= 1e-4
+    assert len(hist["mesh1x2"]["train_timing"]["step_ms"]) == 2
+    listing = {name: sorted(os.listdir(exp / "checkpoints"))
+               for name, exp in runs.items()}
+    assert listing["mesh1x2"] == listing["unsharded"] == [
+        "best_toyA", "best_toyB", "ckpt_toyA_0", "ckpt_toyB_0"]
+    best = str(runs["mesh1x2"] / "checkpoints" / "best_toyA")
+    flat, _ = CK.load_checkpoint(best)
+    assert flat["texture"].shape == (N, 8)   # the padding stripped
+    r = TR.NeuralRenderer(setup["config"]["paths_file"].replace(
+        "paths.json", "toyA/scene.json"), best, device="cpu")
+    img = r.infer(r.scene_data["view_matrix"][0])
+    assert img.shape == (HW, HW, 3) and np.isfinite(img).all()
 
 
 def _one_step(setup, name, flags):
