@@ -167,6 +167,22 @@ without a device it exits non-zero at once. It
    ``--mesh 1x2`` through the CLI for one short epoch of ``drive_a``,
    whose unsharded checkpoint serves one request. Two ranks on one card
    are no scaling result.
+17. ``raster_methods`` (after ``serve_sort``): the quantized key of
+   'sort1q' (``rasterize_kernels.zbuffer_quant``: a third key mode of the
+   projection, the splat and the pass) bit-equal to its twin at 1M
+   points, 1216x368 B=1 and 2, with heavy ties, and 256x256 B=8: one
+   level, 4-level pyramids with both pools, with a 1 px jitter and as an
+   r=1 splat, each call one projection (``zbuffer_quant``,
+   ``zbuffer_quant_jitter``, ``zbuffer_splat``) and one pass; timed at
+   the frame's shape (events and a CUDA graph) beside its twin,
+   ``scatter_reduce_`` and its bound; 'sort2' and 'scatter' launch K5
+   (r=1: the splat) and the pass and equal 'sort'; the pixels where
+   'sort1q' keeps another winner than 'sort' at 1216x368 (the frame, and
+   500k near-duplicate pairs); one 'sort1q' request through
+   ``NeuralRenderer`` against its all-twin frame (``zbuffer_quant``'s
+   launches); 3 'vgg_ens' train steps (K = 3) at the bench point beside 3
+   'vgg' steps from the same state, ms/step and peak memory, the
+   ensemble's loss falling.
 
 "The loss falling" (``loss_fell``): the mean of the last 3 timed
 losses below the mean of the phase's 3 steps from its fresh state, and
@@ -183,7 +199,8 @@ raises and the script exits non-zero. The last stdout line is ``{"ok":
 true, "device": {...}}``; the line before it lists each kernel's
 launches (counted on the run of the path it serves: K1-K4, the pyramid
 pass and both wgmma loops on the f32 serving path, K5 on the training
-steps, K6's splat projection (``zbuffer_splat``) on the ``uv_1d_p3``
+steps, the quantized key (``zbuffer_quant``) on the 'sort1q' request,
+K6's splat projection (``zbuffer_splat``) on the ``uv_1d_p3``
 requests (``train_launches``: its training steps), ``zbuffer_keys``
 (K6's given-key kernel), K7 and K8 on
 the kernel bench's first pass, K8's on K2's wgmma loop with its tile-loop
@@ -246,6 +263,10 @@ KERNELS = {
     "gated_conv_1x1": ("read_tpu_torch/csrc/gated_conv.cu",
                        "read_tpu/ops/gated_conv_pack.py:421"),
     "zbuffer_exact": ("read_tpu_torch/csrc/zbuffer.cu",
+                      "read_tpu/ops/rasterize_pallas.py:40"),
+    # 'sort1q' (read_tpu/ops/rasterize.py:204-241): the quantized key, a
+    # third key mode of K5's projection, the splat and the pass
+    "zbuffer_quant": ("read_tpu_torch/csrc/zbuffer.cu",
                       "read_tpu/ops/rasterize_pallas.py:40"),
     # the pass after K1/K5: K5's output stage, K1's depth gather and the
     # 2x2 pools (read_tpu/ops/rasterize.py:574, :602)
@@ -320,6 +341,7 @@ class Twins:
         from read_tpu_torch.ops import rasterize_kernels as RK
         self.saved = [(RK, "zbuffer", RK.zbuffer),
                       (RK, "zbuffer_exact", RK.zbuffer_exact),
+                      (RK, "zbuffer_quant", RK.zbuffer_quant),
                       (RK, "zbuffer_pyramid", RK.zbuffer_pyramid),
                       (RK, "zbuffer_splat", RK.zbuffer_splat),
                       (GC, "gated_conv_kxk", GC.gated_conv_kxk),
@@ -592,6 +614,198 @@ def phase_train(report, ctx):
     print(f"[train] TF32 on (forced around the step): {on_s * 1e3:.2f} "
           f"ms/step; TF32 off (the port's default): {seconds * 1e3:.2f} "
           f"ms/step (mean of {TIMED} after {WARMUP} warm-up)")
+
+
+# the quantized key's checks at 1M points: (label, views, hw, ties)
+QUANT_CASES = (("B=1", 1, HW, False), ("B=2", 2, HW, False),
+               ("B=1 ties", 1, HW, True),
+               (f"B={TRAIN_B}", TRAIN_B, (TRAIN_HW, TRAIN_HW), False))
+ENS_STEPS = 3    # timed vgg_ens (and vgg) steps, after one warm-up
+
+
+def _ran(before):
+    return {k: v - before[k] for k, v in launches().items()
+            if v != before[k]}
+
+
+def quant_vs_twin(label, xyz, ms, hw, dev):
+    """The quantized key ('sort1q') bit-equal to its twin: one level
+    (``zbuffer_quant``), the 4-level pyramid with both pools, the same
+    with a 1 px jitter and as an r = 1 splat; each call one projection
+    (its counter) and one pass."""
+    import torch
+    from read_tpu_torch.ops import rasterize_kernels as RK
+    jit = jitter_for(xyz.shape[0], 1.0, hw, dev)
+    calls = [("one level", "zbuffer_quant",
+              lambda: RK.zbuffer_quant(xyz, ms, *hw),
+              lambda: RK.zbuffer_quant_plain(xyz, ms, *hw))]
+    for pool in ("exact", "packed"):
+        args = (xyz, ms, *hw, 4, "sort1q", pool)
+        calls += [
+            (f"{pool} pool", "zbuffer_quant",
+             lambda a=args: RK.zbuffer_pyramid(*a),
+             lambda a=args: RK.zbuffer_pyramid_plain(*a)),
+            (f"{pool} pool, 1 px jitter", "zbuffer_quant_jitter",
+             lambda a=args: RK.zbuffer_pyramid(*a, jitter=jit),
+             lambda a=args: RK.zbuffer_pyramid_plain(*a, jitter=jit)),
+            (f"{pool} pool, r=1 splat", "zbuffer_splat",
+             lambda a=args: RK.zbuffer_splat(*a, 1),
+             lambda a=args: RK.zbuffer_splat_plain(*a, 1))]
+    for what, proj, fn, twin in calls:
+        before = launches()
+        got = fn()
+        ran = _ran(before)
+        if ran != {proj: 1, "zbuffer_pyramid": 1}:
+            raise SmokeFailure(f"sort1q {label} {what}: launches {ran}")
+        want = twin()
+        torch.cuda.synchronize()
+        got, want = ((got,), (want,)) if what == "one level" else (got, want)
+        for lv, ((ig, dg), (iw, dw)) in enumerate(zip(got, want)):
+            if not (torch.equal(ig, iw) and torch.equal(dg, dw)):
+                raise SmokeFailure(
+                    f"sort1q {label} {what} level {lv}: differs from the "
+                    f"twin at {int((ig != iw).sum())} indices, "
+                    f"{int((dg != dw).sum())} depths")
+    print(f"[raster_methods] sort1q {label} N={xyz.shape[0]} {hw[1]}x"
+          f"{hw[0]}: bit-equal to the twin (one level; 4 levels, exact and "
+          "packed pools, also with a 1 px jitter and as an r=1 splat)")
+
+
+def phase_raster_methods(report, ctx, dev):
+    """read_tpu's last raster methods and the VGG ensemble on the card:
+    the quantized key ('sort1q') bit-equal to its twin at 1M points
+    (``QUANT_CASES``) and timed; the launches of each method; where
+    'sort1q' picks other winners than 'sort' at 1216x368; one 'sort1q'
+    request through ``NeuralRenderer`` against its all-twin frame; and
+    ``ENS_STEPS`` 'vgg_ens' train steps (K = 3) at the bench point beside
+    as many 'vgg' steps from the same state."""
+    import torch
+    from read_tpu_torch import kernel_bench as KB
+    from read_tpu_torch.criterions import vgg as V
+    from read_tpu_torch.frame import frame_inputs, train_inputs
+    from read_tpu_torch.kernel_bench import event_ms, graph_ms
+    from read_tpu_torch.ops import rasterize as R
+    from read_tpu_torch.ops import rasterize_kernels as RK
+    from read_tpu_torch.pipelines import texture_pipeline as TP
+    from read_tpu_torch.render import NeuralRenderer
+    for label, b, hw, ties in QUANT_CASES:
+        if hw == HW:
+            xyz, ms = frame_inputs(1 if ties else b, N_POINTS, hw)
+            if ties:   # every position 4 times: exact depth ties
+                xyz = np.tile(xyz[:N_POINTS // 4], (4, 1))
+        else:
+            xyz, ms, _ = train_inputs(b, N_POINTS, hw[0])
+        quant_vs_twin(label, torch.from_numpy(xyz).to(dev),
+                      torch.from_numpy(ms).to(dev), hw, dev)
+    # the frame's shape: timed, with its library call and bound
+    xyz, ms = (torch.from_numpy(a).to(dev)
+               for a in frame_inputs(1, N_POINTS, HW))
+    row = report["zbuffer_quant"]
+    row.update(ms=event_ms(lambda: RK.zbuffer_quant(xyz, ms, *HW), iters=20),
+               graph_ms=graph_ms(lambda: RK.zbuffer_quant(xyz, ms, *HW)),
+               plain_ms=event_ms(lambda: RK.zbuffer_quant_plain(xyz, ms, *HW),
+                                 iters=20),
+               max_abs_err=0.0, db=RK.quant_bits(HW[0] * HW[1])[0],
+               shape=f"B=1 N={N_POINTS} {HW[1]}x{HW[0]}, one level",
+               semantics="read_tpu/ops/rasterize.py:204")
+    library_and_bound(row, *KB.zbuffer_yardsticks(xyz, ms, HW)[2][
+        "zbuffer_quant"])
+    # each method's kernels, 1 px and r = 1
+    want = {"sort2": "zbuffer_exact", "scatter": "zbuffer_exact",
+            "sort1q": "zbuffer_quant"}
+    levels = {}
+    for method, proj in want.items():
+        for r in (0, 1):
+            before = launches()
+            levels[method, r] = R.rasterize_pyramid_pooled(
+                xyz, ms, HW, 4, r, method)
+            ran = _ran(before)
+            if ran != {proj if r == 0 else "zbuffer_splat": 1,
+                       "zbuffer_pyramid": 1}:
+                raise SmokeFailure(f"{method} r={r}: launches {ran}")
+    for r in (0, 1):
+        sort = R.rasterize_pyramid_pooled(xyz, ms, HW, 4, r, "sort")
+        for method in ("sort2", "scatter"):
+            if not all(torch.equal(a, b) for lv, lw in zip(
+                    levels[method, r], sort) for a, b in zip(lv, lw)):
+                raise SmokeFailure(f"{method} r={r}: differs from 'sort'")
+    # where 'sort1q' keeps another winner than 'sort': the frame's scene,
+    # and pairs of points 1e-5 of the way apart on one ray
+    i_q, i_s = levels["sort1q", 0][0][0], R.rasterize_batch(
+        xyz, ms, *HW)[0]
+    pairs = xyz[:N_POINTS // 2]
+    pairs = torch.stack([pairs, pairs * (1.0 - 1e-5)], 1).reshape(-1, 3)
+    p_q = R.rasterize_batch(pairs, ms, *HW, method="sort1q")[0]
+    p_s = R.rasterize_batch(pairs, ms, *HW)[0]
+    frame_diff, pair_diff = int((i_q != i_s).sum()), int((p_q != p_s).sum())
+    covered = int((p_s >= 0).sum())
+    if pair_diff == 0:
+        raise SmokeFailure("sort1q picked the same winners as sort on the "
+                           "near-duplicate pairs")
+    print(f"[raster_methods] sort2/scatter: K5 and the pass (r=0; r=1 the "
+          f"splat), bit-equal to 'sort'; sort1q ({row['db']} depth bits at "
+          f"{HW[1]}x{HW[0]}) picks another winner than sort at "
+          f"{frame_diff} pixels of the 1M-point frame and at {pair_diff} of "
+          f"{covered} covered pixels of {N_POINTS // 2} near-duplicate "
+          f"pairs; kernel {row['ms']:.4f} ms (in a CUDA graph "
+          f"{row['graph_ms']:.4f}), twin {row['plain_ms']:.4f}, "
+          f"scatter_reduce_ {row['library_ms']:.4f}, bound "
+          f"{row['bound_ms']:.4f} ({row['bound_by']})")
+    # one 'sort1q' request, against its all-twin frame
+    scene, poses, ckpt = ctx["serve"]
+    r = NeuralRenderer(scene, ckpt, raster_method="sort1q", device=dev)
+    r.infer(poses[0])
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    img = r.infer(poses[1])
+    ms_req = (time.perf_counter() - t0) * 1e3
+    counts = launches()
+    pyramid_ran("raster_methods request", counts, "zbuffer_quant", 1)
+    row["launches"] = counts["zbuffer_quant"]
+    with Twins():
+        want_img = NeuralRenderer(scene, ckpt, raster_method="sort1q",
+                                  device=dev).infer(poses[1])
+    err = float(np.abs(img - want_img).max())
+    if img.shape != (HW[0], HW[1], 3) or not np.isfinite(img).all() or \
+            not np.allclose(img, want_img, **FRAME_TOL):
+        raise SmokeFailure(f"sort1q request: {img.shape}, max |err| {err} "
+                           "from the all-twin frame")
+    print(f"[raster_methods] sort1q request through NeuralRenderer: "
+          f"{ms_req:.2f} ms, max |err| {err:.3g} from the all-twin frame; "
+          f"launches {counts}")
+    # vgg_ens (K = 3, as the CLI builds it) beside vgg, from one state
+    net, cfg, vgg, state, xyz_t, batch = ctx["train"]
+    ens = [V.random_vgg_params(torch.Generator().manual_seed(k), device=dev)
+           for k in range(3)]
+    runs = {}
+    for name, c, params in (
+            ("vgg_ens", dataclasses.replace(cfg, vgg_ensemble=3), ens),
+            ("vgg", cfg, vgg)):
+        step = TP.make_train_step(net, c, params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        st, losses = state, []
+        for i in range(1 + ENS_STEPS):
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            st, metrics = step(st, xyz_t, batch)
+            losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        runs[name] = ((time.perf_counter() - t0) / ENS_STEPS * 1e3, losses,
+                      torch.cuda.max_memory_allocated() / 2 ** 30)
+    ms_e, losses, peak_e = runs["vgg_ens"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SmokeFailure(f"vgg_ens: losses {losses} not finite or not "
+                           "lower at the end")
+    ctx["vgg_ens_ms"] = ms_e
+    print(f"[raster_methods] vgg_ens (K=3) at the bench point "
+          f"({TRAIN_B}x{TRAIN_HW}^2, {N_POINTS} points, 'sort'): "
+          f"{ms_e:.2f} ms/step, peak {peak_e:.2f} GiB, loss "
+          f"{losses[0]:.6g} -> {losses[-1]:.6g}; vgg {runs['vgg'][0]:.2f} "
+          f"ms/step, peak {runs['vgg'][2]:.2f} GiB (mean of {ENS_STEPS} "
+          "after 1 warm-up, same window)")
 
 
 @contextlib.contextmanager
@@ -3978,6 +4192,8 @@ def main() -> int:
               ("train", lambda: phase_train(report, ctx)),
               ("serve_sort",
                lambda: phase_serve_sort(report, ctx, dev, workdir)),
+              ("raster_methods",
+               lambda: phase_raster_methods(report, ctx, dev)),
               ("free", lambda: (ctx.pop("train"), ctx.pop("trained"),
                                 torch.cuda.empty_cache())),
               ("splats", lambda: phase_splats(report, dev, workdir)),

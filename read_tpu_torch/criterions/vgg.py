@@ -1,12 +1,13 @@
 """The VGG19 perceptual loss of the training step.
 
-Counterpart of ``read_tpu/criterions/vgg.py:38-190, 212-222``: the
+Counterpart of ``read_tpu/criterions/vgg.py:38-222``: the
 13-conv VGG19 prefix (through conv5_1) with 2x2 **average** pools after
 convs 2, 4, 8 and 12, the L1 distance summed over the 13 ReLU taps,
 the 'caffe' input normalization (BGR-ordered means applied to RGB
 channels, the reference's quirk, kept) and the 'pytorch' one, the
-partial first conv of the masked variant, and ``vgg_loss_mix``.
-``vgg_loss_ens`` is not ported (ROADMAP "Not ported").
+partial first conv of the masked variant, ``vgg_loss_ens`` (the mean
+over an ensemble of weight sets, ``--criterion vgg_ens``) and
+``vgg_loss_mix``.
 
 Parameters are a list of 13 ``(w [3, 3, Cin, Cout] HWIO, b [Cout])``
 tensors, as in JAX; each conv runs as ``F.conv2d`` with the kernel
@@ -28,7 +29,8 @@ import torch.nn.functional as F
 from read_tpu_torch.utils import fp32
 
 __all__ = ["VGG_CHANNELS", "random_vgg_params", "load_vgg_params",
-           "partial_conv2d", "vgg19_features", "vgg_loss", "vgg_loss_mix"]
+           "partial_conv2d", "vgg19_features", "vgg_loss", "vgg_loss_ens",
+           "vgg_loss_mix"]
 
 VggParams = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -160,6 +162,21 @@ def vgg_loss(params: VggParams, pred: torch.Tensor, target: torch.Tensor,
             loss = loss + (d.flatten(1).mean(dim=1)
                            if per_item else d.mean())
         return loss
+
+
+def vgg_loss_ens(params_list: List[VggParams], pred: torch.Tensor,
+                 target: torch.Tensor, backend: str = "caffe",
+                 partialconv: bool = False,
+                 per_item: bool = False) -> torch.Tensor:
+    """The mean of :func:`vgg_loss` over the weight sets of
+    ``params_list`` (summed in order, then divided by their count, as
+    ``read_tpu`` sums them)."""
+    loss = None
+    for params in params_list:
+        one = vgg_loss(params, pred, target, backend=backend,
+                       partialconv=partialconv, per_item=per_item)
+        loss = one if loss is None else loss + one
+    return loss / len(params_list)
 
 
 def vgg_loss_mix(params_pytorch: VggParams, params_caffe: VggParams,

@@ -86,6 +86,20 @@
 // depths. A tile is max(32, 2^(L-1)) x max(64, 2^(L-1)) pixels of level
 // 0, so each coarse pixel of L levels lies in one tile.
 //
+// The quantized key ('sort1q', read_tpu/ops/rasterize.py `_zbuffer_sort1q`
+// :204-241): per pixel the least (q, id), q = clip(rint(depth * qq), 0, qq)
+// rounded half to even, qq = 2^db - 1 with db the most bits for which
+// (h*w + 2) << db < 2^31 (JAX packs the pixel id above the bin and sorts).
+// Depths within one bin tie to the least id; the winner's depth is exact.
+// Here it is a third key mode of the projection and the splat, one
+// atomicMin a (view, point) of the 64-bit key (q << 32) | id, each point's
+// depth written to depth0 [B, N] as K1's standalone mode writes it, and a
+// matching input mode of the pass: level 0's index from the low 32 bits,
+// its depth depth0[b, id]; the coarser levels pool K5's exact key or K1's
+// packed key built from that (index, depth), as for K5's input. A splat's
+// winner depth is its point's depth0 (the JAX splat re-gathers the first
+// offset copy's entry, 2.0 where that copy missed the frame: not copied).
+//
 // NDC jitter (read_tpu/ops/augment.py's screen-space point perturbation,
 // fed to rasterize.py's `ndc_jitter` :328-331, :419-420, :502-503): K1,
 // K5 and the splat projection take an optional [N, 2] float32 offset a
@@ -110,6 +124,10 @@ constexpr unsigned long long kEmpty64 = ~0ull;
 // an empty pixel of a key buffer merged by a signed MIN reduction
 // (zbuffer_pool_keys): INT64_MAX, the reduction's identity
 constexpr unsigned long long kEmptyMax64 = 0x7fffffffffffffffull;
+
+// The key a projection z-buffers with: K1's packed int32 key, K5's exact
+// 64-bit key, or sort1q's quantized 64-bit key.
+enum KeyMode : int { kPacked = 0, kExact = 1, kQuant = 2 };
 
 __device__ __forceinline__ float row_dot(const float* r, float x, float y,
                                          float z) {
@@ -179,6 +197,16 @@ __device__ __forceinline__ unsigned long long exact_key(float depth,
   return ((unsigned long long)__float_as_uint(depth) << 32) | (unsigned)id;
 }
 
+// sort1q's key: (clip(rint(depth * qq), 0, qq) << 32) | id, in JAX's
+// order (the product rounded once, then to the nearest even integer, then
+// the clip; qq converted to float as JAX converts the Python int)
+__device__ __forceinline__ unsigned long long quant_key(float depth, int qq,
+                                                        int id) {
+  const float qf = (float)qq;
+  const float q = fminf(fmaxf(rintf(__fmul_rn(depth, qf)), 0.0f), qf);
+  return ((unsigned long long)(unsigned)q << 32) | (unsigned)id;
+}
+
 // A point's NDC jitter [N, 2], the same for every view; (0, 0) where
 // jitter is null.
 __device__ __forceinline__ void load_jitter(const float* __restrict__ jitter,
@@ -191,10 +219,12 @@ __device__ __forceinline__ void load_jitter(const float* __restrict__ jitter,
   }
 }
 
-// K1 (EXACT false: packed int32 keys, and each point's depth into depth0
-// where it is not null) and K5 (EXACT true: 64-bit keys). keys [B, h*w];
-// jitter [N, 2] NDC offsets or null, loaded once a point beside xyz.
-template <bool EXACT>
+// K1 (kPacked: packed int32 keys, and each point's depth into depth0
+// where it is not null), K5 (kExact: 64-bit keys) and sort1q (kQuant:
+// quantized 64-bit keys with qmax the bins' qq; each point's depth into
+// depth0). keys [B, h*w]; jitter [N, 2] NDC offsets or null, loaded once a
+// point beside xyz.
+template <int MODE>
 __global__ void __launch_bounds__(kThreads)
     project_kernel(const float* __restrict__ xyz,
                    const float* __restrict__ jitter,
@@ -226,14 +256,17 @@ __global__ void __launch_bounds__(kThreads)
       float depth;
       const bool valid = project_point(m + 16 * vb, x, y, z, jx, jy, h, w,
                                        &pix, &depth);
-      if (!EXACT && depth0 != nullptr) {
+      if (MODE != kExact && depth0 != nullptr) {
         depth0[(size_t)b * n + i] = valid ? depth : 0.0f;
       }
       if (!valid || pix < 0) continue;
       // K1's keys are non-negative int32: they order alike as unsigned.
-      if (EXACT) {
+      if (MODE == kExact) {
         atomicMin((unsigned long long*)keys + b * npx + pix,
                   exact_key(depth, i));
+      } else if (MODE == kQuant) {
+        atomicMin((unsigned long long*)keys + b * npx + pix,
+                  quant_key(depth, qmax, i));
       } else {
         atomicMin((unsigned*)keys + b * npx + pix,
                   (depth_bin(depth, qmax) << idb) | (unsigned)i);
@@ -285,21 +318,22 @@ __device__ __forceinline__ int splat_reach(const SplatArgs& s, float base,
   return k;
 }
 
-// K6 on its user path: the splat projection (EXACT true: K5's 64-bit
-// key, for 'sort'; false: K1's packed int32 key, id bits from N points).
+// K6 on its user path: the splat projection (kExact: K5's 64-bit key, for
+// 'sort'; kPacked: K1's packed int32 key, id bits from N points; kQuant:
+// sort1q's key with qmax the bins' qq, each point's depth into depth0).
 // Every pixel of a valid point's square that lies in the frame gets one
 // atomicMin of the point's key: the centre pixel may itself lie off the
 // frame on any side (u == w or v == h without jitter; with the NDC jitter
 // u or v may also be negative, or more than one past the edge) while
 // some of its square does not. The clamps below keep exactly the in-frame
 // part of the square, and an empty range (u + k < 0, u - k >= w) skips.
-template <bool EXACT>
+template <int MODE>
 __global__ void __launch_bounds__(kThreads)
     splat_kernel(const float* __restrict__ xyz,
                  const float* __restrict__ jitter,
                  const float* __restrict__ mats, int n, int nviews, int h,
                  int w, int idb, int qmax, void* __restrict__ keys,
-                 const SplatArgs s) {
+                 float* __restrict__ depth0, const SplatArgs s) {
   __shared__ float m[kViewsPerStage * 16];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = i < n;
@@ -325,15 +359,17 @@ __global__ void __launch_bounds__(kThreads)
       const int b = b0 + vb;
       int u, v;
       float depth, cz;
-      if (!project_uv(m + 16 * vb, x, y, z, jx, jy, h, w, &u, &v, &depth,
-                      &cz)) {
-        continue;
-      }
+      const bool valid = project_uv(m + 16 * vb, x, y, z, jx, jy, h, w, &u,
+                                    &v, &depth, &cz);
+      if (MODE == kQuant) depth0[(size_t)b * n + i] = valid ? depth : 0.0f;
+      if (!valid) continue;
       const int k = splat_reach(s, base, cz);
       const int y0 = max(v - k, 0), y1 = min(v + k, h - 1);
       const int x0 = max(u - k, 0), x1 = min(u + k, w - 1);
-      if (EXACT) {
-        const unsigned long long key = exact_key(depth, i);
+      if (MODE != kPacked) {
+        const unsigned long long key = MODE == kExact
+                                           ? exact_key(depth, i)
+                                           : quant_key(depth, qmax, i);
         unsigned long long* row = (unsigned long long*)keys + b * npx;
         for (int yy = y0; yy <= y1; ++yy) {
           for (int xx = x0; xx <= x1; ++xx) {
@@ -355,24 +391,27 @@ __global__ void __launch_bounds__(kThreads)
 
 // The pass's arguments that do not change from block to block.
 struct PyramidArgs {
-  const void* keys;     // [B, h*w]: uint64 (EXACT_IN) or uint32
+  const void* keys;     // [B, h*w]: uint32 (kPacked) or uint64
   const float* xyz;     // K1: the winners' projection
   const float* mats;
-  int nviews, h, w, levels, tile_h, tile_w, idb, qmax;
+  const float* depth0;  // kQuant: [B, n] each point's depth
+  int n, nviews, h, w, levels, tile_h, tile_w, idb, qmax;
   int* index;           // level after level, each [B, h_l, w_l]
   float* depth;         // the same layout
 };
 
 // Level 0 of one (view, tile): VEC keys a thread-load, their (index,
 // depth) written out and their pooling keys put in pool0 (pitch tile_w).
-// MAX_EMPTY: an exact key at or above INT64_MAX is empty (the keys of
-// zbuffer_pool_keys), not only ~0; no real key comes near either.
-template <bool EXACT_IN, bool EXACT_POOL, int VEC, typename PoolKey,
+// MODE: the key buffer's (KeyMode). MAX_EMPTY: an exact key at or above
+// INT64_MAX is empty (the keys of zbuffer_pool_keys), not only ~0; no real
+// key comes near either.
+template <int MODE, bool EXACT_POOL, int VEC, typename PoolKey,
           bool MAX_EMPTY = false>
 __device__ __forceinline__ void level0(const PyramidArgs& a, const float* m,
                                        int b, int y0, int x0, int rows,
                                        int cols, PoolKey* pool0) {
-  using InKey = typename std::conditional<EXACT_IN, unsigned long long,
+  using InKey = typename std::conditional<MODE != kPacked,
+                                          unsigned long long,
                                           unsigned>::type;
   const InKey* keys = (const InKey*)a.keys;
   const int vrow = cols / VEC;
@@ -400,12 +439,18 @@ __device__ __forceinline__ void level0(const PyramidArgs& a, const float* m,
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
       PoolKey pk;
-      if constexpr (EXACT_IN) {
+      if constexpr (MODE != kPacked) {
         const bool empty = MAX_EMPTY ? k[j] >= kEmptyMax64 : k[j] == kEmpty64;
         ix[j] = empty ? -1 : (int)(unsigned)(k[j] & 0xffffffffull);
-        dp[j] = empty ? 0.0f : __uint_as_float((unsigned)(k[j] >> 32));
-        if constexpr (EXACT_POOL) {
+        if constexpr (MODE == kExact) {
+          dp[j] = empty ? 0.0f : __uint_as_float((unsigned)(k[j] >> 32));
+        } else {
+          dp[j] = empty ? 0.0f : a.depth0[(size_t)b * a.n + ix[j]];
+        }
+        if constexpr (EXACT_POOL && MODE == kExact) {
           pk = k[j];
+        } else if constexpr (EXACT_POOL) {
+          pk = empty ? kEmpty64 : exact_key(dp[j], ix[j]);
         } else {
           pk = empty ? kEmpty32
                      : (depth_bin(dp[j], a.qmax) << a.idb) | (unsigned)ix[j];
@@ -445,8 +490,8 @@ __device__ __forceinline__ void level0(const PyramidArgs& a, const float* m,
 
 // One block per (tile of level 0, view): grid (tiles across, tiles down,
 // B). Dynamic shared memory: tile_h * tile_w * 5/4 pooling keys when
-// levels > 1. MAX_EMPTY as level0's.
-template <bool EXACT_IN, bool EXACT_POOL, bool MAX_EMPTY = false>
+// levels > 1. MODE and MAX_EMPTY as level0's.
+template <int MODE, bool EXACT_POOL, bool MAX_EMPTY = false>
 __global__ void __launch_bounds__(kThreads)
     pyramid_kernel(const PyramidArgs a, int vec) {
   using PoolKey = typename std::conditional<EXACT_POOL, unsigned long long,
@@ -457,7 +502,7 @@ __global__ void __launch_bounds__(kThreads)
   const int y0 = blockIdx.y * a.tile_h, x0 = blockIdx.x * a.tile_w;
   // h, w and the tile are multiples of 2^(levels-1): so are rows, cols
   const int rows = min(a.tile_h, a.h - y0), cols = min(a.tile_w, a.w - x0);
-  if (!EXACT_IN) {
+  if (MODE == kPacked) {
     if (threadIdx.x < 16) m[threadIdx.x] = a.mats[16 * b + threadIdx.x];
     __syncthreads();
   }
@@ -465,11 +510,11 @@ __global__ void __launch_bounds__(kThreads)
                       (PoolKey*)smem + a.tile_h * a.tile_w};
   PoolKey* pool0 = a.levels > 1 ? pool[0] : nullptr;
   if (vec) {
-    level0<EXACT_IN, EXACT_POOL, EXACT_IN ? 2 : 4, PoolKey, MAX_EMPTY>(
+    level0<MODE, EXACT_POOL, MODE == kPacked ? 4 : 2, PoolKey, MAX_EMPTY>(
         a, m, b, y0, x0, rows, cols, pool0);
   } else {
-    level0<EXACT_IN, EXACT_POOL, 1, PoolKey, MAX_EMPTY>(a, m, b, y0, x0,
-                                                        rows, cols, pool0);
+    level0<MODE, EXACT_POOL, 1, PoolKey, MAX_EMPTY>(a, m, b, y0, x0, rows,
+                                                    cols, pool0);
   }
   long long off = 0;   // level l's first pixel in index / depth
   int hl = a.h, wl = a.w;
@@ -508,12 +553,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool EXACT_IN, bool EXACT_POOL, bool MAX_EMPTY = false>
+template <int MODE, bool EXACT_POOL, bool MAX_EMPTY = false>
 cudaError_t launch_pyramid(const PyramidArgs& a, cudaStream_t s) {
   const size_t key = EXACT_POOL ? 8 : 4;
   const size_t smem =
       a.levels > 1 ? key * a.tile_h * a.tile_w * 5 / 4 : 0;
-  auto kernel = pyramid_kernel<EXACT_IN, EXACT_POOL, MAX_EMPTY>;
+  auto kernel = pyramid_kernel<MODE, EXACT_POOL, MAX_EMPTY>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -521,33 +566,42 @@ cudaError_t launch_pyramid(const PyramidArgs& a, cudaStream_t s) {
   }
   // 16-byte rows: every row of the key buffer and of level 0 starts on a
   // multiple of the vector when w is one (the wrapper aligns the bases)
-  const int vec = a.w % (EXACT_IN ? 2 : 4) == 0;
+  const int vec = a.w % (MODE == kPacked ? 4 : 2) == 0;
   const dim3 grid((a.w + a.tile_w - 1) / a.tile_w,
                   (a.h + a.tile_h - 1) / a.tile_h, a.nviews);
   kernel<<<grid, kThreads, smem, s>>>(a, vec);
   return cudaGetLastError();
 }
 
-cudaError_t pyramid(const PyramidArgs& a, bool exact_in, bool exact_pool,
+cudaError_t pyramid(const PyramidArgs& a, int mode, bool exact_pool,
                     cudaStream_t s) {
-  if (exact_in) {
-    return exact_pool ? launch_pyramid<true, true>(a, s)
-                      : launch_pyramid<true, false>(a, s);
+  if (mode == kExact) {
+    return exact_pool ? launch_pyramid<kExact, true>(a, s)
+                      : launch_pyramid<kExact, false>(a, s);
   }
-  return exact_pool ? launch_pyramid<false, true>(a, s)
-                    : launch_pyramid<false, false>(a, s);
+  if (mode == kQuant) {
+    return exact_pool ? launch_pyramid<kQuant, true>(a, s)
+                      : launch_pyramid<kQuant, false>(a, s);
+  }
+  return exact_pool ? launch_pyramid<kPacked, true>(a, s)
+                    : launch_pyramid<kPacked, false>(a, s);
 }
 
-cudaError_t project(bool exact, const float* xyz, const float* jitter,
+// The projection in key mode `mode`; qmax is K1's (kPacked) or the bins'
+// qq (kQuant).
+cudaError_t project(int mode, const float* xyz, const float* jitter,
                     const float* mats, int n, int b, int h, int w, int idb,
                     int qmax, void* keys, float* depth0, cudaStream_t s) {
   if (n <= 0 || b <= 0) return cudaGetLastError();
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  if (exact) {
-    project_kernel<true><<<blocks, kThreads, 0, s>>>(
+  if (mode == kExact) {
+    project_kernel<kExact><<<blocks, kThreads, 0, s>>>(
         xyz, jitter, mats, n, b, h, w, 0, 0, keys, nullptr);
+  } else if (mode == kQuant) {
+    project_kernel<kQuant><<<blocks, kThreads, 0, s>>>(
+        xyz, jitter, mats, n, b, h, w, 0, qmax, keys, depth0);
   } else {
-    project_kernel<false><<<blocks, kThreads, 0, s>>>(
+    project_kernel<kPacked><<<blocks, kThreads, 0, s>>>(
         xyz, jitter, mats, n, b, h, w, idb, qmax, keys, depth0);
   }
   return cudaGetLastError();
@@ -585,20 +639,23 @@ extern "C" int zbuffer_project(const float* xyz, const float* mats, int n,
                                int b, int h, int w, int idb, int qmax,
                                int* buf, float* depth0, const float* jitter,
                                void* stream) {
-  return (int)project(false, xyz, jitter, mats, n, b, h, w, idb, qmax, buf,
-                      depth0, (cudaStream_t)stream);
+  return (int)project(kPacked, xyz, jitter, mats, n, b, h, w, idb, qmax,
+                      buf, depth0, (cudaStream_t)stream);
 }
 
 namespace {
 
 PyramidArgs pyramid_args(const void* keys, const float* xyz,
-                         const float* mats, int b, int h, int w, int levels,
-                         int idb, int qmax, int* index, float* depth) {
+                         const float* mats, const float* depth0, int n,
+                         int b, int h, int w, int levels, int idb, int qmax,
+                         int* index, float* depth) {
   const int span = 1 << (levels - 1);
   PyramidArgs a;
   a.keys = keys;
   a.xyz = xyz;
   a.mats = mats;
+  a.depth0 = depth0;
+  a.n = n;
   a.nviews = b;
   a.h = h;
   a.w = w;
@@ -612,35 +669,54 @@ PyramidArgs pyramid_args(const void* keys, const float* xyz,
   return a;
 }
 
-// The fill, the projection (K1 or K5; the splat projection where splat
-// is not null) and the pyramid pass, on one stream.
+// The fill, the projection in key mode `mode` (the splat projection where
+// splat is not null) and the pyramid pass, on one stream. idb and qmax:
+// K1's key or the packed pool's; qq: kQuant's bins; depth0 [B, n]: kQuant's
+// point depths.
 int fill_project_pyramid(const float* xyz, const float* mats, int n, int b,
-                         int h, int w, int levels, int exact_in,
-                         int exact_pool, int idb, int qmax, void* keys,
-                         int* index, float* depth, const float* jitter,
+                         int h, int w, int levels, int mode, int exact_pool,
+                         int idb, int qmax, int qq, void* keys, int* index,
+                         float* depth, float* depth0, const float* jitter,
                          const SplatArgs* splat, cudaStream_t s) {
   const long long npx = (long long)b * h * w;
   if (npx <= 0) return (int)cudaGetLastError();
-  cudaError_t err = cudaMemsetAsync(keys, 0xff, npx * (exact_in ? 8 : 4), s);
+  cudaError_t err =
+      cudaMemsetAsync(keys, 0xff, npx * (mode == kPacked ? 4 : 8), s);
   if (err != cudaSuccess) return (int)err;
+  const int kq = mode == kQuant ? qq : qmax;   // the projection's bins
   if (splat == nullptr) {
-    err = project(exact_in, xyz, jitter, mats, n, b, h, w, idb, qmax, keys,
-                  nullptr, s);
+    err = project(mode, xyz, jitter, mats, n, b, h, w, idb, kq, keys,
+                  mode == kQuant ? depth0 : nullptr, s);
   } else if (n > 0) {
     const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-    if (exact_in) {
-      splat_kernel<true><<<blocks, kThreads, 0, s>>>(
-          xyz, jitter, mats, n, b, h, w, 0, 0, keys, *splat);
+    if (mode == kExact) {
+      splat_kernel<kExact><<<blocks, kThreads, 0, s>>>(
+          xyz, jitter, mats, n, b, h, w, 0, 0, keys, nullptr, *splat);
+    } else if (mode == kQuant) {
+      splat_kernel<kQuant><<<blocks, kThreads, 0, s>>>(
+          xyz, jitter, mats, n, b, h, w, 0, qq, keys, depth0, *splat);
     } else {
-      splat_kernel<false><<<blocks, kThreads, 0, s>>>(
-          xyz, jitter, mats, n, b, h, w, idb, qmax, keys, *splat);
+      splat_kernel<kPacked><<<blocks, kThreads, 0, s>>>(
+          xyz, jitter, mats, n, b, h, w, idb, qmax, keys, nullptr, *splat);
     }
     err = cudaGetLastError();
   }
   if (err != cudaSuccess) return (int)err;
-  return (int)pyramid(pyramid_args(keys, xyz, mats, b, h, w, levels, idb,
-                                   qmax, index, depth),
-                      exact_in, exact_pool, s);
+  return (int)pyramid(pyramid_args(keys, xyz, mats, depth0, n, b, h, w,
+                                   levels, idb, qmax, index, depth),
+                      mode, exact_pool, s);
+}
+
+SplatArgs splat_args(const float* sizes, int radius, int relative,
+                     float min_size, const float* thr) {
+  SplatArgs sp;
+  sp.sizes = sizes;
+  sp.radius = radius;
+  sp.varying = sizes != nullptr || relative != 0;
+  sp.relative = relative;
+  sp.min_size = min_size;
+  for (int k = 0; k <= kMaxRadius; ++k) sp.thr[k] = k <= radius ? thr[k] : 0;
+  return sp;
 }
 
 }  // namespace
@@ -659,9 +735,10 @@ extern "C" int zbuffer_pyramid(const float* xyz, const float* mats, int n,
                                int qmax, void* keys, int* index,
                                float* depth, const float* jitter,
                                void* stream) {
-  return fill_project_pyramid(xyz, mats, n, b, h, w, levels, exact_in,
-                              exact_pool, idb, qmax, keys, index, depth,
-                              jitter, nullptr, (cudaStream_t)stream);
+  return fill_project_pyramid(xyz, mats, n, b, h, w, levels,
+                              exact_in ? kExact : kPacked, exact_pool, idb,
+                              qmax, 0, keys, index, depth, nullptr, jitter,
+                              nullptr, (cudaStream_t)stream);
 }
 
 // K6 on its user path: zbuffer_pyramid's contract with the splat
@@ -678,16 +755,42 @@ extern "C" int zbuffer_splat_pyramid(const float* xyz, const float* mats,
                                      int relative, float min_size,
                                      const float* thr, void* stream) {
   if (radius < 1 || radius > kMaxRadius) return (int)cudaErrorInvalidValue;
-  SplatArgs sp;
-  sp.sizes = sizes;
-  sp.radius = radius;
-  sp.varying = sizes != nullptr || relative != 0;
-  sp.relative = relative;
-  sp.min_size = min_size;
-  for (int k = 0; k <= kMaxRadius; ++k) sp.thr[k] = k <= radius ? thr[k] : 0;
-  return fill_project_pyramid(xyz, mats, n, b, h, w, levels, exact_in,
-                              exact_pool, idb, qmax, keys, index, depth,
-                              jitter, &sp, (cudaStream_t)stream);
+  const SplatArgs sp = splat_args(sizes, radius, relative, min_size, thr);
+  return fill_project_pyramid(xyz, mats, n, b, h, w, levels,
+                              exact_in ? kExact : kPacked, exact_pool, idb,
+                              qmax, 0, keys, index, depth, nullptr, jitter,
+                              &sp, (cudaStream_t)stream);
+}
+
+// sort1q: zbuffer_pyramid's contract with the quantized key (q << 32) | id
+// in place of K1's or K5's, qq = 2^db - 1 its bins, keys [B, h*w] uint64
+// scratch and depth0 [B, n] float32 scratch (each point's depth, 0 where it
+// is invalid, which level 0 gathers by the winner's id). exact_pool, idb
+// and qmax: the pool's, as zbuffer_pyramid's. Returns the first CUDA error.
+extern "C" int zbuffer_quant_pyramid(const float* xyz, const float* mats,
+                                     int n, int b, int h, int w, int levels,
+                                     int exact_pool, int idb, int qmax,
+                                     int qq, void* keys, int* index,
+                                     float* depth, float* depth0,
+                                     const float* jitter, void* stream) {
+  return fill_project_pyramid(xyz, mats, n, b, h, w, levels, kQuant,
+                              exact_pool, idb, qmax, qq, keys, index, depth,
+                              depth0, jitter, nullptr, (cudaStream_t)stream);
+}
+
+// sort1q with splats: zbuffer_quant_pyramid's contract with the splat
+// projection, its splat arguments as zbuffer_splat_pyramid's.
+extern "C" int zbuffer_quant_splat_pyramid(
+    const float* xyz, const float* mats, int n, int b, int h, int w,
+    int levels, int exact_pool, int idb, int qmax, int qq, void* keys,
+    int* index, float* depth, float* depth0, const float* jitter,
+    const float* sizes, int radius, int relative, float min_size,
+    const float* thr, void* stream) {
+  if (radius < 1 || radius > kMaxRadius) return (int)cudaErrorInvalidValue;
+  const SplatArgs sp = splat_args(sizes, radius, relative, min_size, thr);
+  return fill_project_pyramid(xyz, mats, n, b, h, w, levels, kQuant,
+                              exact_pool, idb, qmax, qq, keys, index, depth,
+                              depth0, jitter, &sp, (cudaStream_t)stream);
 }
 
 // The pyramid pass alone, on an exact key buffer the caller made: keys
@@ -701,8 +804,8 @@ extern "C" int zbuffer_pool_keys(const void* keys, int b, int h, int w,
                                  int levels, int* index, float* depth,
                                  void* stream) {
   if ((long long)b * h * w <= 0) return (int)cudaGetLastError();
-  return (int)launch_pyramid<true, true, true>(
-      pyramid_args(keys, nullptr, nullptr, b, h, w, levels, 0, 0, index,
-                   depth),
+  return (int)launch_pyramid<kExact, true, true>(
+      pyramid_args(keys, nullptr, nullptr, nullptr, 0, b, h, w, levels, 0, 0,
+                   index, depth),
       (cudaStream_t)stream);
 }

@@ -6,8 +6,9 @@ twin, a library yardstick and its bound, on the card.
 The counterpart of the JAX package's kernel benches, one group each:
 
 - ``zbuffer`` (``scripts/bench_r4_probe.py`` ``probe_pzb2``): K1 (fused
-  projection), K5 and K6 (on the frame's packed keys, and on keys with
-  every position 4 times: heavy ties), 1M points, 1216x368, B=1 and 2;
+  projection), K5, the quantized key of 'sort1q' (``zbuffer_quant``) and
+  K6 (on the frame's packed keys, and on keys with every position 4
+  times: heavy ties), 1M points, 1216x368, B=1 and 2;
   the pyramid (K1 or K5 and the pass); and K6 on its user path, the
   splat projection and the pass (``zbuffer_splat``) at
   :func:`splat_cases`, beside ``scatter_reduce_`` amin over the
@@ -324,14 +325,15 @@ def zbuffer_yardsticks(xyz, ms, hw, jitter=None):
     ``jitter [N, 2]`` where given): K6's inputs (int32 pixel ids and the
     frame's packed keys, ``[B, N]``), and for each z-buffer ``(library
     call, flops, bytes)``: ``scatter_reduce_`` amin of the same keys into
-    a buffer with a dump slot, the projection's flops (K1, K5; two adds
-    more a view and point with the jitter) and the bytes read and written
-    once (the jitter's 8 a point)."""
+    a buffer with a dump slot, the projection's flops (K1, K5, the
+    quantized key; two adds more a view and point with the jitter) and
+    the bytes read and written once (the jitter's 8 a point)."""
     b, n, npx = ms.shape[0], xyz.shape[0], hw[0] * hw[1]
     pix, depth, _, _ = RK._projected(xyz, ms, *hw, jitter)
     ids = torch.arange(n, dtype=torch.int32, device=xyz.device).expand(b, n)
     key = RK.pack_keys(pix, depth, ids, npx, n)[0].contiguous()
     key64 = RK.pack_exact_keys(pix, depth, ids, npx)
+    keyq = RK.pack_quant_keys(pix, depth, ids, npx, RK.quant_bits(npx)[1])
     dump = pix.clamp(max=npx).long()
     buf32 = torch.full((b, npx + 1), RK.INT32_MAX, dtype=torch.int32,
                        device=xyz.device)
@@ -345,14 +347,18 @@ def zbuffer_yardsticks(xyz, ms, hw, jitter=None):
         "zbuffer_exact": (lambda: buf64.scatter_reduce_(-1, dump, key64,
                                                         "amin"),
                           proj, 12 * n + extra + 64 * b + 8 * b * npx),
+        "zbuffer_quant": (lambda: buf64.scatter_reduce_(-1, dump, keyq,
+                                                        "amin"),
+                          proj, 12 * n + extra + 64 * b + 8 * b * npx),
         "zbuffer_keys": (lambda: buf32.scatter_reduce_(-1, dump, key,
                                                        "amin"),
                          0.0, 8 * b * n + 4 * b * npx)}
 
 
 def zbuffer_rows(dev) -> List[Row]:
-    """K1, K5 and K6 at the serving frame's shapes and the training
-    step's, each also in a CUDA graph; then the pyramid rows."""
+    """K1, K5, the quantized key and K6 at the serving frame's shapes and
+    the training step's, each also in a CUDA graph; then the pyramid
+    rows."""
     rows = []
     cases = []
     for b in (1, 2):
@@ -375,6 +381,10 @@ def zbuffer_rows(dev) -> List[Row]:
             "zbuffer_exact": (
                 lambda xyz=xyz, ms=ms, hw=hw: RK.zbuffer_exact(xyz, ms, *hw),
                 lambda xyz=xyz, ms=ms, hw=hw: RK.zbuffer_exact_plain(
+                    xyz, ms, *hw)),
+            "zbuffer_quant": (
+                lambda xyz=xyz, ms=ms, hw=hw: RK.zbuffer_quant(xyz, ms, *hw),
+                lambda xyz=xyz, ms=ms, hw=hw: RK.zbuffer_quant_plain(
                     xyz, ms, *hw)),
             "zbuffer_keys": (lambda p=pix, k=key, n=npx: RK.zbuffer_keys(
                                  p, k, n),

@@ -2,9 +2,13 @@
 
 Counterpart of ``read_tpu/ops/rasterize.py``: ``project_points``
 (:81-120), ``_pixel_ids`` (:123-131), ``rasterize_batch`` for
-``method='sort'`` (:497-515, ``_zbuffer_sort`` :153-177: here K5) and
-``method in ('pallas', 'scatter1')`` (:516-545, ``_zbuffer_scatter1``
-:244-284: here K1), with splats and per-point or z-scaled sizes
+``method in ('sort', 'sort2', 'scatter')`` (:497-515, ``_zbuffer_sort``
+:153-177, ``_zbuffer_sort2`` :180-201, ``_zbuffer`` :134-150 and the
+splat's two scatter-mins :394-401, one function: here K5), for
+``method='sort1q'`` (``_zbuffer_sort1q`` :204-241: here the quantized key
+of the projection, the splat and the pass) and for ``method in
+('pallas', 'scatter1')`` (:516-545, ``_zbuffer_scatter1`` :244-284: here
+K1), with splats and per-point or z-scaled sizes
 (``rasterize`` :346-401, ``_rasterize_batch_pallas_splat`` :404-463:
 here K6's splat projection), and ``rasterize_pyramid_pooled``
 (:637-669) with its pools ``_pool2x2_zbuffer`` (:574-599) and
@@ -13,24 +17,28 @@ here K6's splat projection), and ``rasterize_pyramid_pooled``
 Both entry points run :func:`read_tpu_torch.ops.rasterize_kernels.
 zbuffer_pyramid` (``point_radius`` 0) or :func:`~read_tpu_torch.ops.
 rasterize_kernels.zbuffer_splat` (``point_radius`` > 0): on the card K1,
-K5 or the splat projection and one pass that writes every level
-(``rasterize_batch`` is the one-level case); on the CPU their plain
-twins. With ``point_radius`` 0 JAX's offsets are ``(0, 0)`` alone, so
-per-point and z-scaled sizes change nothing and K1 or K5 runs. The pass
+K5, the quantized key or the splat projection and one pass that writes
+every level (``rasterize_batch`` is the one-level case); on the CPU their
+plain twins. With ``point_radius`` 0 JAX's offsets are ``(0, 0)`` alone,
+so per-point and z-scaled sizes change nothing and the projection runs.
+The pass
 pools each level as the 2x2 minimum of one key, which is
 ``_pool2x2_zbuffer``'s pair pool for the exact 64-bit key; that pair
 pool stays here as the reference the tests and the kernel bench hold it
-to. Semantics are the JAX package's, bit for bit: 'sort' keeps per pixel
-the least depth, ties to the least id; 'pallas'/'scatter1' the min
-packed key, ties within one depth bin broken by the least id, the
-winner's depth exact; empty pixels are -1 with depth 0. Supersampling
+to. Semantics are the JAX package's, bit for bit: 'sort', 'sort2' and
+'scatter' keep per pixel the least depth, ties to the least id;
+'sort1q' the least (depth bin, id) with ``rasterize_kernels.quant_bits``'
+bins of the frame, 'pallas'/'scatter1' the min packed key, each with
+ties within one depth bin broken by the least id and the winner's depth
+exact; empty pixels are -1 with depth 0. One difference is on purpose:
+JAX's 'sort1q' splat reads its winner's depth from the expanded
+array's first offset copy, 2.0 where that copy missed the frame or the
+point's size; here it is the winner's own depth. Supersampling
 needs nothing here: the pipeline and the renderer rasterize at ``ss``
 times the size. Screen-space point jitter (``ndc_jitter [N, 2]``, from
 :mod:`read_tpu_torch.ops.augment`) goes to the kernels, which add it to
 each point's NDC x and y after the clip test and before the floor, one
-offset a point for every view, as ``rasterize.py:328-331`` does. The
-bench-only methods ('sort2', 'sort1q', 'scatter') raise
-``NotImplementedError`` instead of switching to other semantics.
+offset a point for every view, as ``rasterize.py:328-331`` does.
 """
 
 from __future__ import annotations
@@ -47,22 +55,19 @@ __all__ = ["RASTER_METHODS", "project_points", "rasterize_batch",
 # Sentinel depth for invalid points; any real NDC depth lies in [0, 1].
 _FAR = 2.0
 
-# Every name ``read_tpu`` accepts (``rasterize.py:60-61``); the exact
-# 'sort' (K5) and the packed-key methods (K1) run here.
+# Every name ``read_tpu`` accepts (``rasterize.py:60-61``) and the
+# z-buffer of ``rasterize_kernels`` that computes it: the exact methods
+# K5, the packed-key ones K1
 RASTER_METHODS = ("sort", "sort2", "sort1q", "scatter", "scatter1",
                   "pallas")
-PORTED_METHODS = ("sort", "pallas", "scatter1")
+_ZBUFFER = {"sort": "sort", "sort2": "sort", "scatter": "sort",
+            "sort1q": "sort1q", "scatter1": "pallas", "pallas": "pallas"}
 
 
 def _check_method(method: str) -> None:
     if method not in RASTER_METHODS:
         raise ValueError(f"unknown raster method {method!r}; expected one "
                          f"of {RASTER_METHODS}")
-    if method not in PORTED_METHODS:
-        raise NotImplementedError(
-            f"raster method {method!r} is not ported: read_tpu_torch runs "
-            f"{PORTED_METHODS} ('sort2', 'sort1q' and 'scatter' are bench "
-            "alternates, ROADMAP 'Not ported')")
 
 
 def project_points(xyz: torch.Tensor, total_m: torch.Tensor,
@@ -102,16 +107,15 @@ def _pixel_ids(ndc: torch.Tensor, valid: torch.Tensor, h: int, w: int):
     return pix, depth
 
 
-
-
 def rasterize_batch(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
                     w: int, point_radius: int = 0, method: str = "sort",
                     ndc_jitter=None, point_sizes=None,
                     relative_size: bool = False,
                     min_point_size: float = 1.0):
     """``total_m [B, 4, 4]`` -> ``(index [B, h, w] int32, depth [B, h, w]
-    float32)``: 'sort' (the default) through K5, 'pallas' or 'scatter1'
-    through K1; with ``point_radius`` r > 0 each point covers the
+    float32)``: 'sort' (the default), 'sort2' and 'scatter' through K5,
+    'sort1q' through the quantized key, 'pallas' or 'scatter1' through
+    K1; with ``point_radius`` r > 0 each point covers the
     ``(2r+1)^2`` square around its pixel (per-point ``point_sizes [N]``
     or ``relative_size`` sizes, floored at ``min_point_size``, capped at
     ``2r+1``; JAX's coverage rule) through the splat projection.
@@ -152,8 +156,9 @@ def rasterize_pyramid_pooled(xyz: torch.Tensor, total_m: torch.Tensor,
     'exact' pools the (depth, id) pair, 'packed' one packed key. Splats
     (``point_radius`` > 0, see :func:`rasterize_batch`) cover level 0
     only; the coarser levels pool it. ``ndc_jitter [N, 2]`` as in
-    :func:`rasterize_batch`. On the card: K1, K5 or the splat projection
-    and one pyramid pass, no plain-PyTorch pool."""
+    :func:`rasterize_batch`. On the card: the projection (K1, K5 or the
+    quantized key) or the splat projection and one pyramid pass, no
+    plain-PyTorch pool."""
     _check_method(method)
     if point_radius < 0:
         raise ValueError(f"point_radius {point_radius} < 0")
@@ -164,8 +169,7 @@ def rasterize_pyramid_pooled(xyz: torch.Tensor, total_m: torch.Tensor,
     if ndc_jitter is not None:
         ndc_jitter = ndc_jitter.to(device=xyz.device, dtype=torch.float32
                                    ).contiguous()
-    # 'sort' is K5's exact key, 'pallas' and 'scatter1' K1's packed key
-    zmethod = "sort" if method == "sort" else "pallas"
+    zmethod = _ZBUFFER[method]
     if point_radius == 0:
         return RK.zbuffer_pyramid(xyz, total_m, h0, w0, num_scales, zmethod,
                                   pool_impl, jitter=ndc_jitter)

@@ -27,6 +27,20 @@ buffer the caller made: the multi-device z-merge
 (:mod:`read_tpu_torch.parallel.sharded`) hands it the keys that a MIN
 all-reduce merged over the points shards.
 
+The quantized key of ``method='sort1q'`` (``rasterize.py``
+``_zbuffer_sort1q`` :204-241, which JAX runs one view at a time): per
+pixel the least ``(q, id)``, ``q = clip(round(depth * qq), 0, qq)``
+rounded half to even, ``qq = 2^db - 1``, ``db`` the most bits with
+``(h*w + 2) << db < 2^31`` (:func:`quant_bits`; 12 at 1216x368, 14 at
+256x256). Depths within one bin tie to the least id; the winner's depth
+is exact, its point's depth. On the card it is a third key mode of the
+projection, of the splat projection and of the pass: the 64-bit key
+``(q << 32) | id`` (:func:`pack_quant_keys`) and each point's depth,
+which level 0 gathers by the winner's id (:func:`zbuffer_quant`). A
+splat's winner depth is its point's depth; JAX's splat re-gathers the
+expanded array's first offset copy, 2.0 where that copy missed the
+frame, which this module does not copy.
+
 K6, the packed int32 key on keys the caller made: counterpart of
 ``rasterize_pallas.py`` ``zbuffer_pallas3`` / ``_kernel3`` (:234-292)
 and of ``zbuffer_pallas2``'s contract on given keys: K1 without the
@@ -47,14 +61,15 @@ a point for every view, added to the NDC x and y after the clip test and
 before the floor; the depth carries none. Every wrapper and twin takes it
 as ``jitter`` (None: no jitter).
 
-:func:`zbuffer`, :func:`zbuffer_exact`, :func:`zbuffer_pyramid`,
-:func:`zbuffer_splat` and :func:`zbuffer_keys` are the wrappers: a CPU
-tensor goes to the plain twin, a CUDA tensor to the kernel, anything
-else raises. ``launches[<name>]`` counts kernel launches: ``zbuffer``
-and ``zbuffer_exact`` a projection (K1, K5), ``zbuffer_splat`` a splat
-projection, each with ``_jitter`` appended where it ran with a jitter
-(and then only there), ``zbuffer_pyramid`` a pass, ``zbuffer_pool`` a
-pass on given keys.
+:func:`zbuffer`, :func:`zbuffer_exact`, :func:`zbuffer_quant`,
+:func:`zbuffer_pyramid`, :func:`zbuffer_splat` and :func:`zbuffer_keys`
+are the wrappers: a CPU tensor goes to the plain twin, a CUDA tensor to
+the kernel, anything else raises. ``launches[<name>]`` counts kernel
+launches: ``zbuffer``, ``zbuffer_exact`` and ``zbuffer_quant`` a
+projection (K1, K5, the quantized key), ``zbuffer_splat`` a splat
+projection (any key), each with ``_jitter`` appended where it ran with a
+jitter (and then only there), ``zbuffer_pyramid`` a pass,
+``zbuffer_pool`` a pass on given keys.
 """
 
 from __future__ import annotations
@@ -66,11 +81,12 @@ import torch
 
 from read_tpu_torch import _build
 
-__all__ = ["INT32_MAX", "INT64_MAX", "MAX_LEVELS", "key_bits",
-           "pack_keys", "pack_exact_keys", "exact_keys", "unpack_exact",
-           "unpack_packed",
+__all__ = ["INT32_MAX", "INT64_MAX", "MAX_LEVELS", "METHODS", "key_bits",
+           "quant_bits", "pack_keys", "pack_exact_keys", "pack_quant_keys",
+           "exact_keys", "unpack_exact", "unpack_packed",
            "scatter_min", "pool_pyramid_plain", "zbuffer", "zbuffer_plain",
-           "zbuffer_exact", "zbuffer_exact_plain", "zbuffer_pyramid",
+           "zbuffer_exact", "zbuffer_exact_plain", "zbuffer_quant",
+           "zbuffer_quant_plain", "zbuffer_pyramid",
            "zbuffer_pyramid_plain", "zbuffer_pool", "zbuffer_pool_plain",
            "MAX_SPLAT_RADIUS", "splat_expand",
            "splat_keys", "zbuffer_splat", "zbuffer_splat_plain",
@@ -82,6 +98,9 @@ INT64_MAX = 2 ** 63 - 1
 # 128 pixels of level 0, the largest tile whose keys fit a block's shared
 # memory
 MAX_LEVELS = 8
+# the pyramid's z-buffers by key: K1's packed key, K5's exact key, the
+# quantized key (zbuffer.cu KeyMode)
+METHODS = {"pallas": 0, "sort": 1, "sort1q": 2}
 # the splat projection's largest half-width (zbuffer.cu kMaxRadius)
 MAX_SPLAT_RADIUS = 16
 # JAX's coverage thresholds, ``max(|dy|, |dx|) - 1e-4`` rounded once to
@@ -89,10 +108,14 @@ MAX_SPLAT_RADIUS = 16
 _SPLAT_THR = [float(np.float32(k - 1e-4)) for k in range(MAX_SPLAT_RADIUS + 1)]
 
 # kernel launches (a CPU call runs the twin and counts nothing)
-launches = {"zbuffer": 0, "zbuffer_exact": 0, "zbuffer_keys": 0,
-            "zbuffer_pyramid": 0, "zbuffer_splat": 0, "zbuffer_jitter": 0,
-            "zbuffer_exact_jitter": 0, "zbuffer_splat_jitter": 0,
+launches = {"zbuffer": 0, "zbuffer_exact": 0, "zbuffer_quant": 0,
+            "zbuffer_keys": 0, "zbuffer_pyramid": 0, "zbuffer_splat": 0,
+            "zbuffer_jitter": 0, "zbuffer_exact_jitter": 0,
+            "zbuffer_quant_jitter": 0, "zbuffer_splat_jitter": 0,
             "zbuffer_pool": 0}
+# the projection counter of each method
+_PROJECTION = {"pallas": "zbuffer", "sort": "zbuffer_exact",
+               "sort1q": "zbuffer_quant"}
 
 
 def _counted(name: str, jitter) -> str:
@@ -112,6 +135,19 @@ def key_bits(n_ids: int):
             f"packed z-buffer: only {db} depth bits for {n_ids} ids; more "
             "than 2^23 points need the exact z-buffer (method 'sort', K5)")
     return idb, (1 << db) - 1
+
+
+def quant_bits(n_pixels: int):
+    """``(db, qq)``: the quantized key's depth bits and largest bin, ``db``
+    the most with ``(n_pixels + 2) << db < 2^31``, ``qq = 2^db - 1``
+    (``_zbuffer_sort1q``'s); fewer than 8 bits raise."""
+    db = 0
+    while (n_pixels + 2) << (db + 1) < 2 ** 31:
+        db += 1
+    if db < 8:
+        raise ValueError(f"sort1q: only {db} depth bits for {n_pixels} "
+                         "pixels; use method='sort'")
+    return db, (1 << db) - 1
 
 
 def pack_keys(pix: torch.Tensor, depth: torch.Tensor, ids: torch.Tensor,
@@ -139,6 +175,18 @@ def pack_exact_keys(pix: torch.Tensor, depth: torch.Tensor,
     return torch.where(pix < n_pixels, key, INT64_MAX)
 
 
+def pack_quant_keys(pix: torch.Tensor, depth: torch.Tensor,
+                    ids: torch.Tensor, n_pixels: int, qq: int) -> torch.Tensor:
+    """The quantized int64 key ``clip(round(depth * qq), 0, qq) << 32 |
+    id`` (float32 product, rounded half to even, then clipped, as JAX
+    computes the bin); points with ``pix >= n_pixels`` get
+    ``INT64_MAX``."""
+    qf = torch.full_like(depth, qq)
+    q = torch.minimum(torch.round(depth * qf).clamp(min=0.0), qf)
+    key = (q.to(torch.int64) << 32) | ids.to(torch.int64)
+    return torch.where(pix < n_pixels, key, INT64_MAX)
+
+
 def exact_keys(index: torch.Tensor, depth: torch.Tensor,
                id_offset: int = 0) -> torch.Tensor:
     """K5's int64 key of a z-buffer's ``(index, depth)`` (-1 = empty):
@@ -160,11 +208,12 @@ def unpack_exact(buf: torch.Tensor):
 
 
 def unpack_packed(buf: torch.Tensor, idb: int, depth_by_id: torch.Tensor):
-    """Min packed-key buffer -> ``(index, depth)``: -1/0 where empty
-    (``INT32_MAX``), else the id bits and the winner's exact depth
-    gathered from ``depth_by_id`` (same leading dims as ``buf``)."""
-    empty = buf == INT32_MAX
-    index = torch.where(empty, -1, buf & ((1 << idb) - 1))
+    """Min packed-key buffer -> ``(index int32, depth)``: -1/0 where empty
+    (the dtype's max: ``INT32_MAX``, or ``INT64_MAX`` for the quantized
+    key, whose id bits are 32), else the id bits and the winner's exact
+    depth gathered from ``depth_by_id`` (same leading dims as ``buf``)."""
+    empty = buf == torch.iinfo(buf.dtype).max
+    index = torch.where(empty, -1, buf & ((1 << idb) - 1)).to(torch.int32)
     depth = torch.gather(depth_by_id, -1, index.clamp(min=0).long())
     return index, torch.where(empty, 0.0, depth)
 
@@ -223,6 +272,20 @@ def zbuffer_exact_plain(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
     return unpack_exact(scatter_min(pix, key, h * w))
 
 
+def zbuffer_quant_plain(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
+                        w: int, jitter=None):
+    """Plain PyTorch twin of :func:`zbuffer_quant` (same contract):
+    :func:`pack_quant_keys`, ``scatter_reduce_`` amin, the winner's depth
+    gathered by id."""
+    b, n = total_m.shape[0], xyz.shape[0]
+    pix, depth, ndc, valid = _projected(xyz, total_m, h, w, jitter)
+    ids = torch.arange(n, dtype=torch.int32, device=xyz.device)
+    key = pack_quant_keys(pix, depth, ids.expand(b, n), h * w,
+                          quant_bits(h * w)[1])
+    depth0 = torch.where(valid, (ndc[..., 2] + 1.0) * 0.5, 0.0)
+    return unpack_packed(scatter_min(pix, key, h * w), 32, depth0)
+
+
 def pool_pyramid_plain(index: torch.Tensor, depth: torch.Tensor,
                        num_scales: int, pool_impl: str, n_ids: int):
     """Level 0 ``(index, depth [B, h, w])`` and ``num_scales - 1`` coarser
@@ -259,10 +322,13 @@ def zbuffer_pyramid_plain(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
                           w: int, num_scales: int, method: str = "sort",
                           pool_impl: str = "exact", jitter=None):
     """Plain PyTorch twin of :func:`zbuffer_pyramid` (same contract):
-    K5's or K1's twin, then :func:`pool_pyramid_plain`."""
+    K5's, the quantized key's or K1's twin, then
+    :func:`pool_pyramid_plain`."""
     b, n = total_m.shape[0], xyz.shape[0]
     if method == "sort":
         index, depth = zbuffer_exact_plain(xyz, total_m, h, w, jitter)
+    elif method == "sort1q":
+        index, depth = zbuffer_quant_plain(xyz, total_m, h, w, jitter)
     else:
         buf, depth0 = zbuffer_plain(xyz, total_m, h, w, jitter)
         index, depth = unpack_packed(buf, key_bits(n)[0], depth0)
@@ -312,11 +378,16 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p]
 _PYRAMID_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 9 \
     + [ctypes.c_void_p] * 5
-# zbuffer_pyramid's, less its stream, then sizes, radius, relative,
+# zbuffer_quant_pyramid's: xyz, mats, 9 ints (exact_pool in exact_in's
+# place, then qq), keys, index, depth, depth0, jitter, stream
+_QUANT_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 9 \
+    + [ctypes.c_void_p] * 6
+# a pyramid entry's, less its stream, then sizes, radius, relative,
 # min_size, the thresholds and the stream
-_SPLAT_ARGTYPES = _PYRAMID_ARGTYPES[:-1] + [
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-    ctypes.POINTER(ctypes.c_float), ctypes.c_void_p]
+_SPLAT_TAIL = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+               ctypes.POINTER(ctypes.c_float), ctypes.c_void_p]
+_SPLAT_ARGTYPES = _PYRAMID_ARGTYPES[:-1] + _SPLAT_TAIL
+_QUANT_SPLAT_ARGTYPES = _QUANT_ARGTYPES[:-1] + _SPLAT_TAIL
 
 
 def zbuffer(xyz: torch.Tensor, total_m: torch.Tensor, h: int, w: int,
@@ -365,6 +436,28 @@ def zbuffer_exact(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
     return index.view(b, h * w), depth.view(b, h * w)
 
 
+def zbuffer_quant(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
+                  w: int, jitter=None):
+    """Project ``xyz [N, 3]`` by ``total_m [B, 4, 4]`` (float32,
+    contiguous) and z-buffer every view at ``h x w`` with the quantized
+    key (``method='sort1q'``): per pixel the least ``(q, id)``, ``q`` the
+    depth's bin of :func:`quant_bits`.
+
+    Returns ``(index [B, h*w] int32, depth [B, h*w] float32)``: the
+    winning point id and its exact depth, -1 and 0 where no point lands.
+    ``jitter [N, 2]``: NDC offsets (see the module's note). On the card:
+    the projection in its quantized mode and a one-level pass."""
+    if xyz.shape[0] >= 2 ** 31:
+        raise ValueError("zbuffer_quant: point ids must fit in 31 bits")
+    quant_bits(h * w)   # raises below 8 depth bits
+    if _on_cpu("zbuffer_quant", xyz, total_m, jitter):
+        return zbuffer_quant_plain(xyz, total_m, h, w, jitter)
+    (index, depth), = _pyramid_launch("zbuffer_quant", xyz, total_m, h, w,
+                                      1, "sort1q", "exact", jitter)
+    b = total_m.shape[0]
+    return index.view(b, h * w), depth.view(b, h * w)
+
+
 def _check_levels(name: str, h: int, w: int, num_scales: int) -> None:
     """The pass's refusals of a level count and size."""
     if not 1 <= num_scales <= MAX_LEVELS:
@@ -379,9 +472,9 @@ def _check_levels(name: str, h: int, w: int, num_scales: int) -> None:
 def _check_pyramid(xyz: torch.Tensor, h: int, w: int, num_scales: int,
                    method: str, pool_impl: str) -> None:
     """The pyramid's refusals, alike on every device."""
-    if method not in ("sort", "pallas"):
+    if method not in METHODS:
         raise ValueError(f"zbuffer_pyramid: method {method!r} is not "
-                         "'sort' (K5) or 'pallas' (K1)")
+                         "'sort' (K5), 'pallas' (K1) or 'sort1q'")
     if pool_impl not in ("exact", "packed"):
         raise ValueError(f"unknown pool_impl {pool_impl!r}")
     _check_levels("zbuffer_pyramid", h, w, num_scales)
@@ -389,35 +482,48 @@ def _check_pyramid(xyz: torch.Tensor, h: int, w: int, num_scales: int,
         raise ValueError("zbuffer_pyramid: point ids must fit in 31 bits")
     if method == "pallas" or pool_impl == "packed":
         key_bits(xyz.shape[0])   # raises above 2^23 ids
+    if method == "sort1q":
+        quant_bits(h * w)        # raises below 8 depth bits
 
 
 def _pyramid_launch(name: str, xyz: torch.Tensor, total_m: torch.Tensor,
                     h: int, w: int, num_scales: int, method: str,
                     pool_impl: str, jitter=None, splat=None):
-    """K1 (``method`` 'pallas') or K5 ('sort') and the pyramid pass on
-    the card: the levels as views of one buffer (every level's index,
-    then every level's depth, then the key scratch, each part 16-byte
+    """K1 (``method`` 'pallas'), K5 ('sort') or the quantized key
+    ('sort1q') and the pyramid pass on the card: the levels as views of
+    one buffer (every level's index, then every level's depth, then the
+    key scratch, then for 'sort1q' each point's depth, each part 16-byte
     aligned). ``splat``: ``(sizes or None, radius, relative, min_size)``
-    runs the splat projection in place of K1 or K5."""
+    runs the splat projection in place of the projection."""
     n, b = xyz.shape[0], total_m.shape[0]
-    exact_in = method == "sort"
-    idb, qmax = (key_bits(n) if not exact_in or pool_impl == "packed"
+    quant = method == "sort1q"
+    idb, qmax = (key_bits(n) if method == "pallas" or pool_impl == "packed"
                  else (0, 0))
+    words = b * h * w * (1 if method == "pallas" else 2)
     buf, part = _level_buffer(b, h, w, num_scales,
-                              b * h * w * (2 if exact_in else 1), xyz.device)
+                              words + (b * n if quant else 0), xyz.device)
     base = buf.data_ptr()
-    args = (xyz.data_ptr(), total_m.data_ptr(), n, b, h, w, num_scales,
-            int(exact_in), int(pool_impl == "exact"), idb, qmax,
-            base + 8 * part, base, base + 4 * part, _ptr(jitter))
+    keys, index, depth = base + 8 * part, base, base + 4 * part
+    exact_pool = int(pool_impl == "exact")
+    if quant:
+        args = (xyz.data_ptr(), total_m.data_ptr(), n, b, h, w, num_scales,
+                exact_pool, idb, qmax, quant_bits(h * w)[1], keys, index,
+                depth, keys + 4 * words, _ptr(jitter))
+        entry, argtypes = "zbuffer_quant_pyramid", _QUANT_ARGTYPES
+    else:
+        args = (xyz.data_ptr(), total_m.data_ptr(), n, b, h, w, num_scales,
+                METHODS[method], exact_pool, idb, qmax, keys, index, depth,
+                _ptr(jitter))
+        entry, argtypes = "zbuffer_pyramid", _PYRAMID_ARGTYPES
     if splat is None:
-        fn = _build.function("zbuffer", "zbuffer_pyramid", _PYRAMID_ARGTYPES)
+        fn = _build.function("zbuffer", entry, argtypes)
         _build.call(fn, xyz.device, name, *args)
-        launches[_counted("zbuffer_exact" if exact_in else "zbuffer",
-                          jitter)] += 1
+        launches[_counted(_PROJECTION[method], jitter)] += 1
     else:
         point_sizes, radius, relative, min_size = splat
-        fn = _build.function("zbuffer", "zbuffer_splat_pyramid",
-                             _SPLAT_ARGTYPES)
+        fn = _build.function(
+            "zbuffer", entry.replace("_pyramid", "_splat_pyramid"),
+            _QUANT_SPLAT_ARGTYPES if quant else _SPLAT_ARGTYPES)
         thr = (ctypes.c_float * (radius + 1))(*_SPLAT_THR[:radius + 1])
         _build.call(fn, xyz.device, name, *args,
                     _ptr(point_sizes),
@@ -503,7 +609,8 @@ def zbuffer_pyramid(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
                     pool_impl: str = "exact", jitter=None):
     """Project ``xyz [N, 3]`` by ``total_m [B, 4, 4]`` (float32,
     contiguous), z-buffer every view at ``h x w`` (``method`` 'sort':
-    K5's exact key; 'pallas': K1's packed key) and pool it to
+    K5's exact key; 'pallas': K1's packed key; 'sort1q': the quantized
+    key, :func:`zbuffer_quant`) and pool it to
     ``num_scales`` levels (``pool_impl`` 'exact': the least (depth, id);
     'packed': the least packed key, coarse depths ``q / qmax``).
 
@@ -511,9 +618,10 @@ def zbuffer_pyramid(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
     w_i] int32, depth float32)``, ``h_i = h >> i``: -1 and 0 where
     empty; level 0's depth is the winner's exact depth. ``h`` and ``w``
     must be divisible by ``2^(num_scales - 1)``, ``num_scales <=
-    MAX_LEVELS``; K1 or a packed pool takes at most 2^23 points.
+    MAX_LEVELS``; K1 or a packed pool takes at most 2^23 points,
+    'sort1q' a frame of at most ``2^23 - 2`` pixels (8 depth bits).
     ``jitter [N, 2]``: NDC offsets (see the module's note). On the
-    card: K1 or K5 and one pass for every level (three device
+    card: the projection and one pass for every level (three device
     operations: the fill, the projection, the pass)."""
     _check_pyramid(xyz, h, w, num_scales, method, pool_impl)
     if _on_cpu("zbuffer_pyramid", xyz, total_m, jitter):
@@ -586,9 +694,9 @@ def splat_keys(xyz: torch.Tensor, total_m: torch.Tensor, h: int, w: int,
                jitter=None):
     """The ``[B, N*K]`` arrays JAX's splat z-buffers take: ``(pix, key,
     depth0)``, :func:`splat_expand`'s pixel ids, each copy's K5 exact key
-    ('sort') or K1 packed key ('pallas', id bits from N points), and each
-    point's depth (0 where it is invalid), which 'pallas' gathers by
-    id."""
+    ('sort'), quantized key ('sort1q') or K1 packed key ('pallas', id
+    bits from N points), and each point's depth (0 where it is invalid),
+    which 'pallas' and 'sort1q' gather by id."""
     b, n, npx = total_m.shape[0], xyz.shape[0], h * w
     pix, depth0, valid = splat_expand(xyz, total_m, h, w, point_radius,
                                       point_sizes, relative_size,
@@ -599,6 +707,9 @@ def splat_keys(xyz: torch.Tensor, total_m: torch.Tensor, h: int, w: int,
     ids, dep = ids.expand(b, n * k), depth0.repeat(1, k)
     if method == "sort":
         return pix, pack_exact_keys(pix, dep, ids, npx), depth0
+    if method == "sort1q":
+        return pix, pack_quant_keys(pix, dep, ids, npx,
+                                    quant_bits(npx)[1]), depth0
     return pix, pack_keys(pix, dep, ids, npx, n)[0], depth0
 
 
@@ -609,15 +720,19 @@ def zbuffer_splat_plain(xyz: torch.Tensor, total_m: torch.Tensor, h: int,
                         min_point_size: float = 1.0, jitter=None):
     """Plain PyTorch twin of :func:`zbuffer_splat` (same contract): JAX's
     ``[B, N*K]`` arrays (:func:`splat_keys`), their per-pixel minimum key
-    (:func:`scatter_min`), unpacked (the 'pallas' winner's depth gathered
-    by id), then :func:`pool_pyramid_plain`."""
+    (:func:`scatter_min`), unpacked (the 'pallas' and 'sort1q' winner's
+    depth gathered by id), then :func:`pool_pyramid_plain`."""
     b, n = total_m.shape[0], xyz.shape[0]
     pix, key, depth0 = splat_keys(xyz, total_m, h, w, method, point_radius,
                                   point_sizes, relative_size, min_point_size,
                                   jitter)
     buf = scatter_min(pix, key, h * w)
-    index, depth = (unpack_exact(buf) if method == "sort" else
-                    unpack_packed(buf, key_bits(n)[0], depth0))
+    if method == "sort":
+        index, depth = unpack_exact(buf)
+    elif method == "sort1q":
+        index, depth = unpack_packed(buf, 32, depth0)
+    else:
+        index, depth = unpack_packed(buf, key_bits(n)[0], depth0)
     return pool_pyramid_plain(index.view(b, h, w), depth.view(b, h, w),
                               num_scales, pool_impl, n)
 

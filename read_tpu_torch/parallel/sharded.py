@@ -82,7 +82,6 @@ import torch
 import torch.distributed as dist
 
 from read_tpu_torch.criterions import losses as L
-from read_tpu_torch.criterions import vgg as V
 from read_tpu_torch.models import texture as T
 from read_tpu_torch.models import unet as U
 from read_tpu_torch.ops import rasterize as R
@@ -594,15 +593,8 @@ def _split_losses(mesh: Mesh, cfg: TP.PipelineConfig, vgg_params,
     loss = cfg.huber_ratio * hub
     parts = {"huber_loss": hub}
     if vgg_params is not None and cfg.vgg_ratio:
-        if cfg.vgg_backend == "mix":
-            pp, pc = (vgg_params if isinstance(vgg_params, tuple)
-                      else (vgg_params, vgg_params))
-            vgg = V.vgg_loss_mix(pp, pc, im_l, target, per_item=True)
-        else:
-            vgg = V.vgg_loss(vgg_params, im_l, target,
-                             backend=cfg.vgg_backend,
-                             partialconv=cfg.vgg_partialconv, per_item=True)
-        vgg = vgg.sum() / b_global
+        vgg = TP.vgg_term(cfg, vgg_params, im_l, target,
+                          per_item=True).sum() / b_global
         loss = loss + cfg.vgg_ratio * vgg
         parts["vgg_loss"] = vgg
     if seg_on:
@@ -746,7 +738,7 @@ def sharded_loss_and_grads(net, cfg: TP.PipelineConfig, vgg_params,
 
 
 def _check_mode(cfg: TP.PipelineConfig, unet: str) -> None:
-    TP._check_trainable(cfg)
+    TP._check_geometry(cfg)
     if unet not in _UNET_MODES:
         raise ValueError(f"unet {unet!r}: one of {_UNET_MODES}")
     if unet == "replicated" and cfg.use_mesh:

@@ -63,7 +63,10 @@ the texture, the pyramid, the losses (VGG included), the gradient guard
 and both optimizers stay float32, as ``read_tpu`` keeps them with
 ``param_dtype=float32``.
 
-The VGG ensemble ('Not ported') raises ``NotImplementedError``.
+With ``vgg_ensemble`` K (``--criterion vgg_ens``) ``vgg_params`` is a list
+of K weight sets and the VGG term is their mean
+(``criterions.vgg.vgg_loss_ens``), in the train and eval steps, the
+sharded steps and pix2pix alike (:func:`vgg_term`).
 """
 
 from __future__ import annotations
@@ -184,22 +187,10 @@ def parse_format_geometry(input_format: str):
     return point_radius, relative_ps, extra_modes
 
 
-def _unported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported to read_tpu_torch "
-                              f"(ROADMAP {item})")
-
-
 def _check_geometry(cfg: PipelineConfig) -> None:
     """Raise for pyramid configurations that cannot be built."""
     if cfg.supersampling < 1:
         raise ValueError(f"supersampling {cfg.supersampling} < 1")
-
-
-def _check_trainable(cfg: PipelineConfig) -> None:
-    """Raise for the training configurations the port does not have."""
-    _check_geometry(cfg)
-    if cfg.vgg_ensemble:
-        _unported("the VGG ensemble (vgg_ens)", "'Not ported'")
 
 
 def _crop_size(d: dict, crop_size) -> Tuple[int, int]:
@@ -545,7 +536,7 @@ def create_state(generator: torch.Generator, cfg: PipelineConfig,
     numbers), zero optimizer moments, step 0,
     ``lr_scale`` 1. Returns ``(state, net)``; the step functions run
     ``net`` on the state's variables."""
-    _check_trainable(cfg)
+    _check_geometry(cfg)
     if net is None:
         net = UNet(num_input_channels=cfg.net_in_channels,
                    num_classes=cfg.num_classes)
@@ -662,6 +653,26 @@ def _forward(net: UNet, cfg: PipelineConfig, params: Tensors,
     return out, batch_stats, pyr
 
 
+def vgg_term(cfg: PipelineConfig, vgg_params, im: torch.Tensor,
+             target: torch.Tensor, per_item: bool = False) -> torch.Tensor:
+    """The VGG loss of ``cfg``'s criterion (``read_tpu``'s ``_losses``
+    :474-496, in its order): the 'mix' blend (``vgg_params`` one weight
+    set for both branches, or a ``(pytorch, caffe)`` pair), the
+    ensemble's mean (``vgg_ensemble``: ``vgg_params`` a list of weight
+    sets), or one network."""
+    if cfg.vgg_backend == "mix":
+        pp, pc = (vgg_params if isinstance(vgg_params, tuple)
+                  else (vgg_params, vgg_params))
+        return V.vgg_loss_mix(pp, pc, im, target, per_item=per_item)
+    if cfg.vgg_ensemble:
+        return V.vgg_loss_ens(vgg_params, im, target,
+                              backend=cfg.vgg_backend,
+                              partialconv=cfg.vgg_partialconv,
+                              per_item=per_item)
+    return V.vgg_loss(vgg_params, im, target, backend=cfg.vgg_backend,
+                      partialconv=cfg.vgg_partialconv, per_item=per_item)
+
+
 def _losses(cfg: PipelineConfig, vgg_params, out: Tensors, batch: dict,
             per_item: bool = False):
     """``(loss, metrics)`` as ``read_tpu``'s ``_losses``; ``per_item``
@@ -675,17 +686,7 @@ def _losses(cfg: PipelineConfig, vgg_params, out: Tensors, batch: dict,
     loss = cfg.huber_ratio * hub
     metrics["huber_loss"] = hub
     if vgg_params is not None and cfg.vgg_ratio:
-        if cfg.vgg_ensemble:
-            _unported("the VGG ensemble (vgg_ens)", "'Not ported'")
-        if cfg.vgg_backend == "mix":
-            pp, pc = (vgg_params if isinstance(vgg_params, tuple)
-                      else (vgg_params, vgg_params))
-            vgg = V.vgg_loss_mix(pp, pc, im_l, target, per_item=per_item)
-        else:
-            vgg = V.vgg_loss(vgg_params, im_l, target,
-                             backend=cfg.vgg_backend,
-                             partialconv=cfg.vgg_partialconv,
-                             per_item=per_item)
+        vgg = vgg_term(cfg, vgg_params, im_l, target, per_item)
         loss = loss + cfg.vgg_ratio * vgg
         metrics["vgg_loss"] = vgg
     if cfg.num_classes is not None and "seg_out" in out \
@@ -798,7 +799,7 @@ def make_train_step(net: UNet, cfg: PipelineConfig, vgg_params,
     there) replaces its generator, e.g. with given uniforms. A
     ``use_mesh`` batch carries ``'uv2d' [N, 2]`` and, for the triangle
     raster, ``'faces' [T, 3]``."""
-    _check_trainable(cfg)
+    _check_geometry(cfg)
 
     def train_step(state: TrainState, xyz: torch.Tensor, batch: dict):
         with fp32.full_f32():
@@ -839,7 +840,7 @@ def make_eval_step(net: UNet, cfg: PipelineConfig, vgg_params):
     mode forward at the target's size and per-item ``[B]`` metrics
     (losses, PSNR, SSIM of the clipped image), in full float32 as the
     training step."""
-    _check_trainable(cfg)
+    _check_geometry(cfg)
 
     @torch.no_grad()
     def eval_step(state: TrainState, xyz: torch.Tensor, batch: dict):

@@ -19,7 +19,8 @@ level), else at each level's winning point's ``uv2d``, as
 ``read_tpu/render.py:134-148`` feeds them (``scene.io.mesh_inputs``: a
 manifest's ``mesh`` lends them where the point cloud has none). The
 z-buffer is the checkpoint's own: the default
-``sort`` runs K5 (exact), ``pallas``/``scatter1`` K1 (packed key);
+``sort`` (and ``sort2``, ``scatter``) runs K5 (exact), ``sort1q`` the
+quantized key, ``pallas``/``scatter1`` K1 (packed key);
 ``--raster-method`` overrides it, as the JAX CLI's flag does. A
 checkpoint whose ``input_format`` splats (``p3`` and up, or ``ps``), or
 a scene with per-point ``point_sizes``, runs K6's splat projection in
@@ -335,8 +336,11 @@ def main(argv=None) -> int:
                    choices=["float32", "bfloat16"],
                    help="bfloat16 = bf16 conv operands, f32 accumulation")
     p.add_argument("--raster-method", "--raster", dest="raster_method",
-                   default=None, choices=["sort", "scatter1", "pallas"],
-                   help="z-buffer override: 'sort' exact (K5), "
+                   default=None,
+                   choices=["sort", "scatter1", "scatter", "sort1q",
+                            "pallas"],
+                   help="z-buffer override: 'sort'/'scatter' exact (K5), "
+                        "'sort1q' quantized depth bins, "
                         "'pallas'/'scatter1' packed key (K1)")
     p.add_argument("--max-frames", type=int, default=None)
     p.add_argument("--fps-report", action="store_true")

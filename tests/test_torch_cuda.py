@@ -6,8 +6,10 @@ every test skips. On a GPU machine, which need not have JAX installed::
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 TF32 is switched off for the twins (full float32 convolutions and
-matmuls). K1, K5, the pyramid pass (every level; also alone on given keys,
-``zbuffer_pool``), K6 (its given-key
+matmuls). K1, K5, the quantized key of 'sort1q' (``zbuffer_quant``: the
+projection, the splat and the pass in their third key mode), the pyramid
+pass (every level; also alone on given keys, ``zbuffer_pool``), K6 (its
+given-key
 kernel, and on its user path the splat projection, every level, plain,
 per-point and z-scaled sizes and the edge cases of
 tests/test_torch_splat.py) and K8
@@ -106,23 +108,49 @@ def test_zbuffer_exact_kernel_bit_equal(dev, batch, n, hw, dup):
         assert int(index.max()) < n // dup
 
 
+@pytest.mark.parametrize("batch,n,hw,dup", [(1, 5000, (24, 40), 1),
+                                            (3, 200_000, (96, 160), 1),
+                                            (2, 200_000, (64, 64), 8)])
+def test_zbuffer_quant_kernel_bit_equal(dev, batch, n, hw, dup):
+    """The quantized key ('sort1q') vs its twin, one level; ``dup=8``
+    repeats every position 8 times (ties, won by the least id)."""
+    xyz, ms = frame_inputs(batch, n // dup, hw, focal=hw[1] * 0.6)
+    xyz = np.tile(xyz, (dup, 1))
+    xyz, ms = torch.from_numpy(xyz).to(dev), torch.from_numpy(ms).to(dev)
+    before = dict(RK.launches)
+    index, depth = RK.zbuffer_quant(xyz, ms, *hw)
+    ran = {k: v - before[k] for k, v in RK.launches.items() if v != before[k]}
+    assert ran == {"zbuffer_quant": 1, "zbuffer_pyramid": 1}
+    index_p, depth_p = RK.zbuffer_quant_plain(xyz, ms, *hw)
+    torch.cuda.synchronize()
+    assert torch.equal(index, index_p)
+    assert torch.equal(depth, depth_p)
+    assert (index >= 0).float().mean() > 0.2
+
+
 _PYRAMID_CASES = [(1, 5000, (48, 80), 1),      # ragged tiles both ways
                   (2, 200_000, (96, 160), 1),
                   (8, 100_000, (64, 64), 8)]   # exact ties
 
 
+# each method's projection counter
+PROJ = {"sort": "zbuffer_exact", "pallas": "zbuffer",
+        "sort1q": "zbuffer_quant"}
+
+
 @pytest.mark.parametrize("num_scales", [1, 2, 3, 4, 5])
 @pytest.mark.parametrize("batch,n,hw,dup", _PYRAMID_CASES)
 @pytest.mark.parametrize("pool_impl", ["exact", "packed"])
-@pytest.mark.parametrize("method", ["sort", "pallas"])
+@pytest.mark.parametrize("method", ["sort", "pallas", "sort1q"])
 def test_zbuffer_pyramid_kernel_bit_equal(dev, method, pool_impl, batch, n,
                                           hw, dup, num_scales):
-    """K1 or K5 and the pyramid pass vs the twin, every level bit-equal;
-    one call launches one projection and one pass."""
+    """K1, K5 or the quantized key and the pyramid pass vs the twin,
+    every level bit-equal; one call launches one projection and one
+    pass."""
     xyz, ms = frame_inputs(batch, n // dup, hw, focal=hw[1] * 0.6)
     xyz = np.tile(xyz, (dup, 1))
     xyz, ms = torch.from_numpy(xyz).to(dev), torch.from_numpy(ms).to(dev)
-    proj = "zbuffer_exact" if method == "sort" else "zbuffer"
+    proj = PROJ[method]
     before = dict(RK.launches)
     got = RK.zbuffer_pyramid(xyz, ms, *hw, num_scales, method, pool_impl)
     assert RK.launches["zbuffer_pyramid"] == before["zbuffer_pyramid"] + 1
@@ -170,7 +198,7 @@ def test_zbuffer_pool_kernel_bit_equal(dev, batch, n, hw, dup, num_scales):
 @pytest.mark.parametrize("hw,num_scales", [((25, 41), 1), ((24, 42), 1),
                                            ((128, 256), 8)])
 @pytest.mark.parametrize("pool_impl", ["exact", "packed"])
-@pytest.mark.parametrize("method", ["sort", "pallas"])
+@pytest.mark.parametrize("method", ["sort", "pallas", "sort1q"])
 def test_zbuffer_pyramid_odd_widths_and_deep_tiles(dev, method, pool_impl,
                                                    hw, num_scales):
     """Rows that are not 16-byte aligned (the scalar loads), and 8
@@ -186,7 +214,9 @@ def test_zbuffer_pyramid_odd_widths_and_deep_tiles(dev, method, pool_impl,
 
 
 @pytest.mark.parametrize("method,pool_impl", [("pallas", "packed"),
-                                              ("sort", "exact")])
+                                              ("sort", "exact"),
+                                              ("sort1q", "exact"),
+                                              ("sort1q", "packed")])
 def test_pyramid_on_cuda_runs_no_plain_pool(dev, monkeypatch, method,
                                             pool_impl):
     """``rasterize_pyramid_pooled`` on a CUDA tensor: the projection and
@@ -199,7 +229,8 @@ def test_pyramid_on_cuda_runs_no_plain_pool(dev, monkeypatch, method,
 
     for mod, name in ((R, "_pool2x2_zbuffer"), (RK, "pool_pyramid_plain"),
                       (RK, "zbuffer_pyramid_plain"), (RK, "unpack_packed"),
-                      (RK, "zbuffer_plain"), (RK, "zbuffer_exact_plain")):
+                      (RK, "zbuffer_plain"), (RK, "zbuffer_exact_plain"),
+                      (RK, "zbuffer_quant_plain")):
         monkeypatch.setattr(mod, name, refuse)
     xyz, ms = frame_inputs(2, 20000, (48, 64), focal=40.0)
     xyz, ms = torch.from_numpy(xyz).to(dev), torch.from_numpy(ms).to(dev)
@@ -207,8 +238,7 @@ def test_pyramid_on_cuda_runs_no_plain_pool(dev, monkeypatch, method,
     R.rasterize_pyramid_pooled(xyz, ms, (48, 64), 4, method=method,
                                pool_impl=pool_impl)
     ran = {k: v - before[k] for k, v in RK.launches.items() if v != before[k]}
-    proj = "zbuffer_exact" if method == "sort" else "zbuffer"
-    assert ran == {proj: 1, "zbuffer_pyramid": 1}
+    assert ran == {PROJ[method]: 1, "zbuffer_pyramid": 1}
     assert device_ops(lambda: R.rasterize_pyramid_pooled(
         xyz, ms, (48, 64), 4, method=method, pool_impl=pool_impl)) == 3
 
@@ -346,7 +376,7 @@ def _splat_vs_twins(dev, xyz, ms, hw, levels, method, pool_impl, kw):
 @pytest.mark.parametrize("batch", [1, 3])
 @pytest.mark.parametrize("radius", [1, 2])
 @pytest.mark.parametrize("pool_impl", ["exact", "packed"])
-@pytest.mark.parametrize("method", ["sort", "pallas"])
+@pytest.mark.parametrize("method", ["sort", "pallas", "sort1q"])
 def test_zbuffer_splat_kernel_bit_equal(dev, method, pool_impl, radius,
                                         batch, kind):
     """K6 on its user path (the splat projection and the pass) against
@@ -363,13 +393,13 @@ def test_zbuffer_splat_kernel_bit_equal(dev, method, pool_impl, radius,
 
 @pytest.mark.parametrize("relative", [False, True])
 @pytest.mark.parametrize("min_point_size", [1.0, 3.0])
-@pytest.mark.parametrize("method", ["sort", "pallas"])
+@pytest.mark.parametrize("method", ["sort", "pallas", "sort1q"])
 def test_zbuffer_splat_edge_cases_bit_equal(dev, method, min_point_size,
                                             relative):
     """Off-frame centres, ties and NaN/inf/negative/fractional/over-cap
     sizes, r = 2 (and r = 16, the largest), against the twin."""
     xyz, ms, sizes = _splat_edge_scene()
-    pool = "exact" if method == "sort" else "packed"
+    pool = "packed" if method == "pallas" else "exact"
     for kw in (dict(point_radius=2, point_sizes=sizes,
                     relative_size=relative, min_point_size=min_point_size),
                dict(point_radius=RK.MAX_SPLAT_RADIUS, point_sizes=sizes,
@@ -1201,7 +1231,8 @@ def _edge_jitter(n, px, hw, seed=3):
 
 
 @pytest.mark.parametrize("px", [1.0, 12.0])
-@pytest.mark.parametrize("case", ["k1", "k5", "k6_sort", "k6_pallas"])
+@pytest.mark.parametrize("case", ["k1", "k5", "quant", "k6_sort",
+                                  "k6_pallas", "k6_sort1q"])
 def test_jittered_kernels_bit_equal(dev, case, px):
     hw = (32, 48)
     xyz, ms, jit = (torch.from_numpy(a).to(dev)
@@ -1213,14 +1244,15 @@ def test_jittered_kernels_bit_equal(dev, case, px):
         want = RK.zbuffer_plain(xyz, ms, *hw, jitter=jit)
         plain = RK.zbuffer(xyz, ms, *hw)
         got, want, plain = got[0], want[0], plain[0]
-    elif case == "k5":
-        name = "zbuffer_exact_jitter"
+    elif case in ("k5", "quant"):
+        method = "sort" if case == "k5" else "sort1q"
+        name = PROJ[method] + "_jitter"
         before = RK.launches[name]
-        got = RK.zbuffer_pyramid(xyz, ms, *hw, 4, "sort", "exact",
+        got = RK.zbuffer_pyramid(xyz, ms, *hw, 4, method, "exact",
                                  jitter=jit)
-        want = RK.zbuffer_pyramid_plain(xyz, ms, *hw, 4, "sort", "exact",
+        want = RK.zbuffer_pyramid_plain(xyz, ms, *hw, 4, method, "exact",
                                         jitter=jit)
-        plain = RK.zbuffer_pyramid(xyz, ms, *hw, 4, "sort", "exact")
+        plain = RK.zbuffer_pyramid(xyz, ms, *hw, 4, method, "exact")
     else:
         method = case.split("_")[1]
         name = "zbuffer_splat_jitter"

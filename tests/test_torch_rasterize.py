@@ -165,16 +165,6 @@ def test_pyramid_pools_match_jax(pool_impl):
         np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
 
 
-@pytest.mark.parametrize("kw", [dict(method="sort2"), dict(method="scatter"),
-                                dict(method="sort1q",
-                                     ndc_jitter=np.zeros((3000, 2)))])
-def test_unported_options_raise(kw):
-    xyz, ms = _scene()
-    with pytest.raises(NotImplementedError):
-        R.rasterize_batch(torch.from_numpy(xyz), torch.from_numpy(ms),
-                          24, 40, **kw)
-
-
 def test_unknown_method_and_device_raise():
     xyz, ms = _scene()
     with pytest.raises(ValueError):

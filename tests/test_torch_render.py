@@ -148,14 +148,6 @@ def test_renderer_takes_a_scene_dict(scene_and_ckpt):
     np.testing.assert_array_equal(a, b)
 
 
-def test_renderer_refuses_sort_and_unported_config(scene_and_ckpt):
-    """'sort' renders now (below), and supersampling (below); a raster
-    method that is still not ported raises."""
-    scene, ckpt, _ = scene_and_ckpt
-    with pytest.raises(NotImplementedError, match="sort2"):
-        TR.NeuralRenderer(scene, ckpt, raster_method="sort2", device="cpu")
-
-
 @pytest.mark.parametrize("method", ["pallas", "sort"])
 def test_supersampled_renderer_matches_read_tpu(scene_and_ckpt,
                                                 jax_renderers, method):

@@ -14,7 +14,8 @@ rank gets no rows of the split step's stage 2).
 - (a) the merged index and depth pyramids bit-equal to read_tpu's
   ``sharded_rasterize_pyramid`` under ``shard_map`` on the virtual mesh
   (``tests/test_sharded.py:33-54``), 'sort' and 'pallas', r = 0 and 1,
-  on a scene with duplicate points in different shards (the least
+  and 'sort1q' at r = 0 (each shard's winner by its quantized key, the
+  merge by the exact one), on a scene with duplicate points in different shards (the least
   global id must win) and a view where points lie at depth exactly 0;
   'sort' also bit-equal to the port's unsharded ``zbuffer_pyramid``;
 - (b) the owned-row gather against read_tpu's ``sharded_gather``,
@@ -69,7 +70,10 @@ from read_tpu_torch.utils import ckpt as CK
 
 N, HW, B = 1021, (32, 32), 4
 SMALL = dict(base_channel=8, num_res=1)
-MERGES = (("sort", 0), ("sort", 1), ("pallas", 0), ("pallas", 1))
+# 'sort1q' at r = 0 only: with splats JAX's merge takes the minimum of
+# its faulty 'sort1q' depths (tests/test_torch_raster_methods.py)
+MERGES = (("sort", 0), ("sort", 1), ("pallas", 0), ("pallas", 1),
+          ("sort1q", 0))
 GRAD_ATOL = 2e-4          # x max|g|, tests/test_torch_train.py
 RANK_TIMEOUT_S = 60       # every collective and the group's set-up
 JOIN_S = 240              # the whole spawn

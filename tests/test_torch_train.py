@@ -252,21 +252,6 @@ def test_eval_step_matches_jax(ref):
     assert tuple(metrics["ssim"].shape) == (B,)
 
 
-@pytest.mark.parametrize("change", [
-    dict(vgg_ensemble=3, drop_points=0.1), dict(vgg_ensemble=3)])
-def test_unported_training_configs_raise(change):
-    """The VGG ensemble raises naming its ROADMAP place, also beside the
-    ported dropout."""
-    cfg = TP.PipelineConfig(crop_size=HW, **change)
-    net = UNet(base_channel=8, num_res=1)
-    item = "'Not ported'"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        TP.make_train_step(net, cfg, None)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        TP.create_state(torch.Generator().manual_seed(0), cfg, 10, net=net,
-                        device="cpu")
-
-
 @pytest.mark.parametrize("activation", ["none", "sigmoid", "tanh"])
 @pytest.mark.parametrize("integer", [True, False])
 def test_unique_gather_matches_jax(activation, integer):

@@ -30,8 +30,8 @@ the runs and their checkpoints small.
 - ``--supersampling 2`` and an ``--input-format`` with extra modalities
   (``colors``, ``normals_l``) train a step, validate and write a
   checkpoint the renderer loads;
-- every unported flag exits naming its ``ROADMAP.md`` item, and without
-  a CUDA device the CLI refuses to run unless told ``cpu``;
+- without a CUDA device the CLI refuses to run unless told ``cpu``
+  (``--criterion vgg_ens`` runs: ``tests/test_torch_raster_methods.py``);
 - ``--mesh`` keeps ``read_tpu.train``'s rules (``--max-scenes-hbm`` and
   ``--freeze-net`` exit; ``--pipeline rgb_texture`` runs as without it;
   ``drop_points`` warns), and a ``--mesh 1x2`` fit of both scenes on two
@@ -379,16 +379,6 @@ def test_cli_runs_without_optional_packages(setup, tmp_path):
     for name in ("args.yaml", "splits.json", "train_imgs/comp_0.png",
                  "checkpoints/best_toyB", "val_imgs/toyB_000000.png"):
         assert os.path.exists(os.path.join(tmp_path, exp, name)), name
-
-
-@pytest.mark.parametrize("flags,item", [
-    (["--criterion", "vgg_ens"], "'Not ported'"),
-])
-def test_unported_flags_exit_with_their_item(setup, tmp_path, flags, item):
-    """What is still not ported exits naming its item."""
-    flags = ["--config", str(setup["root"] / "config.json")] + flags
-    with pytest.raises(SystemExit, match=f"ROADMAP.*{item}"):
-        TRAIN.main(flags + ["--save-dir", str(tmp_path / "logs")])
 
 
 @pytest.mark.parametrize("case", ["max_scenes_hbm", "freeze_net",
