@@ -1,0 +1,9 @@
+"""The traced slice's share, in %, in which no operation ran on the device
+(the union of the device operations' intervals against the slice's
+window)."""
+
+
+def read(run):
+    if run.trace is None or run.trace.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
