@@ -1,0 +1,8 @@
+"""Device operations (kernels, copies, sets) a step in the traced slice;
+each kernel of a CUDA graph's replay counts."""
+
+from benchmark import spans
+
+
+def read(run):
+    return spans.device_ops(run)

@@ -22,6 +22,8 @@ from typing import Optional
 
 import torch
 
+from read_tpu_torch.utils.profiling import span
+
 __all__ = ["init_point_texture", "sample_point_texture",
            "sample_point_texture_unique", "point_texture_reg_loss",
            "init_mesh_texture", "sample_mesh_texture",
@@ -68,16 +70,18 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        (index_map,) = ctx.saved_tensors
-        n, c = ctx.n, g.shape[-1]
-        images = (index_map.shape[-2] * index_map.shape[-1]
-                  if ctx.per_image else index_map.numel())
-        rows = index_map.reshape(-1, images).long()
-        g = g.reshape(rows.shape[0], -1, c)
-        acc = torch.zeros((n + 1, c), dtype=g.dtype, device=g.device)
-        for b in range(rows.shape[0]):
-            acc.index_add_(0, torch.where(rows[b] >= 0, rows[b], n), g[b])
-        return acc[:n], None, None
+        with span("read.gather_bwd"):
+            (index_map,) = ctx.saved_tensors
+            n, c = ctx.n, g.shape[-1]
+            images = (index_map.shape[-2] * index_map.shape[-1]
+                      if ctx.per_image else index_map.numel())
+            rows = index_map.reshape(-1, images).long()
+            g = g.reshape(rows.shape[0], -1, c)
+            acc = torch.zeros((n + 1, c), dtype=g.dtype, device=g.device)
+            for b in range(rows.shape[0]):
+                acc.index_add_(0, torch.where(rows[b] >= 0, rows[b], n),
+                               g[b])
+            return acc[:n], None, None
 
 
 def _activate(sample: torch.Tensor, activation: str) -> torch.Tensor:

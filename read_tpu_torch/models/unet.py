@@ -78,6 +78,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from read_tpu_torch.ops import gated_conv as GC
+from read_tpu_torch.utils.profiling import span
 
 __all__ = ["BasicConv", "UNet", "unet_from_state", "global_batch_norm"]
 
@@ -522,11 +523,13 @@ class UNet(nn.Module):
         if operands not in _OPERANDS:
             raise ValueError(f"operands must be one of {_OPERANDS}")
         bf16 = operands == "bf16"
-        if train is None:
-            with torch.no_grad():
-                return self._forward(x, x_2, x_4, x_8, bf16, None, False)
-        return self._forward(x, x_2, x_4, x_8, bf16, bool(train),
-                             remat and torch.is_grad_enabled())
+        with span("read.unet"):
+            if train is None:
+                with torch.no_grad():
+                    return self._forward(x, x_2, x_4, x_8, bf16, None,
+                                         False)
+            return self._forward(x, x_2, x_4, x_8, bf16, bool(train),
+                                 remat and torch.is_grad_enabled())
 
     def _block(self, name: str, x: torch.Tensor, bf16: bool,
                train: Optional[bool], remat: bool) -> torch.Tensor:

@@ -89,6 +89,7 @@ from read_tpu_torch.ops import rasterize_mesh as RMesh
 from read_tpu_torch.ops import render_modes as RM
 from read_tpu_torch.utils import convert as CV
 from read_tpu_torch.utils import fp32
+from read_tpu_torch.utils.profiling import mark, span
 
 __all__ = ["PipelineConfig", "parse_format_geometry", "config_from_dict",
            "build_pyramid", "ParamLayout", "TrainState", "AdamState",
@@ -368,30 +369,32 @@ def build_pyramid(cfg: PipelineConfig, texture: Tables, xyz: torch.Tensor,
         raise ValueError("the mesh-texture pyramid needs per-vertex uv2d")
     if cfg.use_mesh and faces is not None:
         return _mesh_pyramid(cfg, texture, xyz, total_m, h, w, uv2d, faces)
-    levels = R.rasterize_pyramid_pooled(
-        xyz, total_m, (h * ss, w * ss), num_scales=cfg.num_scales,
-        point_radius=cfg.point_radius, method=cfg.raster_method,
-        ndc_jitter=ndc_jitter, point_sizes=point_sizes,
-        relative_size=cfg.relative_point_size,
-        min_point_size=cfg.min_point_size, pool_impl="exact")
+    with span("read.raster"):
+        levels = R.rasterize_pyramid_pooled(
+            xyz, total_m, (h * ss, w * ss), num_scales=cfg.num_scales,
+            point_radius=cfg.point_radius, method=cfg.raster_method,
+            ndc_jitter=ndc_jitter, point_sizes=point_sizes,
+            relative_size=cfg.relative_point_size,
+            min_point_size=cfg.min_point_size, pool_impl="exact")
     sample = (T.sample_point_texture_unique if cfg.point_radius == 0
               else T.sample_point_texture)
     pyr, tables = [], {}
-    for lvl, (ix, dep) in enumerate(levels):
-        if cfg.use_mesh:
-            uv_map = RM.gather_attribute(uv2d, ix)
-            x = T.sample_mesh_texture(texture, uv_map,
-                                      cfg.texture_activation)
-            x = x * (ix >= 0).unsqueeze(-1).to(x.dtype)
-        else:
-            x = sample(texture[0], ix, cfg.texture_activation)
-        if cfg.extra_modes:
-            ex = _extra_maps(cfg, cfg.extra_modes[lvl], ix, dep, pointcloud,
-                             gt_label, view_m, tables)
-            x = torch.cat(ex + [x], dim=-1)
-        if ss > 1:
-            x = _downscale(x, ss)
-        pyr.append(x)
+    with span("read.gather"):
+        for lvl, (ix, dep) in enumerate(levels):
+            if cfg.use_mesh:
+                uv_map = RM.gather_attribute(uv2d, ix)
+                x = T.sample_mesh_texture(texture, uv_map,
+                                          cfg.texture_activation)
+                x = x * (ix >= 0).unsqueeze(-1).to(x.dtype)
+            else:
+                x = sample(texture[0], ix, cfg.texture_activation)
+            if cfg.extra_modes:
+                ex = _extra_maps(cfg, cfg.extra_modes[lvl], ix, dep,
+                                 pointcloud, gt_label, view_m, tables)
+                x = torch.cat(ex + [x], dim=-1)
+            if ss > 1:
+                x = _downscale(x, ss)
+            pyr.append(x)
     return pyr
 
 
@@ -677,37 +680,45 @@ def _losses(cfg: PipelineConfig, vgg_params, out: Tensors, batch: dict,
             per_item: bool = False):
     """``(loss, metrics)`` as ``read_tpu``'s ``_losses``; ``per_item``
     gives ``[B]`` vectors."""
-    im = out["im_out"]
-    target = batch["target"]
-    mask = batch.get("mask")
-    metrics = {}
-    im_l = im * mask if cfg.use_mask and mask is not None else im
-    hub = L.huber_loss(im_l, target, per_item=per_item)
-    loss = cfg.huber_ratio * hub
-    metrics["huber_loss"] = hub
-    if vgg_params is not None and cfg.vgg_ratio:
-        vgg = vgg_term(cfg, vgg_params, im_l, target, per_item)
-        loss = loss + cfg.vgg_ratio * vgg
-        metrics["vgg_loss"] = vgg
-    if cfg.num_classes is not None and "seg_out" in out \
-            and batch.get("label") is not None:
-        seg = L.cross_entropy_ignore0(out["seg_out"], batch["label"])
-        if per_item:
-            seg = seg.expand(loss.shape)
-        loss = loss + cfg.seg_ratio * seg
-        metrics["seg_loss"] = seg
-    if cfg.masked_background and mask is not None:
-        # the main loss renormalized by the mask mean + background pull
-        if per_item:
-            mmean = mask.reshape(mask.shape[0], -1).mean(dim=1)
-            off = torch.abs(im * (1.0 - mask))
-            bkg = 500.0 * off.reshape(off.shape[0], -1).mean(dim=1)
-            loss = loss / torch.clamp(mmean, min=1e-6) + bkg
-        else:
-            loss = loss / torch.clamp(mask.mean(), min=1e-6)
-            loss = loss + L.masked_background_loss(im, mask)
-    metrics["psnr"] = L.psnr(im, target, per_item=per_item)
-    return loss, metrics
+    with span("read.loss"):
+        im = out["im_out"]
+        target = batch["target"]
+        mask = batch.get("mask")
+        metrics = {}
+        im_l = im * mask if cfg.use_mask and mask is not None else im
+        hub = L.huber_loss(im_l, target, per_item=per_item)
+        loss = cfg.huber_ratio * hub
+        metrics["huber_loss"] = hub
+        if vgg_params is not None and cfg.vgg_ratio:
+            vgg = vgg_term(cfg, vgg_params, im_l, target, per_item)
+            loss = loss + cfg.vgg_ratio * vgg
+            metrics["vgg_loss"] = vgg
+        if cfg.num_classes is not None and "seg_out" in out \
+                and batch.get("label") is not None:
+            seg = L.cross_entropy_ignore0(out["seg_out"], batch["label"])
+            if per_item:
+                seg = seg.expand(loss.shape)
+            loss = loss + cfg.seg_ratio * seg
+            metrics["seg_loss"] = seg
+        if cfg.masked_background and mask is not None:
+            # the main loss renormalized by the mask mean + background pull
+            if per_item:
+                mmean = mask.reshape(mask.shape[0], -1).mean(dim=1)
+                off = torch.abs(im * (1.0 - mask))
+                bkg = 500.0 * off.reshape(off.shape[0], -1).mean(dim=1)
+                loss = loss / torch.clamp(mmean, min=1e-6) + bkg
+            else:
+                loss = loss / torch.clamp(mask.mean(), min=1e-6)
+                loss = loss + L.masked_background_loss(im, mask)
+        metrics["psnr"] = L.psnr(im, target, per_item=per_item)
+        return loss, metrics
+
+
+def _net_grad_mark(grad: torch.Tensor) -> None:
+    """The image's gradient hook: the instant ``read.net_grad``, on the
+    autograd engine's thread, when every loss-side backward node has run
+    and the net's and the gather's have not."""
+    mark("read.net_grad")
 
 
 def _loss_and_grads(net: UNet, cfg: PipelineConfig, vgg_params,
@@ -721,18 +732,23 @@ def _loss_and_grads(net: UNet, cfg: PipelineConfig, vgg_params,
     flat = state.flat_params.detach().requires_grad_(not freeze_net)
     params = state.layout.views(flat)
     tables = tuple(t.detach().requires_grad_() for t in state.texture)
-    out, new_bs, _ = _forward(net, cfg, params, state.batch_stats, tables,
-                              xyz, batch["total_m"], train=not freeze_net,
-                              batch=batch)
-    loss, metrics = _losses(cfg, vgg_params, out, batch)
-    if cfg.reg_weight:
-        loss = loss + (
-            T.mesh_texture_reg_loss(tables, cfg.reg_weight) if cfg.use_mesh
-            else T.point_texture_reg_loss(tables[0], cfg.reg_weight))
+    with span("read.forward"):
+        out, new_bs, _ = _forward(net, cfg, params, state.batch_stats,
+                                  tables, xyz, batch["total_m"],
+                                  train=not freeze_net, batch=batch)
+        loss, metrics = _losses(cfg, vgg_params, out, batch)
+        if cfg.reg_weight:
+            loss = loss + (
+                T.mesh_texture_reg_loss(tables, cfg.reg_weight)
+                if cfg.use_mesh
+                else T.point_texture_reg_loss(tables[0], cfg.reg_weight))
+    if out["im_out"].requires_grad:
+        out["im_out"].register_hook(_net_grad_mark)
     metrics["loss"] = loss
     wrt = tables if freeze_net else (flat, *tables)
-    grads = torch.autograd.grad(loss, wrt, allow_unused=True,
-                                materialize_grads=True)
+    with span("read.backward"):
+        grads = torch.autograd.grad(loss, wrt, allow_unused=True,
+                                    materialize_grads=True)
     g_net = None if freeze_net else grads[0]
     g_tex = tuple(grads[len(wrt) - len(tables):])
     metrics = {k: v.detach() for k, v in metrics.items()}
@@ -811,13 +827,14 @@ def make_train_step(net: UNet, cfg: PipelineConfig, vgg_params,
             batch = dict(batch, ndc_jitter=jitter)
         metrics, new_bs, im, g_net, g_tex = _loss_and_grads(
             net, cfg, vgg_params, state, xyz, batch, freeze_net)
-        with torch.no_grad():
-            up_tex, tex_opt = rms_update(
-                tuple(_guard_grad(g, cfg.grad_clip) for g in g_tex),
-                state.tex_opt)
-            lr_tex = cfg.texture_lr * state.lr_scale
-            texture = tuple(t + lr_tex * u
-                            for t, u in zip(state.texture, up_tex))
+        with torch.no_grad(), span("read.optimizer"):
+            with span("read.rmsprop"):
+                up_tex, tex_opt = rms_update(
+                    tuple(_guard_grad(g, cfg.grad_clip) for g in g_tex),
+                    state.tex_opt)
+                lr_tex = cfg.texture_lr * state.lr_scale
+                texture = tuple(t + lr_tex * u
+                                for t, u in zip(state.texture, up_tex))
             changes = dict(step=state.step + 1, texture=texture,
                            tex_opt=tex_opt)
             if not freeze_net:

@@ -63,6 +63,7 @@ from read_tpu_torch.ops import render_modes as RM
 from read_tpu_torch.pipelines import texture_pipeline as TP
 from read_tpu_torch.utils import ckpt as CK
 from read_tpu_torch.utils import convert as CV
+from read_tpu_torch.utils.profiling import span
 
 __all__ = ["NeuralRenderer", "pca_color", "nearest_train", "main"]
 
@@ -250,15 +251,18 @@ class NeuralRenderer:
     def infer(self, view_matrix: np.ndarray,
               K: Optional[np.ndarray] = None) -> np.ndarray:
         """Render one neural frame: ``[h, w, 3]`` float32 in [0, 1]."""
-        pyr = self.pyramid(view_matrix, K)
-        if self.temporal_average:
-            # average the net INPUT with the previous frame's (averaged)
-            # pyramid, as read_tpu does (compose.py:167-171)
-            if self._last_pyr is not None:
-                pyr = [(a + b) * 0.5 for a, b in zip(pyr, self._last_pyr)]
-            self._last_pyr = pyr
-        img = self._net(pyr)
-        return np.clip(img[0].cpu().numpy(), 0.0, 1.0)
+        with span("read.frame"):
+            pyr = self.pyramid(view_matrix, K)
+            if self.temporal_average:
+                # average the net INPUT with the previous frame's
+                # (averaged) pyramid, as read_tpu does (compose.py:167-171)
+                if self._last_pyr is not None:
+                    pyr = [(a + b) * 0.5
+                           for a, b in zip(pyr, self._last_pyr)]
+                self._last_pyr = pyr
+            img = self._net(pyr)
+            with span("read.download"):
+                return np.clip(img[0].cpu().numpy(), 0.0, 1.0)
 
     def raster(self, view_matrix: np.ndarray,
                K: Optional[np.ndarray] = None):

@@ -1,57 +1,20 @@
-"""Timing and metric-accumulation utilities.
+"""Metric-accumulation and logging utilities.
 
-The port's copy of ``read_tpu/utils/perform.py``: ``TicToc``, a
-wall-clock millisecond timer with a per-name record table, ``AccumDict``,
-a running metric dict printed as ``cur (avg)``, and ``Tee``, which
-mirrors a stream into a log file. These time host-side stages only; a
-device time needs CUDA events or ``torch.profiler``.
+The port's copy of ``read_tpu/utils/perform.py``, less its host-clock
+timer ``TicToc``: ``AccumDict``, a running metric dict printed as ``cur
+(avg)``, and ``Tee``, which mirrors a stream into a log file. Device
+time comes from ``torch.profiler`` (``utils.profiling``: ``trace`` and
+the program's ``span`` ranges) or CUDA events (``device_timeit``).
 """
 
 from __future__ import annotations
 
 import sys
-import time
 from collections import defaultdict
-from typing import Dict, List
 
 import numpy as np
 
-__all__ = ["TicToc", "AccumDict", "Tee"]
-
-
-class TicToc:
-    """Wall-clock millisecond timer."""
-
-    _records: Dict[str, List[float]] = defaultdict(list)
-
-    def __init__(self):
-        self._t0 = None
-
-    def tic(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def toc(self) -> float:
-        assert self._t0 is not None, "call tic() first"
-        return (time.perf_counter() - self._t0) * 1000.0
-
-    def tocp(self, name: str) -> float:
-        ms = self.toc()
-        TicToc._records[name].append(ms)
-        return ms
-
-    @staticmethod
-    def print_summary(reset: bool = True):
-        rows = []
-        for name, vals in TicToc._records.items():
-            v = np.asarray(vals)
-            rows.append(f"{name:24s} n={len(v):5d} min={v.min():8.2f} "
-                        f"mean={v.mean():8.2f} "
-                        f"p95={np.percentile(v, 95):8.2f} "
-                        f"max={v.max():8.2f} (ms)")
-        print("\n".join(rows))
-        if reset:
-            TicToc._records.clear()
+__all__ = ["AccumDict", "Tee"]
 
 
 class AccumDict:

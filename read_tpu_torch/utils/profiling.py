@@ -8,6 +8,13 @@ on a card) and writes it as a Chrome trace, which Perfetto or
 ``chrome://tracing`` opens; :func:`device_timeit` times a callable in
 its steady state, with CUDA events on a card and ``perf_counter`` on
 the CPU.
+
+:func:`span` and :func:`mark` put the program's own ranges into such a
+trace: ``read.<what>`` ranges around the work of a layer, on the host
+clock that the device operations share, so a reader of the trace can
+give each range the device time its launches took. With no profiler
+active each costs a check of one flag and records nothing; neither
+waits for the device.
 """
 
 from __future__ import annotations
@@ -16,7 +23,36 @@ import contextlib
 import os
 import time
 
-__all__ = ["trace", "device_timeit"]
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _autograd_profiler
+
+__all__ = ["trace", "device_timeit", "span", "mark"]
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that records the block as the range ``name``
+    while a ``torch.profiler`` (or ``autograd.profiler``) trace is
+    active, on the thread that enters it, and does nothing otherwise:
+
+    >>> with span("read.raster"):
+    ...     levels = rasterize_pyramid_pooled(...)
+
+    The range is a ``RecordFunction`` of the function scope, as an ATen
+    op's is: it nests with the ops inside it and has no device-side
+    copy (a ``record_function`` range of the user scope gets one)."""
+    return _RecordFunctionFast(name) \
+        if _autograd_profiler._is_profiler_enabled else _OFF
+
+
+def mark(name: str) -> None:
+    """A :func:`span` around nothing: an instant (its start) on the
+    calling thread; an autograd hook's marks the moment the engine ran
+    it."""
+    if _autograd_profiler._is_profiler_enabled:
+        with _RecordFunctionFast(name):
+            pass
 
 
 @contextlib.contextmanager
