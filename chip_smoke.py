@@ -1088,12 +1088,14 @@ def phase_convs(report, ctx, dev):
             if wgmma:   # packed once, as BasicConv caches it
                 kw["packed"] = (GC.pack_kxk_bf16(w) if bf16
                                 else GC.pack_kxk_tf32(w))
-            before = GC.launches["gated_conv_kxk_wgmma"]
+            before = dict(GC.launches)
             got = kernel(x, w, b, scale, offset, res, **kw)
-            ran = GC.launches["gated_conv_kxk_wgmma"] - before
-            if ran != wgmma:
+            ran = tuple(GC.launches[k] - before[k] for k in (
+                "gated_conv_kxk_wgmma", "gated_conv_kxk_wgmma_tma"))
+            if ran != (wgmma, wgmma and not bf16):
                 raise SmokeFailure(f"{name} {xs} {ws} {ops}: the wgmma "
-                                   f"loop ran {ran} times, route {route}")
+                                   f"loop and its f32 kernel ran {ran} "
+                                   f"times, route {route}")
             want = twin(x, w, b, scale, offset, res, **kw)
             torch.cuda.synchronize()
             err = max_err(f"{name} {xs} {ws} s{stride} {ops}", got, want,
@@ -1283,6 +1285,8 @@ def phase_serve(report, ctx, dev, workdir):
     report["zbuffer_pyramid"]["launches"] = counts["zbuffer_pyramid"]
     for name in ("gated_conv_kxk_wgmma", "gated_conv_1x1_wgmma"):
         report[name]["launches"] = counts[name]
+    report["gated_conv_kxk_wgmma"]["tma_launches"] = counts[
+        "gated_conv_kxk_wgmma_tma"]
     if not any(float(np.abs(a - b).max()) > 0
                for a, b in zip(imgs, imgs[1:])):
         raise SmokeFailure("the 4 requests rendered identical frames")
@@ -1325,7 +1329,7 @@ def phase_serve_bf16(report, ctx, dev):
             raise SmokeFailure(f"serve_bf16 request {i}: bad frame")
     if not float(np.abs(imgs[0] - imgs[1]).max()) > 0:
         raise SmokeFailure("serve_bf16: the 2 requests rendered the same")
-    routed_loops_ran(ctx, "serve_bf16", counts, len(imgs))
+    routed_loops_ran(ctx, "serve_bf16", counts, len(imgs), "bf16")
     pyramid_ran("serve_bf16", counts, "zbuffer", len(imgs))
     report["gated_conv_kxk_wgmma"]["bf16_launches"] = counts[
         "gated_conv_kxk_wgmma"]
@@ -1339,11 +1343,15 @@ def phase_serve_bf16(report, ctx, dev):
           f"launches {counts}")
 
 
-def _routed(ctx):
-    """Each wgmma loop's launches per frame, as its route predicts: K2's
-    (``kxk_route``, 79) and the 1x1 loop's (``conv1x1_route``, 9), in
-    either operand mode."""
-    return (("gated_conv_kxk_wgmma", ctx["wgmma_per_frame"]),
+def _routed(ctx, ops="f32"):
+    """Each wgmma loop's launches per frame with ``ops`` operands, as its
+    route predicts: K2's (``kxk_route``, 79), all of them on its f32
+    kernel (``gated_conv_kxk_wgmma_tma``: A copied raw by TMA im2col) with
+    f32 operands and none with bf16, and the 1x1 loop's
+    (``conv1x1_route``, 9)."""
+    k2 = ctx["wgmma_per_frame"]
+    return (("gated_conv_kxk_wgmma", k2),
+            ("gated_conv_kxk_wgmma_tma", k2 if ops == "f32" else 0),
             ("gated_conv_1x1_wgmma", ctx["conv1x1_per_frame"]))
 
 
@@ -1359,27 +1367,29 @@ def pyramid_ran(what, counts, proj, calls):
                            f"{calls or 'as often, at least once'}")
 
 
-def routed_loops_ran(ctx, what, counts, requests):
-    """Fail unless both wgmma loops ran exactly as often as their routes
-    predict for ``requests`` frames."""
-    for name, per_frame in _routed(ctx):
+def routed_loops_ran(ctx, what, counts, requests, ops="f32"):
+    """Fail unless both wgmma loops (and K2's f32 kernel) ran exactly as
+    often as their routes predict for ``requests`` frames with ``ops``
+    operands."""
+    for name, per_frame in _routed(ctx, ops):
         if counts[name] != requests * per_frame:
             raise SmokeFailure(f"{what}: {name} ran {counts[name]} times, "
                                f"the route predicts {requests * per_frame}")
 
 
-def loops_ran(ctx, what, fn):
-    """Run ``fn()`` (one frame call); fail unless both wgmma loops ran at
-    least as often as their routes predict for it, and K1 and the
-    pyramid pass once each."""
+def loops_ran(ctx, what, fn, ops="f32"):
+    """Run ``fn()`` (one frame call with ``ops`` operands); fail unless
+    both wgmma loops (and K2's f32 kernel) ran at least as often as their
+    routes predict for it (K2's f32 kernel not at all with bf16), and K1
+    and the pyramid pass once each."""
     from read_tpu_torch.ops import gated_conv as GC
     from read_tpu_torch.ops import rasterize_kernels as RK
     before = dict(GC.launches)
     before_rk = dict(RK.launches)
     out = fn()
-    for name, want in _routed(ctx):
+    for name, want in _routed(ctx, ops):
         ran = GC.launches[name] - before[name]
-        if ran < want:
+        if ran < want or (want == 0 and ran != 0):
             raise SmokeFailure(f"{what}: {name} ran {ran} times, the "
                                f"route predicts {want}")
     pyramid_ran(what, {k: v - before_rk[k] for k, v in RK.launches.items()},
@@ -1394,7 +1404,7 @@ def phase_frames(ctx, dev):
         for b in (1, 4):
             frame_fn, args = make_frame(b, ops, device=dev)
             out = loops_ran(ctx, f"frame B={b} {ops}",
-                            lambda: frame_fn(*args))
+                            lambda: frame_fn(*args), ops)
             torch.cuda.synchronize()
             if tuple(out.shape) != (b, *HW, 3) or \
                     not bool(torch.isfinite(out).all()):
@@ -1417,7 +1427,8 @@ def phase_frame_vs_twin(ctx, dev):
     for ops, tols in (("f32", (FRAME_TOL,)),
                       ("bf16", (BF16_TOL, FRAME_TOL))):
         frame_fn, args = make_frame(1, ops, device=dev)
-        got = loops_ran(ctx, f"frame_vs_twin {ops}", lambda: frame_fn(*args))
+        got = loops_ran(ctx, f"frame_vs_twin {ops}", lambda: frame_fn(*args),
+                        ops)
         with Twins():
             want = frame_fn(*args)
         torch.cuda.synchronize()

@@ -140,10 +140,12 @@ extern "C" int gated_conv_kxk(const float* x, const float* w,
 // [tile_n, 64] bf16) or `pack_kxk_tf32` (ops = kOpsTF32x3, f32 operands
 // as three TF32 products; ceil(k*k*Cin / 32) blocks [2, tile_n, 32] f32),
 // ntiles N tiles of tile_n columns (64 or 128). x and out are f32, or
-// bf16 with kOpsBF16Storage (res then null). Returns the error of setting
-// the shared-memory size, of the occupancy query or of the launch
-// (cudaErrorInvalidValue for arguments the loop does not take, misaligned
-// epilogue pointers too).
+// bf16 with kOpsBF16Storage (res then null); kOpsTF32x3 runs the loop's
+// f32 kernel, whose A operand TMA im2col loads copy raw through a tensor
+// map of x encoded here per call. Returns the error of setting the
+// shared-memory size, of the occupancy query, of encoding that map or of
+// the launch (cudaErrorInvalidValue for arguments the loop does not take,
+// misaligned epilogue pointers too).
 extern "C" int gated_conv_kxk_wgmma(const void* x, const void* wp,
                                     const float* bias, const float* scale,
                                     const float* offset, const float* res,

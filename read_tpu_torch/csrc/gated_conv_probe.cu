@@ -21,7 +21,8 @@
 //   the packed weight of `pack_kxk_bf16` (bf16 operands) or
 //   `pack_kxk_tf32` (f32 operands as three TF32 products), where K2 runs
 //   79 of a frame's 84 calls. packonly's out is the staged operand: bf16
-//   widened, or the TF32 parts' sum hi + lo;
+//   widened, or the sum hi + lo of the TF32 parts the f32 consumer splits
+//   it into;
 // - tile: the tile loops K2 keeps for its other calls (gated_conv_tile.cuh,
 //   the f32 SIMT tile and the bf16 WMMA tile) with the HWIO weight.
 //

@@ -1,6 +1,7 @@
 """Registers, spills and SASS of the port's CUDA kernels (needs ``nvcc``).
 
-    python -m read_tpu_torch.kernel_regs [--against OTHER/csrc] [--out F]
+    python -m read_tpu_torch.kernel_regs [--against OTHER/csrc]
+        [--allow-changed REGEX] [--out F]
 
 Compiles each ``csrc/<name>.cu`` with :mod:`._build`'s code generation
 flags into a cubin (``-cubin -Xptxas -v``) and prints, per kernel
@@ -11,7 +12,9 @@ names too and says, for each of its kernels, which kernel of this tree
 has the same SASS (``cuobjdump -sass``, the function names left out),
 or that none has: a change that must leave a kernel's code as it was
 (a defaulted template parameter, say) shows as a match under the new
-name.
+name. Exit status 1 if any kernel here spills, or if a kernel of
+``--against`` whose demangled name ``--allow-changed`` does not match
+(``re.search``) has no kernel here with its SASS; else 0.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from typing import Dict, List
 
 from read_tpu_torch import _build
 
-__all__ = ["parse_ptxas", "parse_sass", "compile_dir", "main"]
+__all__ = ["parse_ptxas", "parse_sass", "compile_dir", "verdict", "main"]
 
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
@@ -111,6 +114,9 @@ def compile_dir(csrc: str, names, tmp: str) -> Dict[str, Dict]:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {csrc}/{name}.cu:\n{log}")
+        for line in log.splitlines():   # e.g. wgmma serialized by ptxas
+            if "warning" in line.lower():
+                print(f"[{name}] {line.strip()}")
         sass = subprocess.run([_tool("cuobjdump"), "-sass", cubin],
                               capture_output=True, text=True,
                               check=True).stdout
@@ -121,10 +127,41 @@ def compile_dir(csrc: str, names, tmp: str) -> Dict[str, Dict]:
     return result
 
 
+def verdict(mine: Dict[str, Dict], other: Dict[str, Dict], pretty,
+            allow_changed: str = None):
+    """``(lines, ok)`` of the report's comparison: for each kernel of
+    ``other`` (``compile_dir``'s result for another tree) which kernel of
+    ``mine`` has its SASS, or none; ``ok`` is False if a kernel of
+    ``mine`` spills, or if a kernel of ``other`` whose demangled name
+    (``pretty``) ``allow_changed`` does not match lacks its SASS here."""
+    lines, ok = [], True
+    for name, kernels in mine.items():
+        for kern, r in sorted(kernels.items()):
+            if r.get("spill_stores") or r.get("spill_loads"):
+                ok = False
+                lines.append(f"[{name}] {pretty[kern]} spills")
+    allow = re.compile(allow_changed) if allow_changed else None
+    for name, kernels in other.items():
+        by_sass = {r.get("sass"): k for k, r in mine.get(name, {}).items()}
+        for kern, r in sorted(kernels.items()):
+            match = by_sass.get(r.get("sass"))
+            may = allow is not None and allow.search(pretty[kern])
+            ok &= bool(match is not None or may)
+            lines.append(
+                f"[{name}] against {pretty[kern]} ({r.get('registers')} "
+                "registers): " + (f"same SASS as {pretty[match]}" if match
+                                  else "no kernel here has its SASS"
+                                  + (" (allowed to change)" if may else "")))
+    return lines, ok
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--against", default=None,
                    help="another tree's csrc directory to compare with")
+    p.add_argument("--allow-changed", default=None,
+                   help="regex of the --against kernels (demangled) that "
+                   "may lack their SASS here")
     p.add_argument("--out", default=None, help="write the table as JSON")
     args = p.parse_args(argv)
     names = sorted(os.path.basename(f)[:-3]
@@ -142,16 +179,9 @@ def main(argv=None) -> int:
             print(f"[{name}] {pretty[kern]}: {r.get('registers')} registers,"
                   f" spill {r.get('spill_stores')} / {r.get('spill_loads')}"
                   " bytes")
-    same = True
-    for name, kernels in other.items():
-        by_sass = {r.get("sass"): k for k, r in mine.get(name, {}).items()}
-        for kern, r in sorted(kernels.items()):
-            match = by_sass.get(r.get("sass"))
-            same &= match is not None
-            print(f"[{name}] against {pretty[kern]} "
-                  f"({r.get('registers')} registers): "
-                  + (f"same SASS as {pretty[match]}" if match
-                     else "no kernel here has its SASS"))
+    lines, ok = verdict(mine, other, pretty, args.allow_changed)
+    for line in lines:
+        print(line)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"kernels": {n: {pretty[k]: v for k, v in ks.items()}
@@ -159,10 +189,11 @@ def main(argv=None) -> int:
                        "against": {n: {pretty[k]: v for k, v in ks.items()}
                                    for n, ks in other.items()}},
                       f, indent=1)
-    if other:
-        print(f"[kernel_regs] every kernel of {args.against} has its SASS "
-              f"here: {same}")
-    return 0
+    print(f"[kernel_regs] no spill here"
+          + (f", and every kernel of {args.against} not matching "
+             f"{args.allow_changed!r} has its SASS here" if other else "")
+          + f": {ok}")
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

@@ -26,9 +26,12 @@ Each wrapper sends a CPU tensor to its plain twin and a CUDA tensor to
 its kernel (anything else raises). ``launches[<wrapper name>]`` counts
 each wrapper's kernel launches; ``launches['gated_conv_kxk_wgmma']``
 counts the K2 launches :func:`kxk_route` sent to the wgmma loop (both
-operand modes), and ``launches['gated_conv_1x1_wgmma']`` the K3 and K4
-launches :func:`conv1x1_route` sent to the 1x1 wgmma loop (they count
-under their wrapper's name too).
+operand modes), ``launches['gated_conv_kxk_wgmma_tma']`` those of them
+with f32 operands, which take the loop's f32 kernel (its A operand
+copied raw by TMA im2col loads, :func:`im2col_copy_params`), and
+``launches['gated_conv_1x1_wgmma']`` the K3 and K4 launches
+:func:`conv1x1_route` sent to the 1x1 wgmma loop (they count under their
+wrapper's name too).
 
 K2 has two loops on CUDA, chosen by :func:`kxk_route`: a call with
 ``Cin % 32 == 0``, ``Cout % 8 == 0``, a 16-byte aligned ``x`` and 8-byte
@@ -70,14 +73,15 @@ from read_tpu_torch import _build
 
 __all__ = ["gated_epilogue", "gated_conv_kxk", "gated_conv_kxk_plain",
            "kxk_route", "wgmma_tile_n", "pack_kxk_bf16", "pack_kxk_tf32",
+           "im2col_copy_params",
            "conv1x1_route", "pack_1x1_bf16", "pack_1x1_tf32", "tf32_split",
            "gated_conv_1x1", "gated_conv_1x1_plain", "gated_conv_1x1_cat",
            "gated_conv_1x1_cat_plain", "round_bf16", "launches"]
 
 # kernel launches per wrapper (a CPU call runs the twin and counts nothing)
 launches = {"gated_conv_kxk": 0, "gated_conv_kxk_wgmma": 0,
-            "gated_conv_1x1": 0, "gated_conv_1x1_cat": 0,
-            "gated_conv_1x1_wgmma": 0}
+            "gated_conv_kxk_wgmma_tma": 0, "gated_conv_1x1": 0,
+            "gated_conv_1x1_cat": 0, "gated_conv_1x1_wgmma": 0}
 MAX_CAT = 4  # inputs K4 takes in one launch
 WGMMA_K = 64  # K slice of the wgmma loops: one 128-byte bf16 row
 TF32_K = 32  # K slice of their f32 mode: one 128-byte f32 row
@@ -310,6 +314,71 @@ def pack_kxk_tf32(w: torch.Tensor) -> torch.Tensor:
     return _tf32_blocks(w.reshape(k * k * cin, c2), wgmma_tile_n(c2 // 2))
 
 
+IM2COL_PIXELS = 128  # pixels a TMA im2col load: a tile (gcw::TF32_BM)
+
+
+def im2col_copy_params(x_shape, k: int, stride: int) -> dict:
+    """The host-side parameters of the f32 wgmma loop's A copies for
+    ``x [B, H, W, Cin]`` float32 and a k x k conv at ``stride``, zero pad
+    ``(k-1)//2`` (``csrc/gated_conv_wgmma.cuh``: ``gcw::encode_im2col``'s
+    tensor map and the producer's per-load coordinates compute the same),
+    and the walk they define:
+
+    - ``dims`` ``(Cin, W, H, B)`` and ``strides`` (bytes a step in W, H
+      and B) of x's tensor map, innermost first;
+    - ``box``: ``(32, 128)``, channels and pixels a load (one K slice of
+      a 128-pixel tile), stored in the 128-byte swizzle;
+    - ``lower`` and ``upper``: the bounding box's corners in ``(W, H)``,
+      ``-pad`` past the near edge and ``pad - (k-1)`` past the far one, so
+      that its positions at the traversal stride are the top-left taps of
+      the output pixels;
+    - ``element_strides``: ``(1, stride, stride, 1)``, the traversal
+      strides;
+    - ``slices``: for each K slice (32 channels of one tap, tap-major),
+      ``(c, off_w, off_h)``: its first channel and the tap's im2col
+      offsets;
+    - ``starts``: ``[tiles, 3]`` int64, ``(w, h, n)`` of each tile's first
+      output pixel (pixels ``128 t ..``): its top-left tap in image ``n``,
+      where the tile's loads start;
+    - ``walk``: ``[tiles, 128, 3]`` int64, the ``(w, h, n)`` each row of a
+      tile's load reads at (before the slice's offsets): TMA's im2col
+      walk from the start along the bounding box's positions at the
+      traversal strides, W first, then the next row of positions in H,
+      then the next image; rows past the last image have ``n >= B``.
+
+    Out-of-bounds elements read as zero: the padding, and the pixels past
+    the last image in the last tile."""
+    b, h, w, cin = x_shape
+    pad = (k - 1) // 2
+    ho = (h + 2 * pad - k) // stride + 1
+    wo = (w + 2 * pad - k) // stride + 1
+    m0 = torch.arange(-(-b * ho * wo // IM2COL_PIXELS),
+                      dtype=torch.int64) * IM2COL_PIXELS
+    n, r = m0 // (ho * wo), m0 % (ho * wo)
+    lower, upper = -pad, pad - (k - 1)
+    starts = torch.stack([(r % wo) * stride + lower,
+                          (r // wo) * stride + lower, n], -1)
+    slices = []
+    for kidx in range(0, k * k * cin, TF32_K):
+        tap = kidx // cin
+        slices.append((kidx - tap * cin, tap % k, tap // k))
+    # the walk: positions of the bounding box along W and H, then images
+    nw = (w - 1 + upper - lower) // stride + 1
+    nh = (h - 1 + upper - lower) // stride + 1
+    first = (starts[:, 2] * nh + (starts[:, 1] - lower) // stride) * nw \
+        + (starts[:, 0] - lower) // stride
+    pos = first[:, None] + torch.arange(IM2COL_PIXELS)
+    rem = pos % (nh * nw)
+    walk = torch.stack([lower + stride * (rem % nw),
+                        lower + stride * (rem // nw), pos // (nh * nw)], -1)
+    return {"dims": (cin, w, h, b),
+            "strides": (4 * cin, 4 * w * cin, 4 * h * w * cin),
+            "box": (TF32_K, IM2COL_PIXELS), "lower": (lower, lower),
+            "upper": (upper, upper),
+            "element_strides": (1, stride, stride, 1), "slices": slices,
+            "starts": starts, "walk": walk}
+
+
 def _launch_wgmma(x, packed, b, scale, offset, res, out, k, stride, relu,
                   ops, what="gated_conv_kxk (wgmma)"):
     """Launch ``gated_conv_kxk_wgmma`` in mode ``ops`` (``OPS_*``; a bool
@@ -363,6 +432,7 @@ def gated_conv_kxk(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                       relu, OPS_BF16 if bf16 else OPS_TF32X3)
         launches["gated_conv_kxk"] += 1
         launches["gated_conv_kxk_wgmma"] += 1
+        launches["gated_conv_kxk_wgmma_tma"] += int(not bf16)
         return out
     fn = _build.function("gated_conv", "gated_conv_kxk", _KXK_ARGTYPES)
     _build.call(fn, x.device, "gated_conv_kxk", x.data_ptr(), w.data_ptr(),

@@ -24,8 +24,9 @@ K2 keeps for its other calls (``csrc/gated_conv_tile.cuh``). ``loop=None``
 routes as K2 routes (:func:`probe_route`): ``Cin % 32 == 0``, ``Cout % 8
 == 0`` and a 16-byte aligned ``x`` take the wgmma loop. Forcing
 ``'wgmma'`` where the loop cannot run raises. On the wgmma loop in f32,
-``packonly`` is the sum ``hi + lo`` of the staged TF32 parts
-(``ops.gated_conv.tf32_split``), which the twin computes too.
+``packonly`` is the sum ``hi + lo`` of the TF32 parts the consumer
+splits the staged values into (``ops.gated_conv.tf32_split``), which the
+twin computes too.
 
 The wrapper sends a CPU tensor to the twin and a CUDA tensor to a kernel;
 ``launches['gated_conv_probe']`` counts every launch, ``_wgmma`` and
@@ -102,7 +103,7 @@ def gated_conv_probe_plain(x: torch.Tensor, w: torch.Tensor, *,
     taps, masks = _taps(x)
     if mode == "packonly":
         cols = torch.cat(taps, dim=-1)[..., :min(c2, 9 * cin)]
-        if loop == "wgmma" and not bf16:   # the staged TF32 parts
+        if loop == "wgmma" and not bf16:   # the split TF32 parts
             hi, lo = GC.tf32_split(cols)
             cols = hi + lo
         return F.pad(cols, (0, c2 - cols.shape[-1])).contiguous()

@@ -519,12 +519,65 @@ def test_gated_conv_kxk_wgmma_matches_twin(dev, cin, cout, k, stride,
                                 relu=relu, bf16=bf16, packed=packed)
         assert GC.launches["gated_conv_kxk_wgmma"] == \
             before["gated_conv_kxk_wgmma"] + 1
+        assert GC.launches["gated_conv_kxk_wgmma_tma"] == \
+            before["gated_conv_kxk_wgmma_tma"] + (not bf16)
         assert GC.launches["gated_conv_kxk"] == before["gated_conv_kxk"] + 1
         want = GC.gated_conv_kxk_plain(x, w, b, scale, offset, res,
                                        stride=stride, relu=relu, bf16=bf16)
         torch.cuda.synchronize()
         assert got.shape == (2, ho, wo, cout)
         torch.testing.assert_close(got, want, **F32)
+
+
+@pytest.mark.parametrize("cin,cout,k,stride,bsz,h,w", [
+    (32, 32, 3, 1, 2, 23, 70),      # 64-column tiles, 2 images
+    (32, 256, 3, 1, 1, 17, 29),     # four N tiles
+    (256, 32, 3, 1, 2, 9, 13),      # K = 2304
+    (256, 256, 3, 1, 1, 12, 17),    # K = 2304, four N tiles
+    (64, 128, 3, 2, 2, 23, 70),     # k3s2
+    (128, 64, 3, 2, 1, 31, 45),     # k3s2, odd sizes
+    (256, 256, 4, 2, 2, 14, 22),    # k4s2, K = 4096
+    (32, 64, 4, 2, 1, 37, 121)])    # k4s2, odd sizes
+@pytest.mark.parametrize("with_res", [False, True])
+def test_gated_conv_kxk_f32_tma_path_matches_twin(dev, cin, cout, k, stride,
+                                                  bsz, h, w, with_res):
+    """K2's f32 kernel (A copied raw by TMA im2col, split in the
+    consumer's registers, register-A TF32 x3 products) within the f32
+    bound of the twin: 3x3 s1, k3s2, k4s2, Cin and Cout 32 to 256, K up
+    to 16 x 256, pixel counts that are no multiple of 64, B > 1, relu on
+    and off, with and without the residual; each call counted on the
+    f32 kernel. An x view 4 bytes past a 16-byte boundary keeps the tile
+    loop."""
+    x, wk, b, scale, offset = _conv_case(dev, (bsz, h, w), cin, cout, k,
+                                         cin + cout + k + h)
+    pad = (k - 1) // 2
+    ho, wo = ((n + 2 * pad - k) // stride + 1 for n in (h, w))
+    assert (bsz * ho * wo) % 64 != 0
+    res = (torch.randn(bsz, ho, wo, cout, device=dev) if with_res
+           else None)
+    packed = GC.pack_kxk_tf32(wk)
+    for relu in (True, False):
+        before = dict(GC.launches)
+        got = GC.gated_conv_kxk(x, wk, b, scale, offset, res, stride=stride,
+                                relu=relu, packed=packed)
+        assert GC.launches["gated_conv_kxk_wgmma_tma"] == \
+            before["gated_conv_kxk_wgmma_tma"] + 1
+        want = GC.gated_conv_kxk_plain(x, wk, b, scale, offset, res,
+                                       stride=stride, relu=relu)
+        torch.cuda.synchronize()
+        assert got.shape == (bsz, ho, wo, cout)
+        torch.testing.assert_close(got, want, **F32)
+    flat = torch.empty(x.numel() + 1, device=dev)
+    xv = flat[1:].view(x.shape).copy_(x)
+    assert xv.data_ptr() % 16 == 4 and GC.kxk_route(xv, wk) == "tile"
+    before = dict(GC.launches)
+    got = GC.gated_conv_kxk(xv, wk, b, scale, offset, res, stride=stride)
+    assert GC.launches["gated_conv_kxk"] == before["gated_conv_kxk"] + 1
+    assert GC.launches["gated_conv_kxk_wgmma_tma"] == \
+        before["gated_conv_kxk_wgmma_tma"]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, GC.gated_conv_kxk_plain(
+        x, wk, b, scale, offset, res, stride=stride), **F32)
 
 
 @pytest.mark.parametrize("bf16", [False, True])
@@ -654,7 +707,8 @@ def test_misaligned_epilogue_views_keep_the_tile_loop(dev, bf16):
                                      bf16=bf16)
         got2 = GC.gated_conv_kxk(x, w3, bias, scale, offset, r, bf16=bf16)
         assert GC.launches["gated_conv_kxk"] == before["gated_conv_kxk"] + 1
-        for loop in ("gated_conv_1x1_wgmma", "gated_conv_kxk_wgmma"):
+        for loop in ("gated_conv_1x1_wgmma", "gated_conv_kxk_wgmma",
+                     "gated_conv_kxk_wgmma_tma"):
             assert GC.launches[loop] == before[loop]
         want = GC.gated_conv_1x1_plain(x, w, bias, scale, offset, r,
                                        bf16=bf16)

@@ -41,3 +41,25 @@ def test_parse_sass_hashes_bodies_without_names():
     new = KR.parse_sass(_sass("_Z1av_renamed", body.replace(";", "   ;")))
     assert set(old) == {"_Z1av", "_Z1bv"}
     assert new["_Z1av_renamed"] == old["_Z1av"] != old["_Z1bv"]
+
+
+def test_verdict_allows_only_the_named_kernels_to_change():
+    """Every kernel of the other tree needs its SASS here unless its
+    demangled name matches ``allow_changed``; a spill anywhere here
+    fails too."""
+    pretty = {"a_old": "f32<1>", "b_old": "bf16<1>", "a": "f32_new<1>",
+              "b": "bf16<1>"}
+    other = {"lib": {"a_old": {"sass": "x", "registers": 9},
+                     "b_old": {"sass": "y", "registers": 8}}}
+    mine = {"lib": {"a": {"sass": "z", "spill_stores": 0,
+                          "spill_loads": 0},
+                    "b": {"sass": "y", "spill_stores": 0,
+                          "spill_loads": 0}}}
+    lines, ok = KR.verdict(mine, other, pretty)
+    assert not ok and "same SASS as bf16<1>" in lines[1]
+    lines, ok = KR.verdict(mine, other, pretty, r"^f32<")
+    assert ok and "(allowed to change)" in lines[0]
+    assert not KR.verdict(mine, other, pretty, r"^bf16<")[1]
+    mine["lib"]["a"]["spill_loads"] = 4
+    lines, ok = KR.verdict(mine, other, pretty, r"^f32<")
+    assert not ok and lines[0] == "[lib] f32_new<1> spills"
