@@ -2999,7 +2999,8 @@ def phase_mesh(report, ctx, dev, workdir):
     ``MESH_TEXTURE``^2 tables, 8 channels, the full-width UNet, VGG):
     the triangle raster at 1216x368 B=1, timed with its peak memory
     growth; ``use_mesh`` train steps with faces at the bench crop
-    (256x256, B=8; no kernel of the port runs in them), ``SPLAT_VS_TWIN``
+    (256x256, B=8; no kernel of the port runs in them; one triangle
+    raster a view and level, ``ops.rasterize_mesh.counts``), ``SPLAT_VS_TWIN``
     then ``WARMUP + TIMED`` timed with the loss falling, beside the
     steps without faces (K5 and the uv gather: ``SPLAT_VS_TWIN`` against
     the twins, pyramids bit-equal, then timed); the state saved as a
@@ -3060,8 +3061,14 @@ def phase_mesh(report, ctx, dev, workdir):
         head.append(metrics["loss"])
     torch.cuda.synchronize()
     reset_launches()
+    rasters = RMesh.counts["rasters"]
     seconds, losses, state = timed_steps(step, state, v_d, batch)
     counts = launches()
+    rasters = RMesh.counts["rasters"] - rasters
+    if rasters != (WARMUP + TIMED) * TRAIN_B * cfg.num_scales:
+        raise SmokeFailure(f"mesh train with faces: {rasters} triangle "
+                           f"rasters in {WARMUP + TIMED} steps of "
+                           f"{TRAIN_B} views at {cfg.num_scales} levels")
     losses = loss_fell("mesh train", head, losses)
     if any(counts[k] for k in ("zbuffer", "zbuffer_exact", "zbuffer_splat",
                                "zbuffer_pyramid")):

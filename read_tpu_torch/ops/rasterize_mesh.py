@@ -28,6 +28,11 @@ take millions of atomics on one address, one after another.
 ``interpolate_uv`` recomputes each winning pixel's screen barycentrics,
 weights them by ``1 / w_clip`` and renormalizes (GL's perspective-correct
 varyings), then blends the face's vertex uv.
+
+``counts['rasters']`` counts the views :func:`rasterize_mesh` has
+rasterized and ``counts['chunks']`` their chunks of faces, for tests and
+``chip_smoke.py`` (a step of ``B`` views at ``L`` levels rasterizes
+``B * L`` times).
 """
 
 from __future__ import annotations
@@ -39,15 +44,17 @@ import torch
 
 from read_tpu_torch.ops import rasterize_kernels as RK
 
-__all__ = ["CANDIDATES_PER_CHUNK", "project_vertices", "rasterize_mesh",
-           "rasterize_mesh_batch", "interpolate_uv",
+__all__ = ["CANDIDATES_PER_CHUNK", "counts", "project_vertices",
+           "rasterize_mesh", "rasterize_mesh_batch", "interpolate_uv",
            "rasterize_mesh_reference"]
 
 _FAR = 2.0
-# candidate pixels a chunk of faces makes (faces * samples^2): 4M keep
-# each float32 array of a chunk at 16 MB
-CANDIDATES_PER_CHUNK = 1 << 22
+# candidate pixels a chunk of faces makes (faces * samples^2): 64M take a
+# 1M-face mesh in one chunk, each float32 array of a chunk at 256 MB; a
+# chunk is ~110 launches, which set a mesh step's pace (PERF.md)
+CANDIDATES_PER_CHUNK = 1 << 26
 DUMP_SLOTS = 1 << 16
+counts = {"rasters": 0, "chunks": 0}
 
 
 def project_vertices(verts: torch.Tensor, total_m: torch.Tensor):
@@ -138,10 +145,12 @@ def rasterize_mesh(verts: torch.Tensor, faces: torch.Tensor,
     buf = torch.full((h * w + DUMP_SLOTS,), RK.INT64_MAX, dtype=torch.int64,
                      device=ndc.device)
     step = max(1, CANDIDATES_PER_CHUNK // (samples * samples))
+    counts["rasters"] += 1
     for f0 in range(0, faces.shape[0], step):
         pix, key = _chunk_keys(ndc, vvalid, faces[f0:f0 + step], f0, h, w,
                                samples)
         buf.scatter_reduce_(0, pix.long(), key, "amin")
+        counts["chunks"] += 1
     index, depth = RK.unpack_exact(buf[:h * w])
     return index.view(h, w), depth.view(h, w)
 

@@ -324,18 +324,36 @@ def _mesh_pyramid(cfg: PipelineConfig, texture, xyz, total_m, h, w,
     """The mesh branch with faces: a triangle raster at each level's
     size (no pooling: the uv is interpolated at the level's own pixels),
     the perspective-correct uv map, the tables' sample, zeros where no
-    face covers a pixel."""
+    face covers a pixel. The rasters of every level run first
+    (``read.mesh_raster``), then the samples (``read.mesh_sample``);
+    each sampled level's gradient, when it arrives, marks
+    ``read.mesh_grad``."""
     ss = cfg.supersampling
+    maps = []
+    with span("read.mesh_raster"):
+        for i in range(cfg.num_scales):
+            hi, wi = (h * ss) // (2 ** i), (w * ss) // (2 ** i)
+            fi, _ = RMesh.rasterize_mesh_batch(xyz, faces, total_m, hi, wi)
+            maps.append((fi, RMesh.interpolate_uv(xyz, faces, uv2d, total_m,
+                                                  fi)))
     pyr = []
-    for i in range(cfg.num_scales):
-        hi, wi = (h * ss) // (2 ** i), (w * ss) // (2 ** i)
-        fi, _ = RMesh.rasterize_mesh_batch(xyz, faces, total_m, hi, wi)
-        uv_map = RMesh.interpolate_uv(xyz, faces, uv2d, total_m, fi)
-        x = T.sample_mesh_texture(texture, uv_map,
-                                  cfg.texture_activation)
-        x = x * (fi >= 0).unsqueeze(-1).to(x.dtype)
-        pyr.append(_downscale(x, ss) if ss > 1 else x)
+    with span("read.mesh_sample"):
+        for fi, uv_map in maps:
+            x = T.sample_mesh_texture(texture, uv_map,
+                                      cfg.texture_activation)
+            x = x * (fi >= 0).unsqueeze(-1).to(x.dtype)
+            if x.requires_grad:
+                x.register_hook(_mesh_grad_mark)
+            pyr.append(_downscale(x, ss) if ss > 1 else x)
     return pyr
+
+
+def _mesh_grad_mark(grad: torch.Tensor) -> None:
+    """A sampled level's gradient hook: the instant ``read.mesh_grad``,
+    on the autograd engine's thread, when the net's backward has handed
+    that level its gradient and the tables' sample backward has not
+    run."""
+    mark("read.mesh_grad")
 
 
 def build_pyramid(cfg: PipelineConfig, texture: Tables, xyz: torch.Tensor,
