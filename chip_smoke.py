@@ -135,10 +135,12 @@ without a device it exits non-zero at once. It
    draws, 7 timed beside the same step without the augmentation, one
    jittered projection and one pass a step, the loss falling;
 14. ``mesh``: the street of ``drive_world`` as a 0.79M-face mesh
-   (``mesh_street``): the triangle raster at 1216x368 timed with its
-   peak memory growth; ``use_mesh`` train steps (texture 512, 8
-   channels, the full-width UNet) with faces (no kernel of the port
-   runs in them), 3 then 7 timed, the loss falling, beside the steps
+   (``mesh_street``): the triangle raster's kernel (its registers and
+   spills) bit-equal to its twin at 1216x368 and at a 256x256 crop view,
+   both timed, with the twin's peak memory growth; ``use_mesh`` train
+   steps (texture 512, 8 channels, the full-width UNet) with faces (a
+   raster a view and level, each by the kernel), 3 then 7 timed, the
+   loss falling, beside the steps
    without faces (K5 and the uv gather: 3 against their twins,
    pyramids bit-equal, then 7 timed); 2 requests from the trained
    ``use_mesh`` checkpoint with faces (request 0 within 5e-4/1e-3 of
@@ -309,8 +311,13 @@ KERNELS = {
     # K5's output stage
     "zbuffer_pool": ("read_tpu_torch/csrc/zbuffer.cu",
                      "read_tpu/ops/rasterize_pallas.py:40"),
+    # the triangle raster: it replaces no TPU kernel (read_tpu's raster
+    # is plain XLA), but the twin's chain of element-wise ops
+    "mesh_raster": ("read_tpu_torch/csrc/mesh_raster.cu",
+                    "read_tpu/ops/rasterize_mesh.py:84"),
 }
-LIBRARIES = ("zbuffer", "gated_conv", "gated_conv_r2", "gated_conv_probe")
+LIBRARIES = ("zbuffer", "gated_conv", "gated_conv_r2", "gated_conv_probe",
+             "mesh_raster")
 
 
 class SmokeFailure(RuntimeError):
@@ -339,11 +346,13 @@ class Twins:
     def __enter__(self):
         from read_tpu_torch.ops import gated_conv as GC
         from read_tpu_torch.ops import rasterize_kernels as RK
+        from read_tpu_torch.ops import rasterize_mesh as RMesh
         self.saved = [(RK, "zbuffer", RK.zbuffer),
                       (RK, "zbuffer_exact", RK.zbuffer_exact),
                       (RK, "zbuffer_quant", RK.zbuffer_quant),
                       (RK, "zbuffer_pyramid", RK.zbuffer_pyramid),
                       (RK, "zbuffer_splat", RK.zbuffer_splat),
+                      (RMesh, "rasterize_mesh", RMesh.rasterize_mesh),
                       (GC, "gated_conv_kxk", GC.gated_conv_kxk),
                       (GC, "gated_conv_1x1", GC.gated_conv_1x1),
                       (GC, "gated_conv_1x1_cat", GC.gated_conv_1x1_cat)]
@@ -2994,13 +3003,34 @@ def render_atlas(verts, faces, uv, atlas, ms, hw):
     return img * (fi >= 0).unsqueeze(-1).to(img.dtype)
 
 
+def raster_regs(report):
+    """The triangle raster's kernels' registers and spills (``nvcc -Xptxas
+    -v``, :mod:`read_tpu_torch.kernel_regs`); a spill fails."""
+    import tempfile
+    from read_tpu_torch import _build, kernel_regs
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels = kernel_regs.compile_dir(_build.CSRC, ["mesh_raster"],
+                                          tmp)["mesh_raster"]
+    regs = {}
+    for kern, r in sorted(kernels.items()):
+        name = "raster" if "raster_kernel" in kern else "unpack"
+        regs[name] = r["registers"]
+        print(f"[mesh] {kern}: {r['registers']} registers, spill "
+              f"{r['spill_stores']} / {r['spill_loads']} bytes")
+        if r["spill_stores"] or r["spill_loads"]:
+            raise SmokeFailure(f"mesh raster: {kern} spills")
+    report["mesh_raster"]["registers"] = regs
+
+
 def phase_mesh(report, ctx, dev, workdir):
     """Mesh textures on the street mesh (``mesh_street``: 0.79M faces,
     ``MESH_TEXTURE``^2 tables, 8 channels, the full-width UNet, VGG):
-    the triangle raster at 1216x368 B=1, timed with its peak memory
-    growth; ``use_mesh`` train steps with faces at the bench crop
-    (256x256, B=8; no kernel of the port runs in them; one triangle
-    raster a view and level, ``ops.rasterize_mesh.counts``), ``SPLAT_VS_TWIN``
+    the triangle raster's kernel (``csrc/mesh_raster.cu``: registers and
+    spills) bit-equal to its twin and timed beside it at 1216x368 and at
+    a 256x256 crop view, with the twin's peak memory growth; ``use_mesh``
+    train steps with faces at the bench crop (256x256, B=8; one triangle
+    raster a view and level, each by the kernel,
+    ``ops.rasterize_mesh.counts``), ``SPLAT_VS_TWIN``
     then ``WARMUP + TIMED`` timed with the loss falling, beside the
     steps without faces (K5 and the uv gather: ``SPLAT_VS_TWIN`` against
     the twins, pyramids bit-equal, then timed); the state saved as a
@@ -3009,8 +3039,10 @@ def phase_mesh(report, ctx, dev, workdir):
     frame, K2/K3/K4 and both wgmma loops as their routes predict, no
     z-buffer) and 1 without faces (one K5 and one pass)."""
     import torch
+    from benchmark import mesh_flops
     from read_tpu_torch.criterions import vgg as V
-    from read_tpu_torch.kernel_bench import max_err
+    from read_tpu_torch.kernel_bench import (HBM_BYTES_S, PEAK_TF32,
+                                             event_ms, graph_ms, max_err)
     from read_tpu_torch.ops import rasterize as R
     from read_tpu_torch.ops import rasterize_mesh as RMesh
     from read_tpu_torch.pipelines import texture_pipeline as TP
@@ -3022,27 +3054,55 @@ def phase_mesh(report, ctx, dev, workdir):
     v_d, f_d, uv_d = (torch.from_numpy(a).to(dev) for a in (verts, faces,
                                                              uv))
     atlas_d = torch.from_numpy(atlas).to(dev)
-    # the triangle raster alone at the frame's size
-    _, m1 = street_matrices(street_poses(1), HW)
-    m1 = torch.from_numpy(m1).to(dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    fi, _ = RMesh.rasterize_mesh_batch(v_d, f_d, m1, *HW)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - base
-    covered = float((fi >= 0).float().mean())
-    raster_ms = wall_ms(lambda: RMesh.rasterize_mesh_batch(v_d, f_d, m1,
-                                                           *HW))
-    ctx["mesh_raster"] = (raster_ms, peak)
-    print(f"[mesh] street mesh: {len(verts)} vertices, {len(faces)} faces; "
-          f"triangle raster at {HW[1]}x{HW[0]} B=1: {raster_ms:.2f} ms "
-          f"(median of 5, synced), peak memory growth {peak / 2 ** 20:.1f} "
-          f"MiB, {covered:.3f} of pixels covered")
-    # training
+    # the triangle raster alone: the kernel against its twin at the
+    # frame's size and at a crop view of the training step
     views = street_poses(TRAIN_B)
+    _, m1 = street_matrices(street_poses(1), HW)
     _, ms = street_matrices(views, (TRAIN_HW, TRAIN_HW))
-    ms = torch.from_numpy(ms).to(dev)
+    m1, ms = torch.from_numpy(m1).to(dev), torch.from_numpy(ms).to(dev)
+    raster_regs(report)
+    for label, m, hw in (("frame", m1[0], HW),
+                         ("crop", ms[TRAIN_B // 2], (TRAIN_HW, TRAIN_HW))):
+        kernel = RMesh.counts["kernel"]
+        got = RMesh.rasterize_mesh(v_d, f_d, m, *hw)
+        if RMesh.counts["kernel"] != kernel + 1:
+            raise SmokeFailure(f"mesh raster {label}: the kernel ran "
+                               f"{RMesh.counts['kernel'] - kernel} times")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        want = RMesh.rasterize_mesh_plain(v_d, f_d, m, *hw)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                             want[1])):
+            raise SmokeFailure(f"mesh raster {label}: maps differ from the "
+                               f"twin's at {int((got[0] != want[0]).sum())} "
+                               "pixels")
+        covered = float((got[0] >= 0).float().mean())
+        t_k = event_ms(lambda: RMesh.rasterize_mesh(v_d, f_d, m, *hw),
+                       iters=20)
+        g_k = graph_ms(lambda: RMesh.rasterize_mesh(v_d, f_d, m, *hw))
+        t_p = event_ms(lambda: RMesh.rasterize_mesh_plain(v_d, f_d, m, *hw),
+                       iters=5)
+        b_ops = mesh_flops.raster_ops(len(verts), len(faces), *hw) \
+            / PEAK_TF32
+        b_bytes = mesh_flops.raster_bytes(len(verts), len(faces), *hw) \
+            / HBM_BYTES_S
+        b_s, b_by = max(b_ops, b_bytes), ("bytes" if b_bytes >= b_ops
+                                          else "operations")
+        print(f"[mesh] street mesh: {len(verts)} vertices, {len(faces)} "
+              f"faces; triangle raster at {hw[1]}x{hw[0]} ({label}): "
+              f"bit-equal to the twin, {covered:.3f} of pixels covered; "
+              f"kernel {t_k:.4f} ms (in a CUDA graph {g_k:.4f}), twin "
+              f"{t_p:.3f} ms (peak memory growth {peak / 2 ** 20:.1f} MiB), "
+              f"bound {b_s * 1e3:.5f} ms (benchmark/mesh_flops.py)")
+    report["mesh_raster"].update(ms=t_k, graph_ms=g_k, plain_ms=t_p,
+                                 library_ms=None, bound_ms=b_s * 1e3,
+                                 bound_by=b_by, max_abs_err=0.0,
+                                 shape=f"{len(faces)} faces, "
+                                       f"{TRAIN_HW}x{TRAIN_HW}")
+    # training
     target = render_atlas(v_d, f_d, uv_d, atlas_d, ms, (TRAIN_HW, TRAIN_HW))
     vgg = V.random_vgg_params(torch.Generator().manual_seed(0), device=dev)
     cfg = TP.config_from_dict({"use_mesh": True,
@@ -3052,23 +3112,27 @@ def phase_mesh(report, ctx, dev, workdir):
                                  len(verts), device=dev)
     batch = {"total_m": ms, "target": target, "uv2d": uv_d, "faces": f_d}
     step = TP.make_train_step(net, cfg, vgg)
-    # with faces no kernel of the port runs in the step (the triangle
-    # raster and the texture sample are plain PyTorch), so no twin holds
-    # it: SPLAT_VS_TWIN steps from the fresh state, then the timed window
+    # with faces the triangle raster's kernel runs in the step (held to
+    # its twin above) and the texture sample is plain PyTorch:
+    # SPLAT_VS_TWIN steps from the fresh state, then the timed window
     head = []
     for i in range(SPLAT_VS_TWIN):
         state, metrics = step(state, v_d, batch)
         head.append(metrics["loss"])
     torch.cuda.synchronize()
     reset_launches()
-    rasters = RMesh.counts["rasters"]
+    rasters, kernel = RMesh.counts["rasters"], RMesh.counts["kernel"]
     seconds, losses, state = timed_steps(step, state, v_d, batch)
     counts = launches()
     rasters = RMesh.counts["rasters"] - rasters
-    if rasters != (WARMUP + TIMED) * TRAIN_B * cfg.num_scales:
+    kernel = RMesh.counts["kernel"] - kernel
+    want = (WARMUP + TIMED) * TRAIN_B * cfg.num_scales
+    if rasters != want or kernel != want:
         raise SmokeFailure(f"mesh train with faces: {rasters} triangle "
-                           f"rasters in {WARMUP + TIMED} steps of "
-                           f"{TRAIN_B} views at {cfg.num_scales} levels")
+                           f"rasters, {kernel} by the kernel, in "
+                           f"{WARMUP + TIMED} steps of {TRAIN_B} views at "
+                           f"{cfg.num_scales} levels")
+    report["mesh_raster"]["launches"] = kernel
     losses = loss_fell("mesh train", head, losses)
     if any(counts[k] for k in ("zbuffer", "zbuffer_exact", "zbuffer_splat",
                                "zbuffer_pyramid")):

@@ -4,7 +4,10 @@ Counterpart of ``read_tpu/ops/rasterize_mesh.py``: ``project_vertices``
 (:49-66), ``rasterize_mesh`` (:84-162), ``rasterize_mesh_batch``
 (:165-170), ``interpolate_uv`` (:173-210) and the sequential numpy
 oracle ``rasterize_mesh_reference`` (:213-248). The JAX version is plain
-XLA (no Pallas kernel behind it), and so is this one: plain PyTorch.
+XLA (no Pallas kernel behind it). Here a CUDA tensor goes to a
+hand-written kernel (``csrc/mesh_raster.cu``), a CPU tensor to its plain
+PyTorch twin (:func:`rasterize_mesh_plain`), which gives the same maps
+bit for bit.
 
 For each face a static ``samples x samples`` grid of candidate pixels,
 anchored at the floor of its screen bbox's corner, is tested for
@@ -16,45 +19,51 @@ a pixel is the least depth, ties to the least face id, which JAX finds
 with a lexicographic sort and a unique scatter. Depths are kept only
 where they are ``>= 0``, so they order like their float bits, and the
 port takes K5's exact 64-bit key ``(depth bits) << 32 | face id``
-(``rasterize_kernels.pack_exact_keys``) and its per-pixel minimum
-(``scatter_reduce_`` amin). The minimum is associative, so faces go in
-chunks of ``CANDIDATES_PER_CHUNK`` candidates into one key buffer and
-views one after another: the peak memory is a few arrays of one chunk,
-whatever the mesh. Most candidates are rejected (off the face or the
-frame); they aim at a dump region of ``DUMP_SLOTS`` slots past the
-frame, spread by candidate, because on the card one dump slot would
-take millions of atomics on one address, one after another.
+(``rasterize_kernels.pack_exact_keys``) and its per-pixel minimum. The
+twin takes it with ``scatter_reduce_`` amin. The minimum is
+associative, so faces go in chunks of ``CANDIDATES_PER_CHUNK``
+candidates into one key buffer and views one after another: the peak
+memory is a few arrays of one chunk, whatever the mesh. Most candidates
+are rejected (off the face or the frame); they aim at a dump region of
+``DUMP_SLOTS`` slots past the frame, spread by candidate, because on the
+card one dump slot would take millions of atomics on one address, one
+after another. The kernel does one ``atomicMin`` an accepted candidate
+and nothing for the others: a fill, the raster and an unpack, three
+device operations a view.
 
 ``interpolate_uv`` recomputes each winning pixel's screen barycentrics,
 weights them by ``1 / w_clip`` and renormalizes (GL's perspective-correct
 varyings), then blends the face's vertex uv.
 
 ``counts['rasters']`` counts the views :func:`rasterize_mesh` has
-rasterized and ``counts['chunks']`` their chunks of faces, for tests and
-``chip_smoke.py`` (a step of ``B`` views at ``L`` levels rasterizes
-``B * L`` times).
+rasterized on either route, ``counts['kernel']`` those the kernel
+rasterized and ``counts['chunks']`` the twin's chunks of faces, for
+tests and ``chip_smoke.py`` (a step of ``B`` views at ``L`` levels
+rasterizes ``B * L`` times).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from read_tpu_torch import _build
 from read_tpu_torch.ops import rasterize_kernels as RK
 
 __all__ = ["CANDIDATES_PER_CHUNK", "counts", "project_vertices",
-           "rasterize_mesh", "rasterize_mesh_batch", "interpolate_uv",
-           "rasterize_mesh_reference"]
+           "rasterize_mesh", "rasterize_mesh_plain", "rasterize_mesh_batch",
+           "interpolate_uv", "rasterize_mesh_reference"]
 
 _FAR = 2.0
-# candidate pixels a chunk of faces makes (faces * samples^2): 64M take a
-# 1M-face mesh in one chunk, each float32 array of a chunk at 256 MB; a
-# chunk is ~110 launches, which set a mesh step's pace (PERF.md)
+# the twin's candidate pixels a chunk of faces makes (faces * samples^2):
+# 64M take a 1M-face mesh in one chunk, each float32 array of a chunk at
+# 256 MB; a chunk is ~110 launches (PERF.md)
 CANDIDATES_PER_CHUNK = 1 << 26
 DUMP_SLOTS = 1 << 16
-counts = {"rasters": 0, "chunks": 0}
+counts = {"rasters": 0, "kernel": 0, "chunks": 0}
 
 
 def project_vertices(verts: torch.Tensor, total_m: torch.Tensor):
@@ -131,21 +140,17 @@ def _chunk_keys(ndc, vvalid, faces, f0, h, w, samples):
     return pix, RK.pack_exact_keys(pix, dep, ids, h * w)
 
 
-def rasterize_mesh(verts: torch.Tensor, faces: torch.Tensor,
-                   total_m: torch.Tensor, h: int, w: int,
-                   samples: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One view of an indexed triangle mesh: ``verts [N, 3]`` float32,
-    ``faces [T, 3]`` int vertex ids (``T < 2^31``), ``total_m [4, 4]``.
-    Returns ``(face_idx [h, w] int32, depth [h, w] float32)``, -1 and 0
-    where no face covers the pixel."""
-    if faces.shape[0] >= 2 ** 31:
-        raise ValueError("rasterize_mesh: face ids must fit in 31 bits")
+def rasterize_mesh_plain(verts: torch.Tensor, faces: torch.Tensor,
+                         total_m: torch.Tensor, h: int, w: int,
+                         samples: int = 8):
+    """Plain PyTorch twin of :func:`rasterize_mesh` (same contract), on
+    any device: the faces' candidates chunk by chunk
+    (``counts['chunks']``), ``scatter_reduce_`` amin, the unpack."""
     ndc, _, vvalid = project_vertices(verts, total_m)
     faces = faces.to(device=ndc.device)
     buf = torch.full((h * w + DUMP_SLOTS,), RK.INT64_MAX, dtype=torch.int64,
                      device=ndc.device)
     step = max(1, CANDIDATES_PER_CHUNK // (samples * samples))
-    counts["rasters"] += 1
     for f0 in range(0, faces.shape[0], step):
         pix, key = _chunk_keys(ndc, vvalid, faces[f0:f0 + step], f0, h, w,
                                samples)
@@ -153,6 +158,53 @@ def rasterize_mesh(verts: torch.Tensor, faces: torch.Tensor,
         counts["chunks"] += 1
     index, depth = RK.unpack_exact(buf[:h * w])
     return index.view(h, w), depth.view(h, w)
+
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p]
+
+
+def _raster_kernel(verts, faces, total_m, h, w, samples):
+    dev = verts.device
+    v = verts.detach().to(torch.float32).contiguous()
+    f = faces.to(device=dev, dtype=torch.int32).contiguous()
+    m = total_m.to(device=dev, dtype=torch.float32).contiguous()
+    keys = torch.empty(h * w, dtype=torch.int64, device=dev)
+    index = torch.empty((h, w), dtype=torch.int32, device=dev)
+    depth = torch.empty((h, w), dtype=torch.float32, device=dev)
+    fn = _build.function("mesh_raster", "mesh_raster", _ARGTYPES)
+    _build.call(fn, dev, "rasterize_mesh", v.data_ptr(), v.shape[0],
+                f.data_ptr(), f.shape[0], m.data_ptr(), h, w, samples,
+                keys.data_ptr(), index.data_ptr(), depth.data_ptr())
+    counts["kernel"] += 1
+    return index, depth
+
+
+def rasterize_mesh(verts: torch.Tensor, faces: torch.Tensor,
+                   total_m: torch.Tensor, h: int, w: int,
+                   samples: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One view of an indexed triangle mesh: ``verts [N, 3]`` float32,
+    ``faces [T, 3]`` int vertex ids (``T < 2^31``), ``total_m [4, 4]``.
+    Returns ``(face_idx [h, w] int32, depth [h, w] float32)``, -1 and 0
+    where no face covers the pixel. On ``verts``' device: the twin on
+    the CPU, the kernel on CUDA (where a face with a vertex id outside
+    ``[-N, N)`` covers nothing; the twin's indexing raises)."""
+    if faces.shape[0] >= 2 ** 31:
+        raise ValueError("rasterize_mesh: face ids must fit in 31 bits")
+    counts["rasters"] += 1
+    if verts.device.type == "cpu":
+        return rasterize_mesh_plain(verts, faces, total_m, h, w, samples)
+    if verts.device.type != "cuda":
+        raise RuntimeError(f"rasterize_mesh: no kernel for device "
+                           f"{verts.device}")
+    if verts.dim() != 2 or verts.shape[1] != 3 or faces.dim() != 2 \
+            or faces.shape[1] != 3 or tuple(total_m.shape) != (4, 4):
+        raise ValueError(f"rasterize_mesh: want verts [N, 3], faces [T, 3], "
+                         f"total_m [4, 4]; got {tuple(verts.shape)}, "
+                         f"{tuple(faces.shape)}, {tuple(total_m.shape)}")
+    return _raster_kernel(verts, faces, total_m, h, w, samples)
 
 
 def rasterize_mesh_batch(verts: torch.Tensor, faces: torch.Tensor,
